@@ -3,29 +3,46 @@
 
     python3 chip_smoke.py                 # every phase, as a release check
     python3 chip_smoke.py --phases build,k1,k2
+    python3 chip_smoke.py --phases k3,k2bf16,recall_i4,i4_scale
 
 Phases, each printing one progress line; any failure exits non-zero:
-  1 device  card name and power limit (nvidia-smi); fails without CUDA
-  2 build   nvcc builds csrc/*.cu into dawnsearch_tpu_torch/_build/
-  3 k1      whole-layer kernel vs bert_layer_plain at MiniLM width, bf16,
+  device    card name and power limit (nvidia-smi); fails without CUDA
+  build     nvcc builds csrc/*.cu into dawnsearch_tpu_torch/_build/ (one
+            nvcc per source, in parallel) and prints ptxas' registers
+  k1        whole-layer kernel vs bert_layer_plain at MiniLM width, bf16,
             (B=64, S=128), (B=8, S=512) and (B=64, S=16: short queries)
-            with ragged masks; timed
-  4 k2      i8 score+select vs select_candidates_plain at 1,048,576 x 384
+            with ragged masks; timed, beside torch's TransformerEncoderLayer
+            fast path on the same weights (the library yardstick)
+  k2        i8 score+select vs select_candidates_plain at 1,048,576 x 384
             codes and 1024 queries: values and ids bit-equal; timed
-  5 recall  FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
+  k3        i4 score+select (K3) at 1,048,576 logical rows (201 MB packed)
+            and 1024 queries: qi8 values and ids bit-equal to the plain
+            twin, qi8=False within the bf16 tolerance; timed
+  k2bf16    K2 over bf16 codes (805 MB) and K2 i8 with qi8=False, 1024
+            queries, within the bf16 tolerance; timed
+  recall    FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
             recall@10 raw and after the f32 re-rank of k+30 candidates
+  recall_i4 FlatIndex i4 at 2,097,152 rows built through host-packed adds
+            (re-rank at the i4 ladder's 256 candidates) and FlatIndex
+            bf16 at 1,048,576 rows (k+30)
+  i4_scale  a 67,108,864-row i4 index (12.9 GB of codes) filled by device
+            adds, searched at B=1 and B=1024, a planted row at rank 1
   profile   where a text query's time goes on the node's default path
             (FusedQueryPath over 270,000 i8 rows): host-timed tokenize,
             encode, select and whole query at B=1, 8, 64, and the device
             busy share and top kernels from torch.profiler
-  6 node    `python -m dawnsearch_tpu_torch` over a 270,000-page store
-            (past the 262,144-row gate of the K2 path): 32 pages through
+  node      `python -m dawnsearch_tpu_torch` over a 270,000-page store
+            (past the 262,144-row gate of the fused select), once each
+            with index_dtype i8, i4 and bf16: 32 pages through
             /api/insert, 8 of them queried back through /api/search at
-            rank 1, both kernel counters read from /api/metrics
+            rank 1, the K1 counter and the tier's select counter read from
+            /api/metrics
 
 The last two lines of a full run are a JSON line of per-kernel results
 and {"ok": true, "device": {...}}. Times are CUDA-event medians of 10
-runs after 3 warm-ups.
+runs after 3 warm-ups. Each kernel's bound_ms is the larger of its
+operations over the H100's dense peak for their type and its bytes (each
+input read once, each output written once) over 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -47,13 +64,36 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "k1", "k2", "recall", "profile", "node")
+PHASES = ("device", "build", "k1", "k2", "k3", "k2bf16", "recall",
+          "recall_i4", "i4_scale", "profile", "node")
 K1_SHAPES = ((64, 128), (8, 512), (64, 16))
 K2_ROWS, K2_BATCH = 1 << 20, 1024
+I4_RECALL_ROWS = 1 << 21
+I4_SCALE_ROWS, I4_SCALE_ADD = 1 << 26, 1 << 20
 NODE_PAGES = 270_000
+NODE_TIERS = ("i8", "i4", "bf16")
 PROFILE_BATCHES, PROFILE_K = (1, 8, 64), 50
 COS_MIN = 0.999          # bf16 bound of the reference (test_pallas_kernels.py)
 RAW_RECALL_MIN, RERANK_RECALL_MIN = 0.95, 0.99
+# bf16-query select variants vs their plain twin: f32 sums of the same
+# bf16 products in another order differ by a few ulps of the dot, which
+# can move a truncated key by one step (128 ulps: 1.5e-5 in [1, 2),
+# 3.1e-5 in [2, 4)). Bound: two key steps on the values, the window ids
+# equal on at least 99% of (query, window) pairs, and the top-10 after
+# the fold to k + 30 and an f32 re-rank equal for every query.
+BF16_VAL_TOL, BF16_ID_SHARE = 3.1e-5, 0.99
+# H100 SXM dense peaks (NVIDIA data sheet, 700 W) and HBM3 bandwidth
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
+# each kernel entry's launch counter in /api/metrics
+COUNTER = {"bert_layer": "kernel_bert_layer", "select_i8": "kernel_select",
+           "select_i8_qbf16": "kernel_select_i8_qbf16",
+           "select_bf16": "kernel_select_bf16",
+           "select_i4": "kernel_select_i4",
+           "select_i4_qbf16": "kernel_select_i4_qbf16"}
+# select launch counters (ops/scan_select.VARIANTS) by node tier
+NODE_SELECT = {"i8": "kernel_select", "i4": "kernel_select_i4",
+               "bf16": "kernel_select_bf16"}
 
 TEXTS = [
     "the lighthouse keeper climbed the spiral stairs every night to trim the wick and watch the storm roll over the black rocks",
@@ -137,6 +177,28 @@ def phase_build() -> None:
     say(f"phase build: {os.path.relpath(path, HERE)} ready in "
         f"{time.perf_counter() - t0:.1f} s "
         f"({'nvcc ' + format(built, '.1f') + ' s' if built else 'cached'})")
+    # ptxas -v: "Compiling entry function '<mangled>' ..." then "Used N
+    # registers, ..." for each kernel
+    entry = None
+    for line in _cuda.ptxas_report().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and "registers" in line and entry:
+            say(f"phase build: ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+            entry = None
+
+
+def bound(ops: float, kind: str, nbytes: float) -> dict:
+    """The least time the card could take: the larger of ops over the
+    dense peak for their type and bytes over the HBM bandwidth."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def _layer_weights(rng: np.random.Generator, H: int, I: int, dev) -> list:
@@ -153,12 +215,41 @@ def _layer_weights(rng: np.random.Generator, H: int, I: int, dev) -> list:
             mat(H, I), vec(I), mat(I, H), vec(H), vec(H, 1.0), vec(H)]
 
 
+def library_layer(weights: list, H: int, I: int, nh: int):
+    """torch's TransformerEncoderLayer (post-LN, erf GELU) in bf16 with the
+    K1 weights: the one PyTorch call that computes the same layer. It is
+    K1's library yardstick only; the port never calls it."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = weights
+    lay = torch.nn.TransformerEncoderLayer(
+        H, nh, I, dropout=0.0, activation="gelu", layer_norm_eps=1e-12,
+        batch_first=True, device=wqkv.device, dtype=torch.bfloat16).eval()
+    with torch.no_grad():
+        for dst, src in ((lay.self_attn.in_proj_weight, wqkv.T),
+                         (lay.self_attn.in_proj_bias, bqkv),
+                         (lay.self_attn.out_proj.weight, wo.T),
+                         (lay.self_attn.out_proj.bias, bo),
+                         (lay.norm1.weight, g1), (lay.norm1.bias, be1),
+                         (lay.linear1.weight, w1.T), (lay.linear1.bias, b1),
+                         (lay.linear2.weight, w2.T), (lay.linear2.bias, b2),
+                         (lay.norm2.weight, g2), (lay.norm2.bias, be2)):
+            dst.copy_(src)
+    return lay
+
+
+def k1_bound(B: int, S: int, H: int, I: int, x, weights) -> dict:
+    """Projections 2·M·(4H² + 2HI) plus attention 4·B·S²·H at the bf16
+    peak; bytes: x, y, the weights and the (B, S) key bias."""
+    flops = 2 * B * S * (4 * H * H + 2 * H * I) + 4 * B * S * S * H
+    return bound(flops, "bf16", 2 * nbytes(x) + nbytes(*weights) + B * S * 4)
+
+
 def phase_k1(results: list) -> None:
     from dawnsearch_tpu_torch.ops import layer
     rng = np.random.default_rng(1)
     H, I, nh = 384, 1536, 12
     dev = torch.device("cuda")
     weights = _layer_weights(rng, H, I, dev)
+    lib = library_layer(weights, H, I, nh)
     shapes = []
     for B, S in K1_SHAPES:
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
@@ -177,17 +268,29 @@ def phase_k1(results: list) -> None:
             (got * m).sum(1), (want * m).sum(1), dim=-1)
         ok = bool(torch.isfinite(got).all()) and float(cos.min()) > COS_MIN \
             and float(pooled.min()) > COS_MIN
+        with torch.inference_mode():
+            lib_out = lib(x, src_key_padding_mask=~mask).float()
+            lib_cos = float(torch.nn.functional.cosine_similarity(
+                lib_out[mask], want[mask], dim=-1).min())
+            library_ms = cuda_ms(lambda: lib(x, src_key_padding_mask=~mask))
         ms = cuda_ms(lambda: layer.fused_bert_layer(x, bias, *weights, nh=nh))
         plain_ms = cuda_ms(lambda: layer.bert_layer_plain(x, bias, *weights,
                                                           nh=nh))
+        bd = k1_bound(B, S, H, I, x, weights)
         say(f"phase k1 B={B} S={S}: max|d|={err:.3e} min token cos="
             f"{float(cos.min()):.6f} min pooled cos={float(pooled.min()):.6f}"
-            f" kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+            f" kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
+            f"{library_ms:.3f} ms (min token cos vs plain {lib_cos:.4f}) "
+            f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"B={B} S={S} (cos bound {COS_MIN})")
+        if lib_cos < 0.99:
+            raise AssertionError(f"the library layer computes another "
+                                 f"function (token cos {lib_cos:.4f})")
         shapes.append({"shape": f"B={B} S={S} H={H} I={I} bf16",
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **bd, "library_ms": library_ms})
     # the entry's numbers are the first (serving-batch) shape's; the
     # others ride along
     results.append({"name": "bert_layer", "route": "cuda",
@@ -201,36 +304,156 @@ def phase_k2(results: list) -> None:
     from dawnsearch_tpu_torch.ops import scan_select as ss
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    codes, scales = quantize_rows_i8(_unit_rows(K2_ROWS, g, dev))
-    qq, qs = ss.quantize_queries(_unit_rows(K2_BATCH, g, dev))
+    rows = _unit_rows(K2_ROWS, g, dev)
+    queries = _unit_rows(K2_BATCH, g, dev)
+    codes, scales = quantize_rows_i8(rows)
+    qq, qs = ss.quantize_queries(queries)
     count = K2_ROWS - 1000  # the count mask bites in the last tile
-    vals, ids = ss.select_candidates(qq, qs, codes, scales, count)
-    pvals, pids = ss.select_candidates_plain(qq, qs, codes, scales, count)
+    check_select(results, "k2", "select_i8",
+                 "dawnsearch_tpu/ops/scan_select.py:281",
+                 f"N={K2_ROWS} D=384 B={K2_BATCH} i8", qq, qs, codes, scales,
+                 count, rows, queries)
+
+
+def select_bound(q, qs, codes, scales, count: int) -> dict:
+    """2·B·count·D ops at the peak of the MMA type (int8 for i8 queries,
+    bf16 otherwise); bytes: queries, the live rows' codes and scales, and
+    the (B, N/128) values and ids."""
+    B, D = q.shape
+    rows = codes.shape[0] * (2 if codes.dtype == torch.uint8 else 1)
+    code_bytes = nbytes(codes) * count / rows
+    out_bytes = B * (rows // 128) * 8
+    kind = "int8" if q.dtype == torch.int8 else "bf16"
+    return bound(2 * B * count * D, kind,
+                 nbytes(q, qs) + code_bytes + (4 * count if scales is not None
+                                               else 0) + out_bytes)
+
+
+def reranked_top(vals, ids, rows, queries, k: int = 10) -> torch.Tensor:
+    """Fold candidates to k + 30 and re-rank them by exact f32 dot -> the
+    (B, k) ids the serving path would return."""
+    from dawnsearch_tpu_torch.ops import scan_select as ss
+    _, cand = ss.fold_topk(vals, ids, k + 30)
+    cand = cand.long()
+    exact = torch.einsum("bd,bkd->bk", queries, rows[cand.clamp_min(0)])
+    exact = torch.where(cand >= 0, exact, -torch.inf)
+    return torch.gather(cand, 1, torch.topk(exact, k, dim=1).indices)
+
+
+def check_select(results: list, phase: str, name: str, replaces: str,
+                 shape: str, q, qs, codes, scales, count: int, rows,
+                 queries) -> None:
+    """One select variant vs its plain twin on the same inputs: bit-equal
+    for i8 queries, within the bf16 tolerance otherwise; both timed."""
+    from dawnsearch_tpu_torch.ops import scan_select as ss
+    vals, ids = ss.select_candidates(q, qs, codes, scales, count)
+    pvals, pids = ss.select_candidates_plain(q, qs, codes, scales, count)
     torch.cuda.synchronize()
-    bit_equal = torch.equal(vals.view(torch.int32), pvals.view(torch.int32))
-    ids_equal = torch.equal(ids, pids)
     fin = torch.isfinite(vals) & torch.isfinite(pvals)
     err = float((vals - pvals)[fin].abs().max()) if bool(fin.any()) else 0.0
-    ms = cuda_ms(lambda: ss.select_candidates(qq, qs, codes, scales, count))
-    plain_ms = cuda_ms(lambda: ss.select_candidates_plain(qq, qs, codes,
+    same_fin = torch.equal(torch.isfinite(vals), torch.isfinite(pvals))
+    share = float((ids == pids).float().mean())
+    if q.dtype == torch.int8:
+        ok = (torch.equal(vals.view(torch.int32), pvals.view(torch.int32))
+              and torch.equal(ids, pids))
+        agree = f"vals bit-equal={ok} ids equal share={share:.6f}"
+    else:
+        tops = reranked_top(vals, ids, rows, queries)
+        ptops = reranked_top(pvals, pids, rows, queries)
+        top_equal = torch.equal(tops, ptops)
+        ok = (same_fin and err <= BF16_VAL_TOL and share >= BF16_ID_SHARE
+              and top_equal)
+        agree = (f"max|d|={err:.3e} (bound {BF16_VAL_TOL}) ids equal share="
+                 f"{share:.6f} (bound {BF16_ID_SHARE}) re-ranked top-10 "
+                 f"equal={top_equal}")
+    del pvals, pids
+    ms = cuda_ms(lambda: ss.select_candidates(q, qs, codes, scales, count))
+    plain_ms = cuda_ms(lambda: ss.select_candidates_plain(q, qs, codes,
                                                           scales, count))
-    say(f"phase k2 N={K2_ROWS} B={K2_BATCH}: vals bit-equal={bit_equal} ids "
-        f"equal={ids_equal} max|d|={err:.3e} kernel {ms:.3f} ms plain "
-        f"{plain_ms:.3f} ms")
-    if not (bit_equal and ids_equal):
-        bad = int((ids != pids).sum())
-        raise AssertionError(f"K2 disagrees with its plain version "
-                             f"({bad} ids differ)")
-    results.append({"name": "select_i8", "route": "cuda",
+    bd = select_bound(q, qs, codes, scales, count)
+    say(f"phase {phase} {name} {shape}: {agree}; kernel {ms:.3f} ms plain "
+        f"{plain_ms:.3f} ms bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    results.append({"name": name, "route": "cuda",
                     "source": "dawnsearch_tpu_torch/csrc/scan_select.cu",
-                    "replaces": "dawnsearch_tpu/ops/scan_select.py:281",
-                    "shape": f"N={K2_ROWS} D=384 B={K2_BATCH} i8",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                    "replaces": replaces, "shape": shape,
+                    "max_abs_err": err, "ids_equal_share": share, "ms": ms,
+                    "plain_ms": plain_ms, **bd, "library_ms": None})
+
+
+def phase_k3(results: list) -> None:
+    from dawnsearch_tpu_torch.ops import scan_select as ss
+    from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = _unit_rows(K2_ROWS, g, dev)
+    queries = _unit_rows(K2_BATCH, g, dev)
+    vals, scales = quantize_i4_vals(rows)
+    codes = torch.zeros((K2_ROWS // 2, 384), dtype=torch.uint8, device=dev)
+    write_rows_i4(codes, vals, 0)
+    del vals
+    count = K2_ROWS - 1000
+    qq, qs = ss.quantize_queries(queries)
+    shape = f"N={K2_ROWS} D=384 B={K2_BATCH} i4"
+    check_select(results, "k3", "select_i4",
+                 "dawnsearch_tpu/ops/scan_select.py:221", shape, qq, qs,
+                 codes, scales, count, rows, queries)
+    check_select(results, "k3", "select_i4_qbf16",
+                 "dawnsearch_tpu/ops/scan_select.py:221", shape + " qi8=False",
+                 queries.bfloat16(), None, codes, scales, count, rows, queries)
+
+
+def phase_k2bf16(results: list) -> None:
+    from dawnsearch_tpu_torch.index.flat import quantize_rows_i8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = _unit_rows(K2_ROWS, g, dev)
+    queries = _unit_rows(K2_BATCH, g, dev)
+    count = K2_ROWS - 1000
+    qb = queries.bfloat16()
+    check_select(results, "k2bf16", "select_bf16",
+                 "dawnsearch_tpu/ops/scan_select.py:281",
+                 f"N={K2_ROWS} D=384 B={K2_BATCH} bf16", qb, None,
+                 rows.bfloat16(), None, count, rows, queries)
+    codes, scales = quantize_rows_i8(rows)
+    check_select(results, "k2bf16", "select_i8_qbf16",
+                 "dawnsearch_tpu/ops/scan_select.py:281",
+                 f"N={K2_ROWS} D=384 B={K2_BATCH} i8 qi8=False", qb, None,
+                 codes, scales, count, rows, queries)
 
 
 def _unit_rows(n: int, g: torch.Generator, dev, dim: int = 384) -> torch.Tensor:
     v = torch.randn((n, dim), generator=g, device=dev)
     return v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+
+
+def index_recall(index, corpus, queries, kf: int, k: int = 10
+                 ) -> tuple[float, float]:
+    """recall@k of index.search against the exact top-k of the f32
+    corpus: raw, and after an f32 re-rank of kf candidates."""
+    truth_v = truth_i = None
+    step = 1 << 20
+    for s in range(0, corpus.shape[0], step):
+        v, i = torch.topk(queries @ corpus[s:s + step].T, k, dim=1)
+        i = i + s
+        if truth_v is not None:
+            v, sel = torch.topk(torch.cat([truth_v, v], 1), k, dim=1)
+            i = torch.gather(torch.cat([truth_i, i], 1), 1, sel)
+        truth_v, truth_i = v, i
+    truth = truth_i.cpu().numpy()
+    q_np = queries.cpu().numpy()
+    _, raw = index.search(q_np, k)
+    _, cand = index.search(q_np, kf)
+    cand_t = torch.from_numpy(cand.astype(np.int64)).to(corpus.device)
+    exact = torch.einsum("bd,bkd->bk", queries, corpus[cand_t.clamp_min(0)])
+    exact = torch.where(cand_t >= 0, exact, -torch.inf)
+    rr = torch.gather(cand_t, 1, torch.topk(exact, k, dim=1).indices).cpu().numpy()
+
+    def recall(got):
+        return float(np.mean([len(set(a) & set(b)) / k
+                              for a, b in zip(got.tolist(), truth.tolist())]))
+    return recall(raw), recall(rr)
 
 
 def phase_recall(k: int = 10) -> None:
@@ -243,23 +466,100 @@ def phase_recall(k: int = 10) -> None:
                       max_capacity=K2_ROWS, device=dev)
     for s in range(0, K2_ROWS, 1 << 17):
         index.add(corpus[s:s + (1 << 17)])
-    truth = torch.topk(queries @ corpus.T, k, dim=1).indices.cpu().numpy()
-    q_np = queries.cpu().numpy()
-    _, raw = index.search(q_np, k)
-    _, cand = index.search(q_np, k + 30)
-    cand_t = torch.from_numpy(cand.astype(np.int64)).to(dev)
-    exact = torch.einsum("bd,bkd->bk", queries, corpus[cand_t.clamp_min(0)])
-    exact = torch.where(cand_t >= 0, exact, -torch.inf)
-    rr = torch.gather(cand_t, 1, torch.topk(exact, k, dim=1).indices).cpu().numpy()
-
-    def recall(got):
-        return float(np.mean([len(set(a) & set(b)) / k
-                              for a, b in zip(got.tolist(), truth.tolist())]))
-    raw_r, rr_r = recall(raw), recall(rr)
+    raw_r, rr_r = index_recall(index, corpus, queries, k + 30, k)
     say(f"phase recall N={K2_ROWS} Q={K2_BATCH}: recall@{k} raw={raw_r:.4f} "
         f"re-ranked={rr_r:.4f} (bounds {RAW_RECALL_MIN}, {RERANK_RECALL_MIN})")
     if raw_r < RAW_RECALL_MIN or rr_r < RERANK_RECALL_MIN:
         raise AssertionError("recall below bound")
+
+
+def phase_recall_i4(k: int = 10) -> None:
+    """i4 at 2M rows through host-packed adds, re-ranked at the i4
+    ladder's width; bf16 at 1M rows through device adds, re-ranked at
+    k + 30. Both must reach the i8 phase's re-ranked bound; bf16 also its
+    raw bound (i4's raw recall is reported, not bounded)."""
+    from dawnsearch_tpu_torch.index.flat import FlatIndex
+    from dawnsearch_tpu_torch.ops import scan_select as ss
+    from dawnsearch_tpu_torch.ops.quant import i4_fetch_width
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    queries = _unit_rows(K2_BATCH, g, dev)
+    for dtype, n in (("i4", I4_RECALL_ROWS), ("bf16", K2_ROWS)):
+        corpus = _unit_rows(n, g, dev)
+        index = FlatIndex(dim=384, dtype=dtype, capacity=n, max_capacity=n,
+                          device=dev)
+        t0 = time.perf_counter()
+        for s in range(0, n, 1 << 17):
+            part = corpus[s:s + (1 << 17)]
+            # i4: numpy blocks quantize and pack on the host
+            index.add(part.cpu().numpy() if dtype == "i4" else part)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if not index.fused_eligible():
+            raise AssertionError(f"the {dtype} index does not take the fused path")
+        kf = i4_fetch_width(n, k) if dtype == "i4" else k + 30
+        name = ss.VARIANTS[(index._codes.dtype, dtype == "i4")]
+        before = ss.launches[name]
+        raw_r, rr_r = index_recall(index, corpus, queries, kf, k)
+        ran = ss.launches[name] - before
+        say(f"phase recall_i4 {dtype} N={n} Q={K2_BATCH}: built in "
+            f"{build_s:.1f} s; recall@{k} raw={raw_r:.4f} re-ranked at "
+            f"kf={kf} {rr_r:.4f} (bounds: re-ranked {RERANK_RECALL_MIN}"
+            f"{'' if dtype == 'i4' else ', raw ' + str(RAW_RECALL_MIN)}); "
+            f"{name} launches {ran}")
+        if rr_r < RERANK_RECALL_MIN or ran == 0 or (
+                dtype == "bf16" and raw_r < RAW_RECALL_MIN):
+            raise AssertionError(f"{dtype} recall below bound or no kernel")
+        del index, corpus
+        torch.cuda.empty_cache()
+
+
+def phase_i4_scale(extra: list) -> None:
+    """The tier's capacity: 67,108,864 logical rows on one card, filled by
+    device adds of seeded unit rows; the last row is a copy of query 0.
+    Searched at B=1 and B=1024 (CUDA-event medians of the K3 launch and
+    of the whole search_select)."""
+    from dawnsearch_tpu_torch.index.flat import FlatIndex
+    from dawnsearch_tpu_torch.ops import scan_select as ss
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    queries = _unit_rows(K2_BATCH, g, dev)
+    N = I4_SCALE_ROWS
+    t0 = time.perf_counter()
+    index = FlatIndex(dim=384, dtype="i4", capacity=N, max_capacity=N,
+                      device=dev)
+    for s in range(0, N, I4_SCALE_ADD):
+        rows = _unit_rows(I4_SCALE_ADD, g, dev)
+        if s + I4_SCALE_ADD == N:
+            rows[-1] = queries[0]  # the planted row, in the last tile
+        index.add(rows)
+        del rows
+    torch.cuda.synchronize()
+    say(f"phase i4_scale: {index.count} rows in {time.perf_counter() - t0:.1f}"
+        f" s; codes {nbytes(index._codes) / 1e9:.2f} GB, scales "
+        f"{nbytes(index._scales) / 1e9:.2f} GB")
+    codes, scales, count = index._codes, index._scales, index.count
+    for B in (1, K2_BATCH):
+        q = queries[:B]
+        d, i = ss.search_select(codes, scales, q, count, 10)
+        ok = (bool((i >= 0).all()) and bool((i < count).all())
+              and bool((d[:, 1:] >= d[:, :-1]).all())
+              and int(i[0, 0]) == count - 1)
+        qq, qs = ss.quantize_queries(q)
+        ms = cuda_ms(lambda: ss.select_candidates(qq, qs, codes, scales,
+                                                  count), reps=5, warmup=1)
+        search_ms = cuda_ms(lambda: ss.search_select(codes, scales, q, count,
+                                                     10), reps=5, warmup=1)
+        bd = select_bound(qq, qs, codes, scales, count)
+        say(f"phase i4_scale B={B}: ids in [0, count) and ascending "
+            f"distances and planted row {count - 1} at rank 1: {ok} (rank 1 "
+            f"= {int(i[0, 0])}, d={float(d[0, 0]):.5f}); K3 {ms:.3f} ms, "
+            f"search_select {search_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+            f"({bd['bound_by']})")
+        if not ok:
+            raise AssertionError("i4_scale search returned a wrong result")
+        extra.append({"shape": f"N={count} D=384 B={B} i4", "ms": ms,
+                      "search_ms": search_ms, **bd})
 
 
 def _host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -369,19 +669,41 @@ def seed_store(data_dir: str, n: int, seed: int = 4) -> None:
         store.close()
 
 
-def run_node(n_pages: int, start_timeout: float = 600.0) -> dict:
-    """Seed a store, start the node as a user would, insert, query, read
-    the kernel counters, stop. Returns the counters' increase."""
+def run_nodes(n_pages: int, tiers=NODE_TIERS) -> dict:
+    """Seed one store, then run the node once per index tier on a copy of
+    it (a copy holds no index snapshot, so each tier builds its own
+    index). Returns every kernel counter's increase, summed over runs."""
     work = tempfile.mkdtemp(prefix="dawn-node-")
-    data_dir = os.path.join(work, "data")
-    os.makedirs(data_dir)
+    try:
+        seed = os.path.join(work, "seed")
+        os.makedirs(seed)
+        t0 = time.perf_counter()
+        seed_store(seed, n_pages)
+        say(f"phase node: seeded {n_pages} pages in "
+            f"{time.perf_counter() - t0:.1f} s")
+        total: dict = {}
+        for tier in tiers:
+            data_dir = os.path.join(work, tier)
+            shutil.copytree(seed, data_dir)
+            for name, n in run_node(data_dir, tier).items():
+                total[name] = total.get(name, 0) + n
+        return total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_node(data_dir: str, tier: str, start_timeout: float = 600.0) -> dict:
+    """Start the node as a user would on `data_dir` with index_dtype
+    `tier`, insert, query, read the kernel counters, stop. Returns the
+    counters' increase; fails unless K1 and the tier's select ran."""
+    from dawnsearch_tpu_torch.ops.scan_select import VARIANTS
+    work = os.path.dirname(data_dir)
     t0 = time.perf_counter()
-    seed_store(data_dir, n_pages)
-    say(f"phase node: seeded {n_pages} pages in {time.perf_counter() - t0:.1f} s")
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    env = dict(os.environ, DAWNSEARCH_ACCEPT_INSERT="true", PYTHONPATH=HERE)
-    log_path = os.path.join(work, "node.log")
+    env = dict(os.environ, DAWNSEARCH_ACCEPT_INSERT="true", PYTHONPATH=HERE,
+               DAWNSEARCH_INDEX_DTYPE=tier)
+    log_path = os.path.join(work, f"node-{tier}.log")
     log = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "dawnsearch_tpu_torch", "--config",
@@ -400,9 +722,9 @@ def run_node(n_pages: int, start_timeout: float = 600.0) -> dict:
                 if time.monotonic() > deadline:
                     raise
                 time.sleep(1.0)
-        say(f"phase node: up in {time.perf_counter() - t0:.1f} s, "
+        say(f"phase node {tier}: up in {time.perf_counter() - t0:.1f} s, "
             f"{stats['pages_indexed']} pages, capacity {stats['index_capacity']}")
-        names = ("kernel_bert_layer", "kernel_select")
+        names = ("kernel_bert_layer", *VARIANTS.values())
         before = _http(base + "/api/metrics")
         if any(before.get(n, 0) for n in names):
             raise AssertionError(f"kernel counters not zero at start: {before}")
@@ -415,20 +737,21 @@ def run_node(n_pages: int, start_timeout: float = 600.0) -> dict:
             res = _http(base + "/api/search?q=" + urllib.parse.quote(TEXTS[j]))
             top = res["results"]
             dists = [round(r["distance"], 5) for r in top[:3]]
-            say(f"phase node: query {j} -> {top[0]['url']} top-3 distances "
+            say(f"phase node {tier}: query {j} -> {top[0]['url']} top-3 distances "
                 f"{dists} ({res['seconds']} s)")
             if top[0]["url"] != pages[j]["url"]:
                 raise AssertionError(f"page {j} not at rank 1: {top[:3]}")
         after = _http(base + "/api/metrics")
         counts = {n: after.get(n, 0) - before.get(n, 0) for n in names}
-        say(f"phase node: kernel launches {counts}")
-        if not all(counts.values()):
+        say(f"phase node {tier}: kernel launches {counts}")
+        if not (counts["kernel_bert_layer"] and counts[NODE_SELECT[tier]]):
             raise AssertionError(f"a kernel of the path never ran: {counts}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=300)
         if rc != 0:
             raise RuntimeError(f"node exit code {rc} after SIGTERM")
-        say(f"phase node: stopped cleanly in {time.perf_counter() - t0:.1f} s total")
+        say(f"phase node {tier}: stopped cleanly in "
+            f"{time.perf_counter() - t0:.1f} s total")
         return counts
     except BaseException:
         log.flush()
@@ -440,7 +763,6 @@ def run_node(n_pages: int, start_timeout: float = 600.0) -> dict:
             proc.kill()
             proc.wait(timeout=60)
         log.close()
-        shutil.rmtree(work, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -458,23 +780,27 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import dawnsearch_tpu_torch  # noqa: F401  (fails outside a checkout)
     results: list = []
-    if "build" in phases or "k1" in phases or "k2" in phases or full:
+    if set(phases) & {"build", "k1", "k2", "k3", "k2bf16"}:
         phase_build()
-    if "k1" in phases:
-        phase_k1(results)
-    if "k2" in phases:
-        phase_k2(results)
-    if "recall" in phases:
-        phase_recall()
-    if "profile" in phases:
-        phase_profile()
-    torch.cuda.empty_cache()
-    # launches are counted only in the node's run of the main path; a
-    # partial run without it has no such count
-    counts = run_node(NODE_PAGES) if "node" in phases else {}
-    by_name = {"bert_layer": "kernel_bert_layer", "select_i8": "kernel_select"}
+    scale: list = []
+    for name, run in (("k1", lambda: phase_k1(results)),
+                      ("k2", lambda: phase_k2(results)),
+                      ("k3", lambda: phase_k3(results)),
+                      ("k2bf16", lambda: phase_k2bf16(results)),
+                      ("recall", phase_recall),
+                      ("recall_i4", phase_recall_i4),
+                      ("i4_scale", lambda: phase_i4_scale(scale)),
+                      ("profile", phase_profile)):
+        if name in phases:
+            run()
+            torch.cuda.empty_cache()
+    # launches are counted only in the nodes' runs of the main path; a
+    # partial run without them has no such count
+    counts = run_nodes(NODE_PAGES) if "node" in phases else {}
     for r in results:
-        r["launches"] = counts.get(by_name[r["name"]])
+        r["launches"] = counts.get(COUNTER[r["name"]])
+        if r["name"] == "select_i4" and scale:
+            r["other_shapes"] = scale
     say(json.dumps({"kernels": results}))
     say(dev["smi"])
     if full:

@@ -30,6 +30,7 @@ import numpy as np
 
 from dawnsearch_tpu_torch.index.flat import FlatIndex
 from dawnsearch_tpu_torch.index.store import PageStore
+from dawnsearch_tpu_torch.ops.quant import i4_fetch_width
 from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
 
 log = service_logger("SearchProvider")
@@ -340,7 +341,9 @@ class SearchProvider:
         """Candidate count to request from the index for a final top-k.
 
         Quantized storage overfetches so the host f32 re-rank can
-        restore exact ordering. Indexes with a device-side exact re-rank
+        restore exact ordering; i4 widens further by the count-keyed
+        ladder (ops/quant.i4_fetch_width: k + 30 loses re-ranked recall
+        on i4 codes). Indexes with a device-side exact re-rank
         (FlatIndex exact="f16") come back already re-ranked. ONE
         definition shared by the split path here and the fused text path
         (serving/search_service.py) so they cannot drift."""
@@ -348,7 +351,10 @@ class SearchProvider:
         on_device = getattr(self.index, "device_rerank", False)
         if not (quantized and self.rerank and not on_device):
             return k
-        return k + self.rerank
+        k_fetch = k + self.rerank
+        if getattr(self.index, "dtype", "") == "i4":
+            k_fetch = max(k_fetch, i4_fetch_width(len(self.index), k))
+        return k_fetch
 
     def search_embeddings(
         self, queries: np.ndarray, k: int = 20, instance_id: str = "",

@@ -3,7 +3,8 @@
 Port of dawnsearch_tpu/node.py (the reference's main-binary bootstrap,
 the reference's src/bin/dawnsearch.rs:37-154) for what this package
 serves: text search and page insert over HTTP, on one device, through
-the whole-layer encoder kernel (K1) and the i8 score+select kernel (K2).
+the whole-layer encoder kernel (K1) and the score+select kernels (K2 for
+an i8 or bf16 index, K3 for the i4 capacity tier).
 The 10-minute save timer and the save on shutdown are kept.
 
 The node never serves something other than what its config asked for:
@@ -46,9 +47,6 @@ def unported_settings(cfg: Config) -> list[str]:
          "sharding and multihost"),
         (cfg.dist_num_processes > 1 or bool(cfg.dist_coordinator),
          "dist_* (multihost)", "sharding and multihost"),
-        (cfg.index_dtype == "i4", "index_dtype='i4'", "the i4 tier with K3"),
-        (cfg.index_dtype == "bf16", "index_dtype='bf16'",
-         "bf16 index with the K2 bf16 variant"),
         (cfg.layer_impl == "layer_i8", "layer_impl='layer_i8'", "K4"),
         (cfg.layer_impl == "ops", "layer_impl='ops'",
          "the ops path with K5-K8"),

@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -58,10 +58,33 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libdawn_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every nvcc; raise with the output of each that failed,
+    else return their joined output."""
+    outs, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        outs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> str:
     """Compile csrc/*.cu into the keyed library unless it exists; returns
-    its path. Concurrent builders (two processes on one checkout) take
-    turns on a lock file; the library appears by atomic rename."""
+    its path. Each source compiles in its own nvcc, all at once, and one
+    more links them; ptxas' register and shared-memory report of every
+    kernel is kept beside the library (ptxas_report()). Concurrent
+    builders (two processes on one checkout) take turns on a lock file;
+    the library appears by atomic rename."""
     global BUILD_SECONDS
     path = library_path()
     if os.path.exists(path):
@@ -72,15 +95,33 @@ def build() -> str:
         if os.path.exists(path):
             return path
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        try:
+            compiles = [[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                         obj, src] for src, obj in zip(_sources(), objs)]
+            report = _wait([(cmd, _run(cmd)) for cmd in compiles])
+            link = [_nvcc(), "-shared", "-o", tmp, *objs]
+            _wait([(link, _run(link))])
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+        with open(path + ".ptxas.txt", "w") as f:
+            f.write(report)
         os.replace(tmp, path)
         BUILD_SECONDS = time.perf_counter() - t0
     return path
+
+
+def ptxas_report() -> str:
+    """ptxas' -v output of the build of the current sources ("" if this
+    checkout has not built them)."""
+    report = library_path() + ".ptxas.txt"
+    if not os.path.exists(report):
+        return ""
+    with open(report) as f:
+        return f.read()
 
 
 def lib() -> ctypes.CDLL:
@@ -95,8 +136,9 @@ def lib() -> ctypes.CDLL:
             cdll.dawn_bert_gemm.restype = i
             cdll.dawn_bert_attention.argtypes = [p, p, p, i, i, i, i, p]
             cdll.dawn_bert_attention.restype = i
-            cdll.dawn_select_i8.argtypes = [p, p, p, p, ll, p, p, i, ll, i, p]
-            cdll.dawn_select_i8.restype = i
+            cdll.dawn_select.argtypes = [i, i, p, p, p, p, ll, p, p, i, ll,
+                                         i, p]
+            cdll.dawn_select.restype = i
             cdll.dawn_error_string.argtypes = [i]
             cdll.dawn_error_string.restype = ctypes.c_char_p
             _lib = cdll

@@ -1,18 +1,36 @@
-"""Fused i8 score + window select: the K2 CUDA kernel and its plain twin.
+"""Fused score + window select: the K2 and K3 CUDA kernels and their plain twins.
 
-Counterpart of dawnsearch_tpu/ops/scan_select.py (the TPU kernel
-`_candidates` / `_select_kernel` / `_mask_select_store`, qi8 = True).
-Queries are quantized per row to i8 outside the kernel, the kernel
-scores s8·s8 -> s32 against the i8 codes, folds both scales back in f32
-and reduces every strided window of W = 128 rows of a 16384-row tile to
-one packed-key minimum: column t·128 + r of the output is the minimum
-over rows t·16384 + w·128 + r, w < 128. Outside the kernel the candidate
+Counterpart of dawnsearch_tpu/ops/scan_select.py (the TPU kernels
+`_candidates` / `_select_kernel` (K2) and `_candidates_i4` /
+`_select_kernel_i4` (K3), which share the tail `_mask_select_store`).
+Every variant scores a query batch against the index codes and reduces
+every strided window of W = 128 rows of a 16384-row tile to one
+packed-key minimum: column t·128 + r of the output is the minimum over
+rows t·16384 + w·128 + r, w < 128. Outside the kernel the candidate
 columns fold by halves and an exact top-k finishes (search_select).
 
+The variants, by code format and query type (`qi8`):
+
+| codes | qi8 | scoring | METRICS / `launches` key |
+|---|---|---|---|
+| i8 (N, D) + scales | True | s8·s8 -> s32, db = 2 - (dot·qs)·scale | kernel_select |
+| i8 (N, D) + scales | False | bf16 q · i8 codes, f32, db = 2 - dot·scale | kernel_select_i8_qbf16 |
+| bf16 (N, D) | False | bf16 q · bf16 codes, f32, db = 2 - dot | kernel_select_bf16 |
+| i4 (N/2, D) uint8 + scales | True | as i8 qi8, codes unpacked | kernel_select_i4 |
+| i4 (N/2, D) uint8 + scales | False | as i8 qi8=False, codes unpacked | kernel_select_i4_qbf16 |
+
+i4 codes are row-block packed with block 16384 (ops/quant.py), so a tile
+is one block and the window semantics are the i8 ones. With qi8 the
+queries are quantized per row to i8 outside the kernel
+(`quantize_queries`); without it they go in as f32 rounded to bf16 (round
+half to even), and, as in the reference, no query scale enters.
+
 `select_candidates` launches csrc/scan_select.cu for CUDA tensors and
-runs `select_candidates_plain` for CPU tensors; there is no fallback.
-The bf16-codes and qi8=False variants of the reference kernel are not
-ported: search_select refuses them.
+runs `select_candidates_plain` for CPU tensors; there is no fallback. The
+qi8 variants are bit-equal to their plain twin (exact integer dots, the
+epilogue's three separately rounded f32 ops). The bf16 variants sum f32
+products of bf16 operands in another order than the plain twin's matmul,
+so they agree within a stated tolerance (tests, chip_smoke.py).
 
 Accuracy and the unit-query precondition are the reference's: see its
 module docstring.
@@ -23,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from dawnsearch_tpu_torch.ops import _cuda
+from dawnsearch_tpu_torch.ops.quant import I4_BLOCK, unpack_i4
 from dawnsearch_tpu_torch.ops.topk import top_k_smallest
 from dawnsearch_tpu_torch.utils.logging import METRICS
 
@@ -33,17 +52,31 @@ DEFAULT_TN = 16384  # rows per tile (W * W)
 # odds ~k^2*W/2N); below this the chunked exact path serves.
 MIN_ROWS = 262_144
 
-# Launches of the CUDA kernel in this process; tests and chip_smoke.py
-# read and reset it.
-launches = 0
+# Code format ids of the C entry point (csrc/scan_select.cu).
+_FMT = {torch.int8: 0, torch.uint8: 1, torch.bfloat16: 2}
+# (codes dtype, qi8) -> the variant's launch-counter / METRICS name
+VARIANTS = {(torch.int8, True): "kernel_select",
+            (torch.int8, False): "kernel_select_i8_qbf16",
+            (torch.bfloat16, False): "kernel_select_bf16",
+            (torch.uint8, True): "kernel_select_i4",
+            (torch.uint8, False): "kernel_select_i4_qbf16"}
+
+# Launches of each CUDA variant in this process; tests and chip_smoke.py
+# read and reset them.
+launches = dict.fromkeys(VARIANTS.values(), 0)
 
 
 def supports(capacity: int, dim: int, dtype: str,
              tn: int = DEFAULT_TN) -> bool:
-    """Shapes the fused selector serves: i8 codes, whole 16384-row tiles
-    (the reference's gate, kept so both packages choose the same path)."""
-    return (dtype == "i8" and tn == DEFAULT_TN and capacity % tn == 0
-            and capacity >= tn and dim % 128 == 0)
+    """Shapes the fused selector serves: i8, bf16 or i4 codes in whole
+    16384-row tiles (the reference's gate, kept so both packages choose
+    the same path). i4 codes are packed in blocks of I4_BLOCK, one per
+    tile, so i4 pins tn to it; the caller guarantees its codes were
+    packed with that block (FlatIndex.fused_eligible)."""
+    if dtype == "i4" and tn != I4_BLOCK:
+        return False
+    return (dtype in ("i8", "bf16", "i4") and tn == DEFAULT_TN
+            and capacity % tn == 0 and capacity >= tn and dim % 128 == 0)
 
 
 def eligible(count: int, capacity: int, dim: int, dtype: str,
@@ -62,20 +95,30 @@ def quantize_queries(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(q / qs).to(torch.int8), qs.reshape(-1)
 
 
-def select_candidates_plain(qq: torch.Tensor, qs: torch.Tensor,
-                            codes: torch.Tensor, scales: torch.Tensor,
-                            count: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Reference semantics of the K2 kernel -> (vals, ids), (B, N/128).
+def _logical_rows(codes: torch.Tensor) -> int:
+    return codes.shape[0] * (2 if codes.dtype == torch.uint8 else 1)
 
-    The s8·s8 dot runs as an f32 product: every partial sum is an integer
-    below 127·127·D < 2^24 at D <= 1024, so f32 holds it exactly in any
-    summation order (an int32 matmul has no CUDA implementation in torch).
-    The epilogue is three separately rounded f32 ops, the kernel's order."""
-    B = qq.shape[0]
-    N = codes.shape[0]
+
+def select_candidates_plain(q: torch.Tensor, qs: torch.Tensor | None,
+                            codes: torch.Tensor, scales: torch.Tensor | None,
+                            count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reference semantics of every variant -> (vals, ids), (B, N/128).
+
+    `q` is i8 with its scales `qs` (qi8) or bf16 with `qs` None. With i8
+    queries the dot runs as an f32 product of integers: every partial sum
+    is below 127·127·D < 2^24 at D <= 1024, so f32 holds it exactly in
+    any order (an int32 matmul has no CUDA implementation in torch). With
+    bf16 queries it is an f32 product of bf16-rounded operands (i8 and i4
+    codes widen to bf16 exactly). The epilogue is separately rounded f32
+    ops, the kernel's order."""
+    B = q.shape[0]
+    N = _logical_rows(codes)
     T = N // DEFAULT_TN
-    dots = qq.float() @ codes.float().T
-    db = 2.0 - (dots * qs.reshape(B, 1)) * scales.reshape(1, N)
+    x = unpack_i4(codes, I4_BLOCK) if codes.dtype == torch.uint8 else codes
+    dots = q.float() @ x.float().T
+    if qs is not None:
+        dots = dots * qs.reshape(B, 1)
+    db = 2.0 - (dots if scales is None else dots * scales.reshape(1, N))
     rows = torch.arange(N, device=codes.device)
     db = torch.where(rows < count, db, torch.inf)
     keys = (db.view(torch.int32) & ~0x7F).reshape(B, T, W, W)
@@ -91,58 +134,84 @@ def select_candidates_plain(qq: torch.Tensor, qs: torch.Tensor,
     return vals.reshape(B, T * W), ids.reshape(B, T * W)
 
 
-def select_candidates(qq: torch.Tensor, qs: torch.Tensor, codes: torch.Tensor,
-                      scales: torch.Tensor, count: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2: the CUDA kernel for CUDA tensors, the plain version on CPU."""
-    global launches
+def select_candidates(q: torch.Tensor, qs: torch.Tensor | None,
+                      codes: torch.Tensor, scales: torch.Tensor | None,
+                      count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 / K3: the CUDA kernel for CUDA tensors, the plain version on CPU.
+    The code format comes from codes.dtype (int8 i8, uint8 packed i4,
+    bfloat16 bf16) and qi8 from q.dtype (int8 with scales `qs`, or
+    bfloat16 with `qs` None)."""
     if not codes.is_cuda:
-        return select_candidates_plain(qq, qs, codes, scales, count)
-    B, D = qq.shape
-    N = codes.shape[0]
+        return select_candidates_plain(q, qs, codes, scales, count)
+    B, D = q.shape
+    N = _logical_rows(codes)
+    qi8 = q.dtype == torch.int8
+    name = VARIANTS.get((codes.dtype, qi8))
+    if name is None:
+        raise ValueError(f"no select kernel for {codes.dtype} codes with "
+                         f"{q.dtype} queries")
     dev = codes.device
-    for name, t, dt, shape in (("qq", qq, torch.int8, (B, D)),
-                               ("qs", qs, torch.float32, (B,)),
-                               ("codes", codes, torch.int8, (N, D)),
-                               ("scales", scales, torch.float32, (N,))):
-        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"K2 {name}: want contiguous {dt} {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+    want = [("q", q, q.dtype, (B, D)),
+            ("codes", codes, codes.dtype, (codes.shape[0], D))]
+    if qi8:
+        want.append(("qs", qs, torch.float32, (B,)))
+    if codes.dtype != torch.bfloat16:
+        want.append(("scales", scales, torch.float32, (N,)))
+    for what, t, dt, shape in want:
+        if t is None or t.dtype != dt or tuple(t.shape) != shape \
+                or t.device != dev or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} {what}: want contiguous 16-byte aligned "
+                             f"{dt} {shape} on {dev}, got " + (
+                                 "None" if t is None else
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}"))
     if N % DEFAULT_TN or D % 16:
-        raise ValueError(f"K2 needs N % {DEFAULT_TN} == 0 and D % 16 == 0, "
+        raise ValueError(f"{name} needs {DEFAULT_TN}-row tiles and D % 16 == 0, "
                          f"got codes {tuple(codes.shape)}")
     vals = torch.empty((B, N // W), dtype=torch.float32, device=dev)
     ids = torch.empty((B, N // W), dtype=torch.int32, device=dev)
-    _cuda.check(_cuda.lib().dawn_select_i8(
-        qq.data_ptr(), qs.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        int(count), vals.data_ptr(), ids.data_ptr(), B, N, D,
-        _cuda.stream_handle(codes)), "K2 select")
-    launches += 1
-    METRICS.inc("kernel_select")
+    _cuda.check(_cuda.lib().dawn_select(
+        _FMT[codes.dtype], int(qi8), q.data_ptr(),
+        qs.data_ptr() if qi8 else None, codes.data_ptr(),
+        None if scales is None else scales.data_ptr(), int(count),
+        vals.data_ptr(), ids.data_ptr(), B, N, D,
+        _cuda.stream_handle(codes)), name)
+    launches[name] += 1
+    METRICS.inc(name)
     return vals, ids
 
 
-def search_select(codes: torch.Tensor, scales: torch.Tensor,
+def search_select(codes: torch.Tensor, scales: torch.Tensor | None,
                   queries: torch.Tensor, count: int, k: int,
-                  tn: int = DEFAULT_TN) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, D) queries vs (N, D) i8 codes -> (B, k) distances ascending and
-    global row ids; empty slots are (+inf, -1)."""
-    N, D = codes.shape
-    if codes.dtype != torch.int8 or scales is None:
+                  tn: int = DEFAULT_TN, qi8: bool | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, D) queries vs i8 (N, D), bf16 (N, D) or packed i4 (N/2, D)
+    codes -> (B, k) distances ascending and global row ids; empty slots
+    are (+inf, -1). qi8 defaults to True for i8 and i4 codes and to False
+    for bf16 codes (the reference's QI8_DEFAULT)."""
+    N, D = _logical_rows(codes), codes.shape[1]
+    if codes.dtype not in _FMT:
         raise NotImplementedError(
-            "the fused selector serves i8 codes only; the bf16 and i4 "
-            "variants are not ported (ROADMAP.md Queue 2: K2 bf16, K3)")
+            f"the fused selector scores i8, bf16 and i4 codes, not "
+            f"{codes.dtype} (f32 stays on the chunked exact path)")
     if tn != DEFAULT_TN or N % tn != 0 or D % 128 != 0:
         # a non-multiple capacity would leave candidate columns unwritten
-        # (the reference saw recall fall to 0.77 from exactly that)
+        # (the reference saw recall fall to 0.77 from exactly that); the
+        # one tile size is also i4's packing block (I4_BLOCK), so i4 rows
+        # cannot be permuted by another tn
         raise ValueError(
             f"search_select needs capacity % {DEFAULT_TN} == 0 and "
             f"dim % 128 == 0, got codes {tuple(codes.shape)}; pad the buffer "
             "(see supports())")
-    qq, qs = quantize_queries(queries)
-    vals, ids = select_candidates(qq, qs, codes, scales, count)
+    if qi8 is None:
+        qi8 = codes.dtype != torch.bfloat16
+    if qi8 and codes.dtype == torch.bfloat16:
+        raise ValueError("bf16 codes score bf16 queries (qi8=False)")
+    if qi8:
+        q, qs = quantize_queries(queries)
+    else:
+        q, qs = queries.float().bfloat16(), None
+    vals, ids = select_candidates(q, qs, codes, scales, count)
     return fold_topk(vals, ids, k)
 
 

@@ -3,10 +3,12 @@
 Port of dawnsearch_tpu/serving/fused.py (FusedQueryPath, FusedIngestPath,
 _chunk_by_bucket). The reference fuses each path into one jitted program;
 here each path enqueues its work on the device's current stream without
-waiting: the encoder's K1 launches, then the index search (the K2 selector
-at and above scan_select.MIN_ROWS, the chunked exact search below) or the
-i8 quantize and in-place row write. The caller reads the result back
-outside its device lock. The sharded ingest path is not ported.
+waiting: the encoder's K1 launches, then the index search (the K2 or K3
+selector at and above scan_select.MIN_ROWS, the chunked exact search
+below) or the i8 / i4 quantize and in-place row write (bf16 indexes ingest
+through the provider's add, as in the reference). The caller reads the
+result back outside its device lock. The sharded ingest path is not
+ported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dawnsearch_tpu_torch.index.flat import (FlatIndex, quantize_rows_i8,
                                              rerank_kernel, search_kernel)
 from dawnsearch_tpu_torch.models.bert import encode_batch
 from dawnsearch_tpu_torch.ops import scan_select
+from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
 from dawnsearch_tpu_torch.utils.logging import METRICS
 
 
@@ -50,13 +53,12 @@ class FusedQueryPath:
         with METRICS.timer("fused_query_dispatch"):
             enc = self.encoder
             emb = _encode(enc, *enc.pad_batch(enc.tokenize_texts(texts)))
-            if scan_select.eligible(ix.count, ix.capacity, ix.dim, ix.dtype,
-                                    ix.fused_min_rows):
+            if ix.fused_eligible():
                 d, i = scan_select.search_select(ix._codes, ix._scales, emb,
                                                  ix.count, kf)
             else:
                 d, i = search_kernel(ix._codes, ix._scales, emb, ix.count,
-                                     kf, ix.chunk)
+                                     kf, ix.chunk, ix._i4_block)
             if ix.device_rerank:
                 d, i = rerank_kernel(ix._exact, emb, d, i, k_eff)
         return emb, d, i, k_eff
@@ -87,8 +89,10 @@ def _chunk_by_bucket(ingest_fn, encoder, texts, token_ids):
 
 
 class FusedIngestPath:
-    """Batched page ingest against an i8 FlatIndex: encode -> i8 quantize
-    -> write rows in place (and the f16 shadow, when kept)."""
+    """Batched page ingest against an i8 or i4 FlatIndex: encode ->
+    quantize -> write rows in place (and the f16 shadow, when kept). i4
+    rows go through the row-block read-modify-write at `count`
+    (ops/quant.write_rows_i4)."""
 
     def __init__(self, encoder, index: FlatIndex):
         self.encoder = encoder
@@ -96,7 +100,7 @@ class FusedIngestPath:
 
     @staticmethod
     def supports(index) -> bool:
-        return isinstance(index, FlatIndex) and index.dtype == "i8"
+        return isinstance(index, FlatIndex) and index.dtype in ("i8", "i4")
 
     @property
     def max_batch(self) -> int | None:
@@ -136,9 +140,13 @@ class FusedIngestPath:
             ix._grow_to(ix.count + bsz)
         with METRICS.timer("fused_ingest_dispatch"):
             emb = _encode(enc, input_ids, mask)
-            codes, scales = quantize_rows_i8(emb)
             s, e = ix.count, ix.count + emb.shape[0]
-            ix._codes[s:e] = codes
+            if ix.dtype == "i4":
+                vals, scales = quantize_i4_vals(emb)
+                write_rows_i4(ix._codes, vals, s, ix._i4_block)
+            else:
+                codes, scales = quantize_rows_i8(emb)
+                ix._codes[s:e] = codes
             ix._scales[s:e] = scales
             if ix.device_rerank:
                 ix._exact[s:e] = emb.half()

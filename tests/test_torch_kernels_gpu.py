@@ -6,8 +6,10 @@ package, so it also runs on a machine that has only torch:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
-K2 must be bit-equal to its plain twin; K1 agrees to the bf16 bound of
-the reference's own tests (per-row cosine > 0.999).
+K2 (i8 queries) and K3 (i8 queries) must be bit-equal to their plain
+twin; the bf16-query variants agree within two key steps (3.1e-5) on the
+values and on at least 99% of the window ids; K1 agrees to the bf16 bound
+of the reference's own tests (per-row cosine > 0.999).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from dawnsearch_tpu_torch.models import bert
 from dawnsearch_tpu_torch.models.weights import init_params
 from dawnsearch_tpu_torch.ops import layer
 from dawnsearch_tpu_torch.ops import scan_select as ss
+from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(2)
@@ -77,35 +80,90 @@ def test_k1_refuses_what_it_does_not_take(cuda):
         layer.fused_bert_layer(xt.bfloat16(), bt, *w, nh=6)
 
 
+def _rows_and_queries(cuda, B, seed, n=32768):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rows = torch.randn((n, 384), generator=g, device=cuda)
+    rows = rows / rows.norm(dim=1, keepdim=True)
+    q = rows[:B] + 0.1 * torch.randn((B, 384), generator=g, device=cuda)
+    return rows, q / q.norm(dim=1, keepdim=True)
+
+
+def _i4_codes(rows):
+    vals, scales = quantize_i4_vals(rows)
+    codes = torch.zeros((rows.shape[0] // 2, rows.shape[1]),
+                        dtype=torch.uint8, device=rows.device)
+    write_rows_i4(codes, vals, 0)
+    return codes, scales
+
+
 @pytest.mark.parametrize("B,count", [(8, 30000), (100, 32768), (1, 17)])
 def test_k2_bit_equal_to_plain(cuda, B, count):
-    g = torch.Generator(device=cuda).manual_seed(B)
-    rows = torch.randn((32768, 384), generator=g, device=cuda)
-    codes, scales = quantize_rows_i8(rows / rows.norm(dim=1, keepdim=True))
-    q = rows[:B] + 0.1 * torch.randn((B, 384), generator=g, device=cuda)
-    qq, qs = ss.quantize_queries(q / q.norm(dim=1, keepdim=True))
-    before = ss.launches
+    rows, q = _rows_and_queries(cuda, B, B)
+    codes, scales = quantize_rows_i8(rows)
+    qq, qs = ss.quantize_queries(q)
+    before = ss.launches["kernel_select"]
     got_v, got_i = ss.select_candidates(qq, qs, codes, scales, count)
-    assert ss.launches == before + 1
+    assert ss.launches["kernel_select"] == before + 1
     want_v, want_i = ss.select_candidates_plain(qq, qs, codes, scales, count)
     assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
     assert torch.equal(got_i, want_i)
 
 
-def test_flat_index_fused_path_matches_cpu(cuda):
+@pytest.mark.parametrize("B,count", [(8, 30000), (70, 17000)])
+def test_k3_bit_equal_to_plain(cuda, B, count):
+    rows, q = _rows_and_queries(cuda, B, 10 + B)
+    codes, scales = _i4_codes(rows)
+    qq, qs = ss.quantize_queries(q)
+    before = ss.launches["kernel_select_i4"]
+    got_v, got_i = ss.select_candidates(qq, qs, codes, scales, count)
+    assert ss.launches["kernel_select_i4"] == before + 1
+    want_v, want_i = ss.select_candidates_plain(qq, qs, codes, scales, count)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "i8", "i4"])
+def test_bf16_query_variants_within_tolerance(cuda, fmt):
+    rows, q = _rows_and_queries(cuda, 40, 20)
+    if fmt == "bf16":
+        codes, scales = rows.bfloat16(), None
+    elif fmt == "i8":
+        codes, scales = quantize_rows_i8(rows)
+    else:
+        codes, scales = _i4_codes(rows)
+    qb = q.bfloat16()
+    name = ss.VARIANTS[(codes.dtype, False)]
+    before = ss.launches[name]
+    got_v, got_i = ss.select_candidates(qb, None, codes, scales, 30000)
+    assert ss.launches[name] == before + 1
+    want_v, want_i = ss.select_candidates_plain(qb, None, codes, scales, 30000)
+    fin = torch.isfinite(want_v)
+    assert torch.equal(torch.isfinite(got_v), fin)
+    assert float((got_v - want_v)[fin].abs().max()) <= 3.1e-5
+    assert float((got_i == want_i).float().mean()) >= 0.99
+    got_d, got_top = ss.fold_topk(got_v, got_i, 10)
+    want_d, want_top = ss.fold_topk(want_v, want_i, 10)
+    assert torch.equal(got_top[:, 0], want_top[:, 0])
+
+
+@pytest.mark.parametrize("dtype,name", [("i8", "kernel_select"),
+                                        ("i4", "kernel_select_i4"),
+                                        ("bf16", "kernel_select_bf16")])
+def test_flat_index_fused_path_matches_cpu(cuda, dtype, name):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((20000, 384), np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     q = x[:16] + 0.2 * rng.standard_normal((16, 384), np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    got, want = (FlatIndex(dtype="i8", exact="f16", device=d)
+    got, want = (FlatIndex(dtype=dtype, exact="f16", device=d)
                  for d in (cuda, "cpu"))
     for ix in (got, want):
         ix.fused_min_rows = 0
         ix.add(x)
-    before = ss.launches
+        assert ix.fused_eligible()
+    before = ss.launches[name]
     d_gpu, i_gpu = got.search(q, 10)
-    assert ss.launches == before + 1
+    assert ss.launches[name] == before + 1
     d_cpu, i_cpu = want.search(q, 10)
     np.testing.assert_array_equal(i_gpu, i_cpu)
     np.testing.assert_allclose(d_gpu, d_cpu, atol=1e-5)

@@ -4,7 +4,8 @@ and the port's node.
 Both services run on in-memory providers with the same bridged weights,
 the same vocab and the same 64 inserted pages; text queries must return
 the same page ids in the same order, below and above the fused-selector
-gate. The model is narrow (H=128, 4 heads of 32, I=256, 2 layers) but
+gate. The fused ingest into an i4 index writes the reference's bytes, and
+the fused query over i4 and bf16 indexes returns the reference's ids. The model is narrow (H=128, 4 heads of 32, I=256, 2 layers) but
 inside the reference's whole-layer kernel envelope (H % 128 == 0,
 128 % head_dim == 0), so the reference serves through its K1 kernel in
 interpret mode, not its per-op fallback.
@@ -38,7 +39,9 @@ from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
                                                    build_vocab_from_corpus)
 from dawnsearch_tpu_torch.models.weights import params_from_numpy
 from dawnsearch_tpu_torch.node import DawnNode
+from dawnsearch_tpu_torch.ops import quant
 from dawnsearch_tpu_torch.serving.batcher import EmbeddingBatcher
+from dawnsearch_tpu_torch.serving.fused import FusedIngestPath, FusedQueryPath
 from dawnsearch_tpu_torch.serving.search_service import SearchService
 
 torch.set_num_threads(2)
@@ -153,7 +156,6 @@ def test_text_search_matches_reference(tree, vocab, ref_encoder, fused_gate,
 
 UNPORTED = [("model_dir", "/models/minilm"), ("udp", True), ("index_cc", True),
             ("index_kind", "sharded"), ("dist_num_processes", 2),
-            ("index_dtype", "i4"), ("index_dtype", "bf16"),
             ("layer_impl", "layer_i8"), ("layer_impl", "ops"),
             ("attn_impl", "xla"), ("pool_impl", "fused"),
             ("compute_dtype", "f32")]
@@ -165,6 +167,87 @@ def test_node_refuses_unported_settings(tmp_path, field, value):
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
         DawnNode(cfg)
     assert not os.listdir(tmp_path)  # refused before touching the data dir
+
+
+@pytest.mark.parametrize("dtype", ["i4", "bf16"])
+def test_node_serves_each_index_tier(tree, vocab, tmp_path, dtype):
+    """The two tiers the node refused before this port covered them: it
+    starts with each, inserts pages and finds one at rank 1."""
+    cfg = Config(device="cpu", web=True, web_listen_address="127.0.0.1:0",
+                 accept_insert=True, data_dir=str(tmp_path), index_dtype=dtype)
+    node = DawnNode(cfg, encoder=port_encoder(tree, vocab)).start()
+    try:
+        assert node.provider.index.dtype == dtype
+        base = f"http://127.0.0.1:{node.http_port}"
+        pages = [{"url": f"https://t/{i}", "title": "", "text": t}
+                 for i, t in enumerate(PAGES[:12])]
+        assert len(_http(base + "/api/insert", {"pages": pages})["inserted"]) == 12
+        got = _http(base + "/api/search?q=" + urllib.parse.quote(PAGES[7]))
+        assert got["results"][0]["url"] == "https://t/7"
+        assert len(node.provider.index) == 12
+    finally:
+        node.stop()
+
+
+def test_fused_ingest_i4_writes_the_references_bytes(tree, vocab, ref_encoder):
+    """Two fused ingests into i4 indexes, the second at an unaligned count
+    (a read-modify-write of the first's block). The port's rows hold the
+    bytes the reference's i4 add writes for the same embeddings, and agree
+    with the reference's own fused ingest from the same weights."""
+    from dawnsearch_tpu.index.flat import FlatIndex as RefIndex
+    from dawnsearch_tpu.serving.fused import FusedIngestPath as RefIngest
+
+    port_ix = FlatIndex(dim=H, dtype="i4", device="cpu")
+    ref_ix = RefIndex(dim=H, dtype="i4")
+    port = FusedIngestPath(port_encoder(tree, vocab), port_ix)
+    ref = RefIngest(ref_encoder, ref_ix)
+    emb = np.concatenate([port.ingest(PAGES[:20]), port.ingest(PAGES[20:44])])
+    for part in (PAGES[:20], PAGES[20:44]):
+        ref.ingest(part)
+    assert port_ix.count == ref_ix.count == 44
+    # the reference's i4 add of the port's embeddings: the same bytes
+    want = RefIndex(dim=H, dtype="i4")
+    want.add(emb)
+    block = port_ix._i4_block
+    got_codes = quant.unpack_i4_np(port_ix._codes.numpy(), block)[:44]
+    np.testing.assert_array_equal(
+        got_codes, quant.unpack_i4_np(np.asarray(want._codes), block)[:44])
+    np.testing.assert_array_equal(port_ix._scales.numpy()[:44],
+                                  np.asarray(want._scales)[:44])
+    # the reference's fused ingest encodes on its own kernels: nibbles at
+    # a rounding edge may differ by one step
+    ref_codes = quant.unpack_i4_np(np.asarray(ref_ix._codes), block)[:44]
+    assert np.abs(got_codes.astype(int) - ref_codes).max() <= 1
+    assert (got_codes == ref_codes).mean() > 0.99
+    np.testing.assert_allclose(port_ix._scales.numpy()[:44],
+                               np.asarray(ref_ix._scales)[:44], rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["i4", "bf16"])
+def test_fused_query_over_each_tier_matches_reference(tree, vocab, ref_encoder,
+                                                      dtype):
+    """FusedQueryPath through the fused selector (K3 for i4, K2 bf16 for
+    bf16; the gate lowered) over indexes holding the same embeddings."""
+    from dawnsearch_tpu.index.flat import FlatIndex as RefIndex
+    from dawnsearch_tpu.serving.fused import FusedQueryPath as RefQuery
+
+    enc = port_encoder(tree, vocab)
+    emb = enc.encode(PAGES)
+    port_ix = FlatIndex(dim=H, dtype=dtype, device="cpu")
+    ref_ix = RefIndex(dim=H, dtype=dtype)
+    for ix in (port_ix, ref_ix):
+        ix.fused_min_rows = 0
+        ix.add(emb)
+    assert port_ix.fused_eligible()
+    (_, got_d, got_i), (_, want_d, want_i) = (
+        path.finalize(*path.dispatch(QUERIES, 10)[:3], len(QUERIES), 10, 10)
+        for path in (FusedQueryPath(enc, port_ix),
+                     RefQuery(ref_encoder, ref_ix)))
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_d, want_d, atol=1e-4)
+    # a page's own text finds it first
+    assert [int(i) for i in got_i[:len(PAGES[::9]), 0]] == \
+        list(range(0, len(PAGES), 9))
 
 
 def test_node_refuses_cuda_without_a_gpu(tmp_path):
