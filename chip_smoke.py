@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as a release check
     python3 chip_smoke.py --phases build,k1,k2
     python3 chip_smoke.py --phases k3,k2bf16,recall_i4,i4_scale
+    python3 chip_smoke.py --phases attn,ffn,pool,ops   # the per-op encoder
 
 Phases, each printing one progress line; any failure exits non-zero:
   device    card name and power limit (nvidia-smi); fails without CUDA
@@ -20,6 +21,18 @@ Phases, each printing one progress line; any failure exits non-zero:
             twin, qi8=False within the bf16 tolerance; timed
   k2bf16    K2 over bf16 codes (805 MB) and K2 i8 with qi8=False, 1024
             queries, within the bf16 tolerance; timed
+  attn      K5 (packed: q, k, v as column slices of one (B, S, 3H) qkv)
+            and K6 (head-major) vs their plain twins in bf16 with ragged
+            masks: K5 at MiniLM width at (B, S) = (64, 128), (8, 512),
+            (64, 16) and at BERT-base width (H=768, hd 64) at (64, 128);
+            K6 at the same shapes and at hd 26 (TinyBERT, H=312) at
+            (64, 128) and (8, 512); timed beside torch's
+            scaled_dot_product_attention (the library yardstick)
+  ffn       K7 vs ffn_plain at 8192 rows for MiniLM (384/1536), BERT-base
+            (768/3072) and TinyBERT (312/1200) widths, and at 128 rows (one
+            query) at MiniLM width; timed
+  pool      K8 vs mean_pool_plain at (64, 128, 384) and (8, 512, 384),
+            masked and include_padding; timed
   recall    FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
             recall@10 raw and after the f32 re-rank of k+30 candidates
   recall_i4 FlatIndex i4 at 2,097,152 rows built through host-packed adds
@@ -31,18 +44,34 @@ Phases, each printing one progress line; any failure exits non-zero:
             (FusedQueryPath over 270,000 i8 rows): host-timed tokenize,
             encode, select and whole query at B=1, 8, 64, and the device
             busy share and top kernels from torch.profiler
+  ops       the per-op encoder end to end through SentenceEncoder on the
+            smoke texts, each run against the same encoder on the CPU:
+            MiniLM width with layer_impl="ops" (pool "fused" and "xla")
+            and with attn_impl="xla", and TinyBERT width (H=312, 12 heads,
+            I=1200, 4 layers) with layer_impl="layer", which must fall back
+            to K6 + K7; the counters each run raised; encode ms at B=1, 8,
+            64 (S=128) on the K1 and the per-op paths, as device time
+            (CUDA-graph replays) and as host time over 6 alternating rounds
+            (median [min, max])
   node      `python -m dawnsearch_tpu_torch` over a 270,000-page store
             (past the 262,144-row gate of the fused select), once each
-            with index_dtype i8, i4 and bf16: 32 pages through
-            /api/insert, 8 of them queried back through /api/search at
-            rank 1, the K1 counter and the tier's select counter read from
-            /api/metrics
+            with index_dtype i8, i4 and bf16, and once more on i8 with
+            DAWNSEARCH_LAYER_IMPL=ops DAWNSEARCH_POOL_IMPL=fused: 32 pages
+            through /api/insert, 8 of them queried back through
+            /api/search at rank 1, the encoder's kernel counters (K1; or
+            K5, K7 and K8 with K1 at 0) and the tier's select counter read
+            from /api/metrics
 
 The last two lines of a full run are a JSON line of per-kernel results
 and {"ok": true, "device": {...}}. Times are CUDA-event medians of 10
-runs after 3 warm-ups. Each kernel's bound_ms is the larger of its
+runs after 3 warm-ups; the per-op kernels K5-K8, their plain twins and
+library calls, which take tens of microseconds, are timed as CUDA-graph
+replays of 10 calls (graph_ms), so the host's launch work is not in
+their times. Each kernel's bound_ms is the larger of its
 operations over the H100's dense peak for their type and its bytes (each
-input read once, each output written once) over 3.35 TB/s.
+input read once, each output written once) over 3.35 TB/s. A kernel's
+launches are counted over the runs of the main path that a user drives:
+the node runs and the ops phase's encoders, each started from zero.
 """
 
 from __future__ import annotations
@@ -53,6 +82,7 @@ import os
 import shutil
 import signal
 import socket
+import string
 import subprocess
 import sys
 import tempfile
@@ -64,9 +94,22 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "k1", "k2", "k3", "k2bf16", "recall",
-          "recall_i4", "i4_scale", "profile", "node")
+PHASES = ("device", "build", "k1", "k2", "k3", "k2bf16", "attn", "ffn",
+          "pool", "recall", "recall_i4", "i4_scale", "profile", "ops", "node")
+KERNEL_PHASES = {"build", "k1", "k2", "k3", "k2bf16", "attn", "ffn", "pool"}
 K1_SHAPES = ((64, 128), (8, 512), (64, 16))
+# (H, nh, B, S); the first of each is the entry's headline shape: K5's
+# is the node's per-op path, K6's the TinyBERT-width fallback
+K5_SHAPES = ((384, 12, 64, 128), (384, 12, 8, 512), (384, 12, 64, 16),
+             (768, 12, 64, 128))
+K6_SHAPES = ((312, 12, 64, 128), (312, 12, 8, 512), *K5_SHAPES)
+# (rows, H, I): a B=64, S=128 batch at three widths, and one B=1 query
+FFN_SHAPES = ((64 * 128, 384, 1536), (64 * 128, 768, 3072),
+              (64 * 128, 312, 1200), (128, 384, 1536))
+POOL_SHAPES = ((64, 128, 384), (8, 512, 384))
+TINYBERT = dict(hidden_size=312, num_heads=12, intermediate_size=1200,
+                num_layers=4)
+ENCODE_BATCHES, ENCODE_ROUNDS = (1, 8, 64), 6
 K2_ROWS, K2_BATCH = 1 << 20, 1024
 I4_RECALL_ROWS = 1 << 21
 I4_SCALE_ROWS, I4_SCALE_ADD = 1 << 26, 1 << 20
@@ -74,6 +117,9 @@ NODE_PAGES = 270_000
 NODE_TIERS = ("i8", "i4", "bf16")
 PROFILE_BATCHES, PROFILE_K = (1, 8, 64), 50
 COS_MIN = 0.999          # bf16 bound of the reference (test_pallas_kernels.py)
+# K5-K7 vs their plain twins: the same bf16 rounding points, f32 sums in
+# another order; K8 is f32 throughout
+KERNEL_COS_MIN, POOL_ERR_MAX = 0.9999, 1e-5
 RAW_RECALL_MIN, RERANK_RECALL_MIN = 0.95, 0.99
 # bf16-query select variants vs their plain twin: f32 sums of the same
 # bf16 products in another order differ by a few ulps of the dot, which
@@ -83,17 +129,30 @@ RAW_RECALL_MIN, RERANK_RECALL_MIN = 0.95, 0.99
 # the fold to k + 30 and an f32 re-rank equal for every query.
 BF16_VAL_TOL, BF16_ID_SHARE = 3.1e-5, 0.99
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W) and HBM3 bandwidth
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # each kernel entry's launch counter in /api/metrics
 COUNTER = {"bert_layer": "kernel_bert_layer", "select_i8": "kernel_select",
            "select_i8_qbf16": "kernel_select_i8_qbf16",
            "select_bf16": "kernel_select_bf16",
            "select_i4": "kernel_select_i4",
-           "select_i4_qbf16": "kernel_select_i4_qbf16"}
+           "select_i4_qbf16": "kernel_select_i4_qbf16",
+           "attention_packed": "kernel_attention_packed",
+           "attention": "kernel_attention", "ffn": "kernel_ffn",
+           "mean_pool": "kernel_mean_pool"}
+ENCODER_COUNTERS = ("kernel_bert_layer", "kernel_attention_packed",
+                    "kernel_attention", "kernel_ffn", "kernel_mean_pool")
 # select launch counters (ops/scan_select.VARIANTS) by node tier
 NODE_SELECT = {"i8": "kernel_select", "i4": "kernel_select_i4",
                "bf16": "kernel_select_bf16"}
+PER_OP_ENV = {"DAWNSEARCH_LAYER_IMPL": "ops", "DAWNSEARCH_POOL_IMPL": "fused"}
+# (label, tier, extra environment, encoder counters that must rise,
+# encoder counters that must stay 0)
+NODE_RUNS = (
+    *((t, t, {}, ("kernel_bert_layer",), ()) for t in NODE_TIERS),
+    ("i8-ops", "i8", PER_OP_ENV,
+     ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"),
+     ("kernel_bert_layer",)))
 
 TEXTS = [
     "the lighthouse keeper climbed the spiral stairs every night to trim the wick and watch the storm roll over the black rocks",
@@ -151,6 +210,25 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of one fn(): `calls` calls captured in one CUDA graph
+    (after warm-up calls on a side stream), the median CUDA-event time of
+    `reps` replays over `calls`. The host's per-call work (argument
+    checks, allocation, the launch itself) is not in it, which matters
+    for kernels of tens of microseconds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=1) / calls
 
 
 # -- phases ---------------------------------------------------------------
@@ -423,6 +501,175 @@ def phase_k2bf16(results: list) -> None:
                  codes, scales, count, rows, queries)
 
 
+def _ragged(rng: np.random.Generator, B: int, S: int, dev):
+    """A (B, S) bool key mask with lengths in [S/8, S] (row 0 full) and
+    its additive f32 bias."""
+    lengths = rng.integers(max(1, S // 8), S + 1, B)
+    lengths[0] = S
+    mask = torch.from_numpy(np.arange(S)[None, :] < lengths[:, None]).to(dev)
+    return mask, torch.where(mask, 0.0, -1e30).float()
+
+
+def _row_cos(got, want, width: int) -> torch.Tensor:
+    return torch.nn.functional.cosine_similarity(
+        got.float().reshape(-1, width), want.float().reshape(-1, width), dim=-1)
+
+
+def _check_attention(tag: str, shape: str, kernel, plain, library, width,
+                     flops: float, nbytes_: int) -> dict:
+    """One attention kernel call vs its plain twin (per-row cosine) and
+    vs the library call; all three timed."""
+    got, want = kernel(), plain()
+    lib_out = library()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    cos = float(_row_cos(got, want, width).min())
+    lib_cos = float(_row_cos(lib_out, want, width).min())
+    ok = bool(torch.isfinite(got.float()).all()) and cos >= KERNEL_COS_MIN
+    ms, plain_ms, library_ms = (graph_ms(kernel), graph_ms(plain),
+                                graph_ms(library))
+    bd = bound(flops, "bf16", nbytes_)
+    say(f"phase attn {tag} {shape}: max|d|={err:.3e} min row cos={cos:.7f} "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f}"
+        f" ms (min row cos vs plain {lib_cos:.4f}) bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    if not ok:
+        raise AssertionError(f"{tag} disagrees with its plain twin at {shape} "
+                             f"(cos bound {KERNEL_COS_MIN})")
+    if lib_cos < 0.99:
+        raise AssertionError(f"the library attention computes another "
+                             f"function (row cos {lib_cos:.4f})")
+    return {"shape": shape, "max_abs_err": err, "min_row_cos": cos, "ms": ms,
+            "plain_ms": plain_ms, **bd, "library_ms": library_ms}
+
+
+def phase_attn(results: list) -> None:
+    """K5 reads q, k, v as column slices of one (B, S, 3H) projection
+    output, as the encoder hands them over; K6 takes (B, nh, S, hd). The
+    library yardstick is scaled_dot_product_attention with the same key
+    mask (the port never calls it)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dawnsearch_tpu_torch.ops import attention as at
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(dev, torch.bfloat16)
+    packed = []
+    for H, nh, B, S in K5_SHAPES:
+        hd = H // nh
+        qkv = randn(B, S, 3 * H)
+        q, k, v = qkv.split(H, dim=-1)
+        mask, bias = _ragged(rng, B, S, dev)
+
+        def heads(t):
+            return t.reshape(B, S, nh, hd).transpose(1, 2)
+        out = torch.empty((B, S, H), dtype=torch.bfloat16, device=dev)
+        packed.append(_check_attention(
+            "K5", f"B={B} S={S} H={H} hd={hd} bf16",
+            lambda: at.fused_attention_packed(q, k, v, bias, nh),
+            lambda: at.attention_packed_plain(q, k, v, bias, nh),
+            lambda: sdpa(heads(q), heads(k), heads(v),
+                         attn_mask=mask[:, None, None, :]
+                         ).transpose(1, 2).reshape(B, S, H),
+            H, 4 * B * S * S * H, nbytes(qkv, bias, out)))
+    results.append({"name": "attention_packed", "route": "cuda",
+                    "source": "dawnsearch_tpu_torch/csrc/attention.cu",
+                    "replaces": "dawnsearch_tpu/ops/attention.py:198",
+                    **packed[0], "other_shapes": packed[1:]})
+    head_major = []
+    for H, nh, B, S in K6_SHAPES:
+        hd = H // nh
+        q, k, v = (randn(B, nh, S, hd) for _ in range(3))
+        mask, bias = _ragged(rng, B, S, dev)
+        out = torch.empty_like(q)
+        head_major.append(_check_attention(
+            "K6", f"B={B} S={S} nh={nh} hd={hd} bf16",
+            lambda: at.fused_attention(q, k, v, bias, nh),
+            lambda: at.attention_plain(q, k, v, bias, nh),
+            lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :]),
+            hd, 4 * B * S * S * H, nbytes(q, k, v, bias, out)))
+    results.append({"name": "attention", "route": "cuda",
+                    "source": "dawnsearch_tpu_torch/csrc/attention.cu",
+                    "replaces": "dawnsearch_tpu/ops/attention.py:105",
+                    **head_major[0], "other_shapes": head_major[1:]})
+
+
+def phase_ffn(results: list) -> None:
+    """K7 at 64 x 128 rows for three widths and at one query's 128 rows;
+    no single PyTorch call computes the fused FFN + residual + LayerNorm."""
+    from dawnsearch_tpu_torch.ops import ffn
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda")
+    shapes = []
+    for M, H, I in FFN_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((M, H), np.float32)
+                             ).to(dev, torch.bfloat16)
+        weights = _layer_weights(rng, H, I, dev)[6:]
+        got = ffn.fused_ffn(x, *weights)
+        want = ffn.ffn_plain(x, *weights)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        cos = float(_row_cos(got, want, H).min())
+        ok = bool(torch.isfinite(got.float()).all()) and cos >= KERNEL_COS_MIN
+        ms = graph_ms(lambda: ffn.fused_ffn(x, *weights))
+        plain_ms = graph_ms(lambda: ffn.ffn_plain(x, *weights))
+        bd = bound(4 * M * H * I, "bf16", 2 * nbytes(x) + nbytes(*weights))
+        shape = f"M={M} H={H} I={I} bf16"
+        say(f"phase ffn {shape}: max|d|={err:.3e} min row cos={cos:.7f} "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        if not ok:
+            raise AssertionError(f"K7 disagrees with ffn_plain at {shape} "
+                                 f"(cos bound {KERNEL_COS_MIN})")
+        shapes.append({"shape": shape, "max_abs_err": err, "min_row_cos": cos,
+                       "ms": ms, "plain_ms": plain_ms, **bd,
+                       "library_ms": None})
+    results.append({"name": "ffn", "route": "cuda",
+                    "source": "dawnsearch_tpu_torch/csrc/ffn.cu",
+                    "replaces": "dawnsearch_tpu/ops/ffn.py:89",
+                    **shapes[0], "other_shapes": shapes[1:]})
+
+
+def phase_pool(results: list) -> None:
+    """K8 on f32 hidden states with an int mask, as encode_batch calls it;
+    no single PyTorch call computes the masked mean + normalize."""
+    from dawnsearch_tpu_torch.ops import attention as at
+    rng = np.random.default_rng(13)
+    dev = torch.device("cuda")
+    shapes = []
+    for B, S, H in POOL_SHAPES:
+        hidden = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
+                                  ).to(dev)
+        mask = _ragged(rng, B, S, dev)[0].int()
+        for pad in (False, True):
+            got = at.fused_mean_pool(hidden, mask, pad)
+            want = at.mean_pool_plain(hidden, mask, pad)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            norm_err = float((got.norm(dim=-1) - 1).abs().max())
+            ok = err <= POOL_ERR_MAX and norm_err <= POOL_ERR_MAX
+            ms = graph_ms(lambda: at.fused_mean_pool(hidden, mask, pad))
+            plain_ms = graph_ms(lambda: at.mean_pool_plain(hidden, mask, pad))
+            bd = bound(2 * B * S * H, "f32",
+                       nbytes(hidden, got) + (0 if pad else nbytes(mask)))
+            shape = f"B={B} S={S} H={H} f32{' include_padding' if pad else ''}"
+            say(f"phase pool {shape}: max|d|={err:.3e} max|norm-1|="
+                f"{norm_err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            if not ok:
+                raise AssertionError(f"K8 disagrees with mean_pool_plain at "
+                                     f"{shape} (bound {POOL_ERR_MAX})")
+            shapes.append({"shape": shape, "max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, **bd, "library_ms": None})
+    results.append({"name": "mean_pool", "route": "cuda",
+                    "source": "dawnsearch_tpu_torch/csrc/pool.cu",
+                    "replaces": "dawnsearch_tpu/ops/attention.py:241",
+                    **shapes[0], "other_shapes": shapes[1:]})
+
+
 def _unit_rows(n: int, g: torch.Generator, dev, dim: int = 384) -> torch.Tensor:
     v = torch.randn((n, dim), generator=g, device=dev)
     return v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
@@ -637,6 +884,140 @@ def phase_profile() -> None:
             f"{e.count // 10}" for e in top))
 
 
+def _encoder_launches() -> list:
+    """The encoder kernels' launch counters in this process: one dict,
+    keyed by METRICS name, per wrapper module."""
+    from dawnsearch_tpu_torch.ops import attention, ffn, layer
+    return [layer.launches, attention.launches, ffn.launches]
+
+
+def _counters() -> dict:
+    return {k: n for launches in _encoder_launches()
+            for k, n in launches.items()}
+
+
+def _zero_counters() -> None:
+    for launches in _encoder_launches():
+        launches.update(dict.fromkeys(launches, 0))
+
+
+def _encoder_tree(rng: np.random.Generator, cfg) -> dict:
+    """Seeded weights in the reference's stacked layout: matrices with
+    std 0.05, biases and LayerNorm parameters away from their init."""
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+
+    def w(*shape):
+        return rng.standard_normal(shape, np.float32) * 0.05
+
+    def v(*shape, base=0.0):
+        return (base + rng.standard_normal(shape, np.float32) * 0.1
+                ).astype(np.float32)
+    return {
+        "embeddings": {"word": w(cfg.vocab_size, H),
+                       "position": w(cfg.max_position_embeddings, H),
+                       "token_type": w(2, H), "ln_scale": v(H, base=1.0),
+                       "ln_bias": v(H)},
+        "layers": {"qkv_w": w(L, H, 3 * H), "qkv_b": v(L, 3 * H),
+                   "attn_out_w": w(L, H, H), "attn_out_b": v(L, H),
+                   "attn_ln_scale": v(L, H, base=1.0), "attn_ln_bias": v(L, H),
+                   "ffn_in_w": w(L, H, I), "ffn_in_b": v(L, I),
+                   "ffn_out_w": w(L, I, H), "ffn_out_b": v(L, H),
+                   "ffn_ln_scale": v(L, H, base=1.0), "ffn_ln_bias": v(L, H)}}
+
+
+def phase_ops(counts: dict) -> None:
+    """The per-op encoder through SentenceEncoder.encode, the entry point
+    the node's batcher calls, on the smoke texts. Each configuration runs
+    on the card with every encoder counter set to 0 just before and read
+    just after, and is held to the same encoder on the CPU (plain twins,
+    same weights). Adds each kernel's launches to `counts`."""
+    from dawnsearch_tpu_torch.models.bert import BertConfig, encode_batch
+    from dawnsearch_tpu_torch.models.encoder import SentenceEncoder
+    from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
+                                                       build_vocab_from_corpus)
+    from dawnsearch_tpu_torch.models.weights import params_from_numpy
+    from dawnsearch_tpu_torch.serving.fused import _encode
+    dev = torch.device("cuda")
+    corpus = [string.ascii_lowercase, string.digits,
+              "the quick brown fox jumps over the lazy dog"]
+    vocab = build_vocab_from_corpus(corpus, size=4096)
+    tok = WordPieceTokenizer(vocab)
+    minilm = dict(vocab_size=len(vocab), dtype=torch.bfloat16)
+    tiny = dict(minilm, **TINYBERT)
+    # (label, config, counters that must rise, counters that must stay 0)
+    runs = (
+        ("minilm layer", dict(minilm), {"kernel_bert_layer"}, set()),
+        ("minilm ops+fused pool", dict(minilm, layer_impl="ops",
+                                       pool_impl="fused"),
+         {"kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"},
+         {"kernel_bert_layer", "kernel_attention"}),
+        ("minilm ops", dict(minilm, layer_impl="ops"),
+         {"kernel_attention_packed", "kernel_ffn"},
+         {"kernel_bert_layer", "kernel_attention", "kernel_mean_pool"}),
+        ("minilm attn_impl=xla", dict(minilm, attn_impl="xla"),
+         {"kernel_ffn"}, {"kernel_bert_layer", "kernel_attention_packed",
+                          "kernel_attention", "kernel_mean_pool"}),
+        ("tinybert layer", dict(tiny, layer_impl="layer"),
+         {"kernel_attention", "kernel_ffn"},
+         {"kernel_bert_layer", "kernel_attention_packed", "kernel_mean_pool"}),
+    )
+    trees = {}
+    embs, encoders = {}, {}
+    for label, kw, up, zero in runs:
+        cfg = BertConfig(**kw)
+        key = (cfg.hidden_size, cfg.num_layers)
+        if key not in trees:
+            trees[key] = params_from_numpy(_encoder_tree(
+                np.random.default_rng(cfg.hidden_size), cfg))
+        enc = SentenceEncoder(trees[key], tok, cfg=cfg, device=dev)
+        _zero_counters()
+        emb = enc.encode(TEXTS)
+        ran = _counters()
+        for name, n in ran.items():
+            counts[name] = counts.get(name, 0) + n
+        cpu = SentenceEncoder(trees[key], tok, cfg=cfg,
+                              device="cpu").encode(TEXTS)
+        cos = float(np.min(np.sum(emb * cpu, axis=1)))
+        rose = {n: c for n, c in ran.items() if c}
+        say(f"phase ops {label}: H={cfg.hidden_size} layers={cfg.num_layers}"
+            f", {len(TEXTS)} texts; min cos vs CPU {cos:.6f}; counters that "
+            f"rose {rose}")
+        if not (np.isfinite(emb).all() and cos >= COS_MIN
+                and all(ran[n] for n in up) and not any(ran[n] for n in zero)):
+            raise AssertionError(f"ops {label}: cos {cos} (bound {COS_MIN}) or "
+                                 f"a wrong route: {ran}")
+        embs[label], encoders[label] = emb, enc
+    for label in ("minilm ops+fused pool", "minilm ops", "minilm attn_impl=xla"):
+        cos = float(np.min(np.sum(embs[label] * embs["minilm layer"], axis=1)))
+        say(f"phase ops {label} vs the K1 path: min cos {cos:.6f}")
+        if cos < COS_MIN:
+            raise AssertionError(f"ops {label} vs K1: cos {cos}")
+    # encode time at S=128 on the K1 and the per-op paths: device time of
+    # encode_batch (CUDA-graph replays, no host work in it), and host time
+    # of _encode (host-to-device copy included) in ENCODE_ROUNDS rounds
+    # that alternate the paths' order, as median [min, max] of the rounds
+    labels = ("minilm layer", "minilm ops+fused pool", "minilm ops",
+              "minilm attn_impl=xla")
+    for B in ENCODE_BATCHES:
+        texts = [TEXTS[j % len(TEXTS)] for j in range(B)]
+        enc = encoders["minilm layer"]
+        ids, mask = enc.pad_batch([t[:128] for t in enc.tokenize_texts(texts)])
+        ids_d, mask_d = enc.to_device(ids, mask)
+        device = {label: graph_ms(lambda e=encoders[label]: encode_batch(
+            e.model, ids_d, mask_d, mask_padding=e.mask_padding,
+            include_padding=e.include_padding_in_pool), calls=5)
+            for label in labels}
+        host: dict = {label: [] for label in labels}
+        for r in range(ENCODE_ROUNDS):
+            for label in labels[r % 4:] + labels[:r % 4]:
+                host[label].append(_host_ms(
+                    lambda: _encode(encoders[label], ids, mask), reps=10))
+        say(f"phase ops encode B={B} S={ids.shape[1]}: " + "; ".join(
+            f"{label} device {device[label]:.3f} ms, host "
+            f"{np.median(host[label]):.3f} [{min(host[label]):.3f}, "
+            f"{max(host[label]):.3f}] ms" for label in labels))
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -669,9 +1050,9 @@ def seed_store(data_dir: str, n: int, seed: int = 4) -> None:
         store.close()
 
 
-def run_nodes(n_pages: int, tiers=NODE_TIERS) -> dict:
-    """Seed one store, then run the node once per index tier on a copy of
-    it (a copy holds no index snapshot, so each tier builds its own
+def run_nodes(n_pages: int) -> dict:
+    """Seed one store, then run the node once per entry of NODE_RUNS on a
+    copy of it (a copy holds no index snapshot, so each run builds its own
     index). Returns every kernel counter's increase, summed over runs."""
     work = tempfile.mkdtemp(prefix="dawn-node-")
     try:
@@ -682,28 +1063,32 @@ def run_nodes(n_pages: int, tiers=NODE_TIERS) -> dict:
         say(f"phase node: seeded {n_pages} pages in "
             f"{time.perf_counter() - t0:.1f} s")
         total: dict = {}
-        for tier in tiers:
-            data_dir = os.path.join(work, tier)
+        for label, tier, env, up, zero in NODE_RUNS:
+            data_dir = os.path.join(work, label)
             shutil.copytree(seed, data_dir)
-            for name, n in run_node(data_dir, tier).items():
+            for name, n in run_node(data_dir, label, tier, env, up,
+                                    zero).items():
                 total[name] = total.get(name, 0) + n
         return total
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_node(data_dir: str, tier: str, start_timeout: float = 600.0) -> dict:
+def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
+             up: tuple, zero: tuple, start_timeout: float = 600.0) -> dict:
     """Start the node as a user would on `data_dir` with index_dtype
-    `tier`, insert, query, read the kernel counters, stop. Returns the
-    counters' increase; fails unless K1 and the tier's select ran."""
+    `tier` and the extra environment, insert, query, read the kernel
+    counters, stop. Returns the counters' increase; fails unless the
+    encoder counters `up` and the tier's select ran and those in `zero`
+    did not."""
     from dawnsearch_tpu_torch.ops.scan_select import VARIANTS
     work = os.path.dirname(data_dir)
     t0 = time.perf_counter()
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     env = dict(os.environ, DAWNSEARCH_ACCEPT_INSERT="true", PYTHONPATH=HERE,
-               DAWNSEARCH_INDEX_DTYPE=tier)
-    log_path = os.path.join(work, f"node-{tier}.log")
+               DAWNSEARCH_INDEX_DTYPE=tier, **env_extra)
+    log_path = os.path.join(work, f"node-{label}.log")
     log = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "dawnsearch_tpu_torch", "--config",
@@ -722,9 +1107,9 @@ def run_node(data_dir: str, tier: str, start_timeout: float = 600.0) -> dict:
                 if time.monotonic() > deadline:
                     raise
                 time.sleep(1.0)
-        say(f"phase node {tier}: up in {time.perf_counter() - t0:.1f} s, "
+        say(f"phase node {label}: up in {time.perf_counter() - t0:.1f} s, "
             f"{stats['pages_indexed']} pages, capacity {stats['index_capacity']}")
-        names = ("kernel_bert_layer", *VARIANTS.values())
+        names = (*ENCODER_COUNTERS, *VARIANTS.values())
         before = _http(base + "/api/metrics")
         if any(before.get(n, 0) for n in names):
             raise AssertionError(f"kernel counters not zero at start: {before}")
@@ -737,20 +1122,22 @@ def run_node(data_dir: str, tier: str, start_timeout: float = 600.0) -> dict:
             res = _http(base + "/api/search?q=" + urllib.parse.quote(TEXTS[j]))
             top = res["results"]
             dists = [round(r["distance"], 5) for r in top[:3]]
-            say(f"phase node {tier}: query {j} -> {top[0]['url']} top-3 distances "
+            say(f"phase node {label}: query {j} -> {top[0]['url']} top-3 distances "
                 f"{dists} ({res['seconds']} s)")
             if top[0]["url"] != pages[j]["url"]:
                 raise AssertionError(f"page {j} not at rank 1: {top[:3]}")
         after = _http(base + "/api/metrics")
         counts = {n: after.get(n, 0) - before.get(n, 0) for n in names}
-        say(f"phase node {tier}: kernel launches {counts}")
-        if not (counts["kernel_bert_layer"] and counts[NODE_SELECT[tier]]):
-            raise AssertionError(f"a kernel of the path never ran: {counts}")
+        say(f"phase node {label}: kernel launches {counts}")
+        if not (all(counts[n] for n in (*up, NODE_SELECT[tier]))
+                and not any(counts[n] for n in zero)):
+            raise AssertionError(f"a kernel of the path never ran, or one "
+                                 f"off the path did: {counts}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=300)
         if rc != 0:
             raise RuntimeError(f"node exit code {rc} after SIGTERM")
-        say(f"phase node {tier}: stopped cleanly in "
+        say(f"phase node {label}: stopped cleanly in "
             f"{time.perf_counter() - t0:.1f} s total")
         return counts
     except BaseException:
@@ -780,25 +1167,40 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import dawnsearch_tpu_torch  # noqa: F401  (fails outside a checkout)
     results: list = []
-    if set(phases) & {"build", "k1", "k2", "k3", "k2bf16"}:
+    if set(phases) & KERNEL_PHASES:
         phase_build()
     scale: list = []
+    ops_counts: dict = {}
     for name, run in (("k1", lambda: phase_k1(results)),
                       ("k2", lambda: phase_k2(results)),
                       ("k3", lambda: phase_k3(results)),
                       ("k2bf16", lambda: phase_k2bf16(results)),
+                      ("attn", lambda: phase_attn(results)),
+                      ("ffn", lambda: phase_ffn(results)),
+                      ("pool", lambda: phase_pool(results)),
                       ("recall", phase_recall),
                       ("recall_i4", phase_recall_i4),
                       ("i4_scale", lambda: phase_i4_scale(scale)),
-                      ("profile", phase_profile)):
+                      ("profile", phase_profile),
+                      ("ops", lambda: phase_ops(ops_counts))):
         if name in phases:
+            t0 = time.perf_counter()
             run()
             torch.cuda.empty_cache()
-    # launches are counted only in the nodes' runs of the main path; a
-    # partial run without them has no such count
-    counts = run_nodes(NODE_PAGES) if "node" in phases else {}
+            say(f"phase {name}: done in {time.perf_counter() - t0:.1f} s")
+    # launches are counted only in the runs of the main path (the nodes
+    # and the ops phase's encoders); a partial run without them has no
+    # such count
+    t0 = time.perf_counter()
+    node_counts = run_nodes(NODE_PAGES) if "node" in phases else {}
+    if node_counts:
+        say(f"phase node: done in {time.perf_counter() - t0:.1f} s")
     for r in results:
-        r["launches"] = counts.get(COUNTER[r["name"]])
+        counter = COUNTER[r["name"]]
+        ran = [c[counter] for c in (node_counts, ops_counts) if counter in c]
+        r["launches"] = sum(ran) if ran else None
+        r["launches_node"] = node_counts.get(counter)
+        r["launches_ops"] = ops_counts.get(counter)
         if r["name"] == "select_i4" and scale:
             r["other_shapes"] = scale
     say(json.dumps({"kernels": results}))

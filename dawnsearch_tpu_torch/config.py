@@ -41,10 +41,11 @@ class Config:
     # 512 matches the reference's full BERT window (model.rs:123,147)
     seq_buckets: tuple[int, ...] = (16, 32, 64, 128, 256, 512)
     compute_dtype: str = "bf16"  # encoder matmul dtype: "bf16" | "f32"
-    attn_impl: str = "fused"  # "fused" | "xla"
-    # "layer" (whole-layer kernel K1) | "layer_i8" | "ops"
+    attn_impl: str = "fused"  # "fused" (K5 / K6) | "xla" (einsum + K7)
+    # "layer" (whole-layer kernel K1) | "layer_i8" (K4, not ported) |
+    # "ops" (per-op kernels K5 or K6, and K7)
     layer_impl: str = "layer"
-    pool_impl: str = "xla"  # "xla" | "fused"
+    pool_impl: str = "xla"  # "xla" | "fused" (K8)
     index_capacity: int = 1_000_000  # page cap (search_provider.rs:164-166)
     index_dtype: str = "i8"  # "f32" | "bf16" | "i8" | "i4"
     index_kind: str = "flat"  # "flat" | "sharded"

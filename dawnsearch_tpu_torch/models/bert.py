@@ -1,13 +1,28 @@
 """BERT sentence encoder (all-MiniLM-L6-v2 shape) as a torch module.
 
-Port of dawnsearch_tpu/models/bert.py for the `bert` family on its
-default path (layer_impl="layer"): embeddings + LayerNorm (bert.py:232-251),
-one whole-layer kernel call per layer (ops/layer.py, K1), masked mean-pool
-and L2 normalize (bert.py:275-325). The reference's parity flags stay:
-`mask_padding=False` attends over padding like the reference model
-(model.rs:325-347) and `include_padding=True` pools over it
-(embedding_service.rs:126-128). The key mask is an additive -1e30 bias
-(bert.py:254-257).
+Port of dawnsearch_tpu/models/bert.py for the `bert` family: embeddings +
+LayerNorm (bert.py:232-251), the layer stack, mean-pool and L2 normalize
+(bert.py:275-325). A layer runs one of the reference's two paths, routed
+condition for condition as `_layer_fwd` does (bert.py:125-126, :139,
+:180-181):
+
+- the whole-layer kernel (ops/layer.py, K1) for layer_impl="layer" when
+  attn_impl is not "xla" and the width fits the packed envelope
+  (128 % head_dim == 0, H % 128 == 0);
+- otherwise the per-op path: the QKV projection, attention (packed K5 in
+  the envelope, head-major K6 outside it, both ops/attention.py; einsum
+  attention for attn_impl="xla"), the output projection, a residual add in
+  the compute dtype with a LayerNorm, and the fused FFN (ops/ffn.py, K7).
+
+The reference's ffn_impl="xla" (two dense calls, bert.py:199-213) is set
+only by its tests and no node setting reaches it, so it is not carried.
+
+pool_impl="fused" pools and normalizes with K8 (ops/attention.py). The
+reference's parity flags stay: `mask_padding=False` attends over padding
+like the reference model (model.rs:325-347) and `include_padding=True`
+pools over it (embedding_service.rs:126-128). The key mask is an additive
+-1e30 bias (bert.py:254-257). MPNet's relative-position bias is not
+ported, so no route here carries one.
 
 Parameters never require gradients; encode_batch runs under
 torch.inference_mode(). Matrices are stored in the compute dtype, biases,
@@ -17,12 +32,17 @@ LayerNorm parameters and embeddings in f32, as the reference casts them.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
 
+from dawnsearch_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_packed,
+                                                fused_mean_pool)
+from dawnsearch_tpu_torch.ops.ffn import fused_ffn
 from dawnsearch_tpu_torch.ops.layer import fused_bert_layer
-from dawnsearch_tpu_torch.ops.vector import normalize
+from dawnsearch_tpu_torch.ops.vector import layer_norm, normalize
 
 Params = dict
 
@@ -39,6 +59,14 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     # compute dtype of the projections; softmax and LayerNorm stay f32
     dtype: torch.dtype = torch.float32
+    # "fused" = K5 (packed) or K6 attention kernels; "xla" = einsum attention
+    attn_impl: str = "fused"
+    # "xla" = plain mean-pool + normalize; "fused" = K8
+    pool_impl: str = "xla"
+    # "layer" = the whole-layer kernel K1 where the width fits; "ops" = the
+    # per-op kernels above (also the fallback outside the envelope);
+    # "layer_i8" = K4, not ported yet
+    layer_impl: str = "layer"
 
     @property
     def head_dim(self) -> int:
@@ -50,12 +78,83 @@ MINILM_L6 = BertConfig()
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 eps: float) -> torch.Tensor:
-    """LayerNorm in f32 (reference computes mean/var manually,
-    model.rs:68-105)."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    return (x32 - mean) * torch.rsqrt(var + eps) * scale + bias
+    """LayerNorm in f32, cast back to x's dtype (bert.py:91-98)."""
+    return layer_norm(x.float(), scale, bias, eps).to(x.dtype)
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """x·w + b rounded once to `dtype` (bert.py:101-103): an f32 product of
+    compute-dtype operands plus the f32 bias. On the card the product
+    is a bf16 tensor-core GEMM with f32 output."""
+    x2d = x.reshape(-1, x.shape[-1]).to(dtype)
+    if x2d.is_cuda and dtype != torch.float32:
+        y = torch.mm(x2d, w.to(dtype), out_dtype=torch.float32)
+    else:
+        y = x2d.float() @ w.to(dtype).float()
+    return (y + b.float()).to(dtype).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _packed(cfg: BertConfig) -> bool:
+    """The width fits the reference's packed-lane envelope."""
+    return 128 % cfg.head_dim == 0 and cfg.hidden_size % 128 == 0
+
+
+def _attention(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
+               bias: torch.Tensor | None) -> torch.Tensor:
+    """Multi-head self-attention (bert.py:106-165) through one fused QKV
+    projection. bias: (B, S) f32 additive key bias or None."""
+    B, S, H = x.shape
+    nh, hd, dt = cfg.num_heads, cfg.head_dim, cfg.dtype
+    qkv = _dense(x, layer.qkv_w, layer.qkv_b, dt)      # (B, S, 3H)
+    q, k, v = qkv.split(H, dim=-1)
+    if cfg.attn_impl == "fused" and _packed(cfg):
+        ctx = fused_attention_packed(q, k, v, bias, nh=nh)
+        return _dense(ctx.to(dt), layer.attn_out_w, layer.attn_out_b, dt)
+    q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2) for t in (q, k, v))
+    if cfg.attn_impl == "fused":
+        ctx = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              bias, nh=nh).to(dt)
+    else:
+        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        if bias is not None:
+            scores = scores + bias.float()[:, None, None, :]
+        if dt == torch.bfloat16:
+            # the reference rounds the scores and s - max to bf16 and runs
+            # exp and the normalisation in f32 (bert.py:151-159)
+            s16 = scores.to(torch.bfloat16)
+            e = torch.exp((s16 - s16.amax(dim=-1, keepdim=True)).float())
+            probs = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+        else:
+            probs = torch.softmax(scores, dim=-1).to(dt)
+        ctx = (probs.float() @ v.float()).to(dt)
+    ctx = ctx.transpose(1, 2).reshape(B, S, H)
+    return _dense(ctx, layer.attn_out_w, layer.attn_out_b, dt)
+
+
+def _layer_fwd(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
+               bias: torch.Tensor | None) -> torch.Tensor:
+    """One post-LN layer (bert.py:168-215) on the route the config and
+    width pick."""
+    if (cfg.layer_impl in ("layer", "layer_i8") and cfg.attn_impl != "xla"
+            and _packed(cfg)):
+        if cfg.layer_impl == "layer_i8":
+            raise NotImplementedError("layer_impl='layer_i8' needs K4, not "
+                                      "ported yet (ROADMAP.md Queue 1 item 7)")
+        return fused_bert_layer(
+            x.to(cfg.dtype), bias, layer.qkv_w, layer.qkv_b, layer.attn_out_w,
+            layer.attn_out_b, layer.attn_ln_scale, layer.attn_ln_bias,
+            layer.ffn_in_w, layer.ffn_in_b, layer.ffn_out_w, layer.ffn_out_b,
+            layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
+            eps=cfg.layer_norm_eps)
+    attn = _attention(x, layer, cfg, bias)
+    x = _layer_norm(x + attn, layer.attn_ln_scale, layer.attn_ln_bias,
+                    cfg.layer_norm_eps)
+    B, S, H = x.shape
+    y = fused_ffn(x.reshape(B * S, H).to(cfg.dtype), layer.ffn_in_w,
+                  layer.ffn_in_b, layer.ffn_out_w, layer.ffn_out_b,
+                  layer.ffn_ln_scale, layer.ffn_ln_bias, eps=cfg.layer_norm_eps)
+    return y.reshape(B, S, H)
 
 
 def _frozen(t, device, dtype=torch.float32) -> nn.Parameter:
@@ -64,7 +163,7 @@ def _frozen(t, device, dtype=torch.float32) -> nn.Parameter:
 
 
 class BertLayer(nn.Module):
-    """One post-LN layer's weights; forward is one K1 call."""
+    """One post-LN layer's weights; forward is `_layer_fwd`."""
 
     MATRICES = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
     VECTORS = ("qkv_b", "attn_out_b", "attn_ln_scale", "attn_ln_bias",
@@ -79,11 +178,7 @@ class BertLayer(nn.Module):
             setattr(self, name, _frozen(layer[name], device))
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-        return fused_bert_layer(
-            x, bias, self.qkv_w, self.qkv_b, self.attn_out_w, self.attn_out_b,
-            self.attn_ln_scale, self.attn_ln_bias, self.ffn_in_w, self.ffn_in_b,
-            self.ffn_out_w, self.ffn_out_b, self.ffn_ln_scale, self.ffn_ln_bias,
-            nh=self.cfg.num_heads, eps=self.cfg.layer_norm_eps)
+        return _layer_fwd(x, self, self.cfg, bias)
 
 
 class BertModel(nn.Module):
@@ -142,7 +237,11 @@ def encode_batch(model: BertModel, input_ids: torch.Tensor,
                  include_padding: bool = False) -> torch.Tensor:
     """Sentence embeddings: BERT -> mean-pool -> L2 normalize, (B, H) f32
     on the model's device (reference calculate_embedding,
-    embedding_service.rs:97-139, minus tokenization)."""
+    embedding_service.rs:97-139, minus tokenization). The pool follows
+    the model's pool_impl."""
     hidden = model(input_ids, attention_mask, mask_padding=mask_padding)
+    if model.cfg.pool_impl == "fused":
+        return fused_mean_pool(hidden, attention_mask,
+                               include_padding=include_padding)
     pooled = mean_pool(hidden, attention_mask, include_padding=include_padding)
     return normalize(pooled, eps=1e-12)

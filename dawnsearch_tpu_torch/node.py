@@ -2,9 +2,12 @@
 
 Port of dawnsearch_tpu/node.py (the reference's main-binary bootstrap,
 the reference's src/bin/dawnsearch.rs:37-154) for what this package
-serves: text search and page insert over HTTP, on one device, through
-the whole-layer encoder kernel (K1) and the score+select kernels (K2 for
-an i8 or bf16 index, K3 for the i4 capacity tier).
+serves: text search and page insert over HTTP, on one device. The
+encoder runs the whole-layer kernel (K1) by default, or the per-op path
+(layer_impl="ops": attention K5 or K6 and the fused FFN K7 in every layer;
+attn_impl="xla": einsum attention and K7), and pools with K8 when
+pool_impl="fused". The score+select kernels are K2 for an i8 or bf16
+index and K3 for the i4 capacity tier.
 The 10-minute save timer and the save on shutdown are kept.
 
 The node never serves something other than what its config asked for:
@@ -48,14 +51,8 @@ def unported_settings(cfg: Config) -> list[str]:
         (cfg.dist_num_processes > 1 or bool(cfg.dist_coordinator),
          "dist_* (multihost)", "sharding and multihost"),
         (cfg.layer_impl == "layer_i8", "layer_impl='layer_i8'", "K4"),
-        (cfg.layer_impl == "ops", "layer_impl='ops'",
-         "the ops path with K5-K8"),
-        (cfg.attn_impl != "fused", f"attn_impl={cfg.attn_impl!r}",
-         "the ops path with K5-K8"),
-        (cfg.pool_impl == "fused", "pool_impl='fused'",
-         "the ops path with K5-K8"),
         (cfg.compute_dtype != "bf16", f"compute_dtype={cfg.compute_dtype!r}",
-         "the f32 variant of K1"),
+         "the f32 variants of K1 and K5-K7"),
     ]
     return [f"{what} is not ported yet (ROADMAP.md Queue 1: {item})"
             for bad, what, item in checks if bad]
@@ -66,6 +63,7 @@ def check_config(cfg: Config) -> None:
     for a CUDA device with no GPU."""
     problems = unported_settings(cfg)
     for name, allowed in (("index_dtype", ("f32", "bf16", "i8", "i4")),
+                          ("attn_impl", ("fused", "xla")),
                           ("layer_impl", ("layer", "layer_i8", "ops")),
                           ("pool_impl", ("xla", "fused")),
                           ("index_rerank", ("host", "device"))):
@@ -81,9 +79,10 @@ def check_config(cfg: Config) -> None:
 
 
 def make_encoder(cfg: Config):
-    """SentenceEncoder on cfg.device: MiniLM width, random weights from a
-    seeded generator and a self-contained vocab (as the reference node
-    does with no model_dir, dawnsearch_tpu/node.py:47-82)."""
+    """SentenceEncoder on cfg.device: MiniLM width on the layer, attention
+    and pool routes of the config, random weights from a seeded generator
+    and a self-contained vocab (as the reference node does with no
+    model_dir, dawnsearch_tpu/node.py:47-82)."""
     import torch
 
     from dawnsearch_tpu_torch.models.bert import BertConfig
@@ -92,13 +91,16 @@ def make_encoder(cfg: Config):
                                                        build_vocab_from_corpus)
     from dawnsearch_tpu_torch.models.weights import init_params
 
-    bert_cfg = BertConfig(dtype=torch.bfloat16)
+    bert_cfg = BertConfig(dtype=torch.bfloat16, attn_impl=cfg.attn_impl,
+                          pool_impl=cfg.pool_impl, layer_impl=cfg.layer_impl)
     params = init_params(torch.Generator().manual_seed(WEIGHT_SEED), bert_cfg)
     corpus = [string.ascii_lowercase, string.digits,
               "the quick brown fox jumps over the lazy dog"]
     tok = WordPieceTokenizer(build_vocab_from_corpus(corpus, size=4096))
-    log.info("encoder ready (random weights, device=%s, hidden=%d, layers=%d)",
-             cfg.device, bert_cfg.hidden_size, bert_cfg.num_layers)
+    log.info("encoder ready (random weights, device=%s, hidden=%d, layers=%d, "
+             "layer_impl=%s, attn_impl=%s, pool_impl=%s)", cfg.device,
+             bert_cfg.hidden_size, bert_cfg.num_layers, bert_cfg.layer_impl,
+             bert_cfg.attn_impl, bert_cfg.pool_impl)
     return SentenceEncoder(params, tok, cfg=bert_cfg,
                            seq_buckets=tuple(cfg.seq_buckets),
                            device=cfg.device)

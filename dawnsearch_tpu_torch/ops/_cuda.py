@@ -22,6 +22,8 @@ import subprocess
 import threading
 import time
 
+from dawnsearch_tpu_torch.utils.logging import METRICS
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -139,6 +141,15 @@ def lib() -> ctypes.CDLL:
             cdll.dawn_select.argtypes = [i, i, p, p, p, p, ll, p, p, i, ll,
                                          i, p]
             cdll.dawn_select.restype = i
+            cdll.dawn_attention.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll,
+                                            ll, ll, ll, ll, f, p]
+            cdll.dawn_attention.restype = i
+            cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
+            cdll.dawn_ffn.restype = i
+            cdll.dawn_ffn_block_rows.argtypes = [i, i]
+            cdll.dawn_ffn_block_rows.restype = i
+            cdll.dawn_mean_pool.argtypes = [p, p, p, i, i, i, i, p]
+            cdll.dawn_mean_pool.restype = i
             cdll.dawn_error_string.argtypes = [i]
             cdll.dawn_error_string.restype = ctypes.c_char_p
             _lib = cdll
@@ -156,3 +167,22 @@ def stream_handle(t) -> int:
     """The raw cudaStream_t of the current stream on t's device."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on
+    `device`, as a kernel argument must be."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
+            t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
+
+
+def count(launches: dict, name: str) -> None:
+    """Count one launch of kernel `name`: in its module's `launches`
+    (keyed by METRICS name; tests and chip_smoke.py read and reset it)
+    and in METRICS."""
+    launches[name] += 1
+    METRICS.inc(name)

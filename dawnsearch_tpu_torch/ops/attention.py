@@ -1,0 +1,177 @@
+"""Attention in both layouts (K5, K6) and the fused pool (K8): the CUDA
+kernels and their plain twins.
+
+Counterparts of dawnsearch_tpu/ops/attention.py:
+
+- `fused_attention_packed` (K5): q, k, v (B, S, H) with the heads packed
+  on the feature axis, H = nh·hd, 128 % hd == 0 and H % 128 == 0;
+- `fused_attention` (K6): q, k, v (B, nh, S, hd), any head dim;
+- `fused_mean_pool` (K8): masked (or plain) mean over S of f32 hidden
+  states, then L2 normalize with eps 1e-12.
+
+K5 and K6 compute softmax(q·kᵀ/√hd + bias)·v with the reference's
+rounding points (attention.py:63-77, :157-174): scores and softmax in f32,
+p rounded to the compute dtype before PV, 1/Σp from the f32 p applied
+after PV, one rounding to the output dtype. Both launch the one kernel of
+csrc/attention.cu: K5 reads q, k and v where they lie, as column slices of
+the projection's (B, S, 3H) output, with no split copy.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain twin
+(`attention_packed_plain`, `attention_plain`, `mean_pool_plain`) for a
+CPU tensor. There is no fallback between the two: a CUDA input the kernel
+does not take raises. On CUDA, K5 and K6 take bf16 (the f32 variant is
+ROADMAP Queue 2), S % 16 == 0 and S <= 512 (the encoder's buckets); K8
+takes f32 hidden states, as the encoder returns them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dawnsearch_tpu_torch.ops import _cuda
+
+# CUDA launches in this process, by METRICS name (_cuda.count).
+launches = {"kernel_attention_packed": 0, "kernel_attention": 0,
+            "kernel_mean_pool": 0}
+
+MAX_SEQ = 512
+
+
+def attention_plain(q, k, v, bias, nh: int) -> torch.Tensor:
+    """(B, nh, S, hd) q, k, v + (B, S) f32 additive key bias (or None) ->
+    (B, nh, S, hd) in q's dtype."""
+    hd = q.shape[-1]
+    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    inv = 1.0 / p.sum(dim=-1, keepdim=True)
+    return ((p.to(q.dtype).float() @ v.float()) * inv).to(q.dtype)
+
+
+def attention_packed_plain(q, k, v, bias, nh: int) -> torch.Tensor:
+    """(B, S, H) q, k, v, heads on the feature axis -> (B, S, H)."""
+    B, S, H = q.shape
+    hd = H // nh
+
+    def heads(t):
+        return t.reshape(B, S, nh, hd).transpose(1, 2)
+    out = attention_plain(heads(q), heads(k), heads(v), bias, nh)
+    return out.transpose(1, 2).reshape(B, S, H)
+
+
+def mean_pool_plain(hidden, mask, include_padding: bool = False
+                    ) -> torch.Tensor:
+    """(B, S, H) hidden + (B, S) mask -> (B, H) f32 unit rows."""
+    h = hidden.float()
+    if include_padding:
+        pooled = h.mean(dim=1)
+    else:
+        w = mask.float()[..., None]
+        pooled = (h * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
+    norm = torch.sqrt((pooled * pooled).sum(dim=1, keepdim=True))
+    return pooled / norm.clamp_min(1e-12)
+
+
+def fused_attention_packed(q, k, v, bias, nh: int) -> torch.Tensor:
+    """K5: (B, S, H) q, k, v + (B, S) bias -> (B, S, H); the kernel for
+    CUDA tensors, attention_packed_plain for CPU tensors."""
+    if not q.is_cuda:
+        return attention_packed_plain(q, k, v, bias, nh)
+    B, S, H = q.shape
+    hd = H // nh
+    if H != nh * hd or 128 % hd or H % 128:
+        raise ValueError(f"K5 needs 128 % head_dim == 0 and H % 128 == 0; "
+                         f"got H={H} nh={nh}")
+    _check_qkv("K5", q, k, v, (B, S, H), S)
+    ld = q.stride(1)
+    if q.stride() != (S * ld, ld, 1):
+        raise ValueError(f"K5 reads rows of a contiguous (B, S, ld) buffer "
+                         f"with unit feature stride; got strides {q.stride()}")
+    out = torch.empty((B, S, H), dtype=q.dtype, device=q.device)
+    _attention_cuda("kernel_attention_packed", q, k, v, bias, out, B, nh, S,
+                    hd, (S * ld, hd, ld), (S * H, hd, H))
+    return out
+
+
+def fused_attention(q, k, v, bias, nh: int) -> torch.Tensor:
+    """K6: (B, nh, S, hd) q, k, v + (B, S) bias -> (B, nh, S, hd); the
+    kernel for CUDA tensors, attention_plain for CPU tensors."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, bias, nh)
+    B, nh_, S, hd = q.shape
+    if nh_ != nh or hd > 128:
+        raise ValueError(f"K6 needs (B, {nh}, S, hd) with hd <= 128; "
+                         f"got {tuple(q.shape)}")
+    _check_qkv("K6", q, k, v, (B, nh, S, hd), S)
+    if not q.is_contiguous():
+        raise ValueError("K6 takes contiguous (B, nh, S, hd) tensors")
+    out = torch.empty_like(q)
+    strides = (nh * S * hd, S * hd, hd)
+    _attention_cuda("kernel_attention", q, k, v, bias, out, B, nh, S, hd,
+                    strides, strides)
+    return out
+
+
+def fused_mean_pool(hidden, mask, include_padding: bool = False
+                    ) -> torch.Tensor:
+    """K8: (B, S, H) f32 hidden + (B, S) mask -> (B, H) f32 unit rows; the
+    kernel for a CUDA tensor, mean_pool_plain for a CPU tensor."""
+    if not hidden.is_cuda:
+        return mean_pool_plain(hidden, mask, include_padding)
+    B, S, H = hidden.shape
+    if hidden.dtype != torch.float32 or not hidden.is_contiguous():
+        raise ValueError(f"K8 takes contiguous f32 hidden states, got "
+                         f"{hidden.dtype}"
+                         f"{'' if hidden.is_contiguous() else ' (non-contiguous)'}")
+    if H > 1024:
+        raise ValueError(f"K8 keeps 8 partial rows of H f32 in shared "
+                         f"memory: H={H} is over 1024")
+    w = None
+    if not include_padding:
+        if mask is None or tuple(mask.shape) != (B, S) or \
+                mask.device != hidden.device:
+            raise ValueError(f"K8 needs a (B, S) = {(B, S)} mask on "
+                             f"{hidden.device}")
+        w = mask.to(torch.float32).contiguous()
+    out = torch.empty((B, H), dtype=torch.float32, device=hidden.device)
+    lib = _cuda.lib()
+    _cuda.check(lib.dawn_mean_pool(hidden.data_ptr(),
+                                   None if w is None else w.data_ptr(),
+                                   out.data_ptr(), B, S, H,
+                                   int(include_padding),
+                                   _cuda.stream_handle(hidden)), "K8 pool")
+    _cuda.count(launches, "kernel_mean_pool")
+    return out
+
+
+def _check_qkv(what: str, q, k, v, shape, S: int) -> None:
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{what} takes bf16 on CUDA, got {q.dtype} (the f32 "
+                         "variant is ROADMAP Queue 2; f32 runs only in the "
+                         "plain twin)")
+    if S % 16 or S > MAX_SEQ:
+        raise ValueError(f"{what} needs S % 16 == 0 and S <= {MAX_SEQ}; "
+                         f"got S={S}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or tuple(t.shape) != tuple(shape) or \
+                t.device != q.device or t.stride() != q.stride():
+            raise ValueError(f"{what} {name} must match q: {q.dtype} "
+                             f"{tuple(shape)} strides {q.stride()} on "
+                             f"{q.device}; got {t.dtype} {tuple(t.shape)} "
+                             f"strides {t.stride()} on {t.device}")
+
+
+def _attention_cuda(name: str, q, k, v, bias, out, B, nh, S, hd, strides,
+                    out_strides) -> None:
+    if bias is None:
+        bias = torch.zeros((B, S), dtype=torch.float32, device=q.device)
+    _cuda.check_tensor(bias, "attention bias", torch.float32, (B, S), q.device)
+    lib = _cuda.lib()
+    _cuda.check(lib.dawn_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), B, nh, S, hd, *strides, *out_strides,
+        1.0 / math.sqrt(hd), _cuda.stream_handle(q)), name)
+    _cuda.count(launches, name)

@@ -26,18 +26,12 @@ import math
 import torch
 
 from dawnsearch_tpu_torch.ops import _cuda
-from dawnsearch_tpu_torch.utils.logging import METRICS
+from dawnsearch_tpu_torch.ops._cuda import check_tensor
+from dawnsearch_tpu_torch.ops.vector import layer_norm
 
 # Layer launches of the CUDA kernel in this process (one per call, each
-# being five CUDA launches). Tests and chip_smoke.py read and reset it.
-launches = 0
-
-
-def _ln(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-        eps: float) -> torch.Tensor:
-    mean = y.mean(dim=-1, keepdim=True)
-    var = (y - mean).square().mean(dim=-1, keepdim=True)
-    return (y - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+# being five CUDA launches), by METRICS name (_cuda.count).
+launches = {"kernel_bert_layer": 0}
 
 
 def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
@@ -65,11 +59,11 @@ def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
     ctx = (p.to(dt).float() @ v.float()) * inv
     ctx = ctx.transpose(1, 2).reshape(B * S, H).to(dt)
     att = mm(ctx, ao_w) + ao_b.float() + x2d.float()
-    x1 = _ln(att, aln_s, aln_b, eps).to(dt)
+    x1 = layer_norm(att, aln_s, aln_b, eps).to(dt)
     h = mm(x1, w1) + b1.float()
     h = (0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))).to(dt)
     y = mm(h, w2) + b2.float() + x1.float()
-    return _ln(y, fln_s, fln_b, eps).reshape(B, S, H).to(dt)
+    return layer_norm(y, fln_s, fln_b, eps).reshape(B, S, H).to(dt)
 
 
 def fused_bert_layer(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
@@ -85,18 +79,8 @@ def fused_bert_layer(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
                        b1, w2, b2, fln_s, fln_b, nh=nh, eps=eps)
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
-            t.device != device or not t.is_contiguous():
-        raise ValueError(
-            f"K1 {name}: want contiguous {dtype} {tuple(shape)} on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
-
-
 def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                 b2, fln_s, fln_b, *, nh: int, eps: float) -> torch.Tensor:
-    global launches
     B, S, H = x.shape
     I = w1.shape[1]
     dev = x.device
@@ -107,17 +91,17 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
         raise ValueError(f"K1 needs head dim 32, H % 128 == 0, I % 128 == 0 "
                          f"and S % 16 == 0; got H={H} nh={nh} I={I} S={S}")
     bf, f32 = torch.bfloat16, torch.float32
-    _check(x, "x", bf, (B, S, H), dev)
+    check_tensor(x, "K1 x", bf, (B, S, H), dev)
     for name, t, shape in (("qkv_w", qkv_w, (H, 3 * H)), ("ao_w", ao_w, (H, H)),
                            ("w1", w1, (H, I)), ("w2", w2, (I, H))):
-        _check(t, name, bf, shape, dev)
+        check_tensor(t, f"K1 {name}", bf, shape, dev)
     for name, t, n in (("qkv_b", qkv_b, 3 * H), ("ao_b", ao_b, H),
                        ("aln_s", aln_s, H), ("aln_b", aln_b, H), ("b1", b1, I),
                        ("b2", b2, H), ("fln_s", fln_s, H), ("fln_b", fln_b, H)):
-        _check(t, name, f32, (n,), dev)
+        check_tensor(t, f"K1 {name}", f32, (n,), dev)
     if bias is None:
         bias = torch.zeros((B, S), dtype=f32, device=dev)
-    _check(bias, "bias", f32, (B, S), dev)
+    check_tensor(bias, "K1 bias", f32, (B, S), dev)
 
     M = B * S
     lib = _cuda.lib()
@@ -146,6 +130,5 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                      fln_s.data_ptr(), fln_b.data_ptr(), y.data_ptr(), M, H, I,
                      2, eps, stream),
                 "K1 FFN out + LN")
-    launches += 1
-    METRICS.inc("kernel_bert_layer")
+    _cuda.count(launches, "kernel_bert_layer")
     return y

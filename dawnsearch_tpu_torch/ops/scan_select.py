@@ -43,7 +43,6 @@ import torch
 from dawnsearch_tpu_torch.ops import _cuda
 from dawnsearch_tpu_torch.ops.quant import I4_BLOCK, unpack_i4
 from dawnsearch_tpu_torch.ops.topk import top_k_smallest
-from dawnsearch_tpu_torch.utils.logging import METRICS
 
 W = 128             # rows per candidate window
 DEFAULT_TN = 16384  # rows per tile (W * W)
@@ -176,8 +175,7 @@ def select_candidates(q: torch.Tensor, qs: torch.Tensor | None,
         None if scales is None else scales.data_ptr(), int(count),
         vals.data_ptr(), ids.data_ptr(), B, N, D,
         _cuda.stream_handle(codes)), name)
-    launches[name] += 1
-    METRICS.inc(name)
+    _cuda.count(launches, name)
     return vals, ids
 
 

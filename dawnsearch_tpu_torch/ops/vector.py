@@ -22,6 +22,15 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
     return v / norm.clamp_min(eps)
 
 
+def layer_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis of an f32 y, in f32 (mean and
+    variance computed directly, as the reference, model.rs:68-105)."""
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y - mean).square().mean(dim=-1, keepdim=True)
+    return (y - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
 def embedding_to_bytes(v: np.ndarray) -> bytes:
     """f32[D] -> little-endian bytes, validating normalization
     (reference vector.rs:207-212)."""

@@ -9,7 +9,10 @@ package, so it also runs on a machine that has only torch:
 K2 (i8 queries) and K3 (i8 queries) must be bit-equal to their plain
 twin; the bf16-query variants agree within two key steps (3.1e-5) on the
 values and on at least 99% of the window ids; K1 agrees to the bf16 bound
-of the reference's own tests (per-row cosine > 0.999).
+of the reference's own tests (per-row cosine > 0.999). The per-op
+kernels K5, K6 and K7 agree with their plain twins at per-row cosine
+> 0.9999 (the same bf16 rounding points, f32 sums in another order); K8,
+all f32, within 1e-5.
 """
 
 import numpy as np
@@ -19,7 +22,7 @@ import torch
 from dawnsearch_tpu_torch.index.flat import FlatIndex, quantize_rows_i8
 from dawnsearch_tpu_torch.models import bert
 from dawnsearch_tpu_torch.models.weights import init_params
-from dawnsearch_tpu_torch.ops import layer
+from dawnsearch_tpu_torch.ops import attention, ffn, layer
 from dawnsearch_tpu_torch.ops import scan_select as ss
 from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
 
@@ -58,9 +61,9 @@ def test_k1_matches_plain(cuda, B, S):
          for a in weights]
     xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
     bt = torch.from_numpy(bias).to(cuda)
-    before = layer.launches
+    before = layer.launches["kernel_bert_layer"]
     got = layer.fused_bert_layer(xt, bt, *w, nh=12).float()
-    assert layer.launches == before + 1
+    assert layer.launches["kernel_bert_layer"] == before + 1
     want = layer.bert_layer_plain(xt, bt, *w, nh=12).float()
     m = torch.from_numpy(mask).to(cuda)
     assert torch.isfinite(got).all()
@@ -180,6 +183,167 @@ def test_encode_batch_on_cuda_matches_cpu(cuda):
     mask[3, 9:] = 0
     got = bert.encode_batch(bert.BertModel(cfg, params, device=cuda),
                             ids.to(cuda), mask.to(cuda)).cpu()
+    want = bert.encode_batch(bert.BertModel(cfg, params, device="cpu"),
+                             ids, mask)
+    cos = (got * want).sum(-1)
+    assert float(cos.min()) > 0.999
+
+
+def _row_cos(got, want, width):
+    g, w = got.float().reshape(-1, width), want.float().reshape(-1, width)
+    return torch.nn.functional.cosine_similarity(g, w, dim=-1)
+
+
+def _bias(rng, B, S, cuda):
+    lengths = rng.integers(1, S + 1, B)
+    lengths[0] = S
+    mask = np.arange(S)[None, :] < lengths[:, None]
+    return torch.from_numpy(np.where(mask, 0.0, -1e30).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("B,S,H", [(3, 16, 384), (2, 128, 384), (1, 512, 384),
+                                   (2, 64, 768)])
+def test_k5_matches_plain(cuda, B, S, H):
+    """q, k, v as column slices of one (B, S, 3H) projection output."""
+    rng = np.random.default_rng(S + H)
+    qkv = torch.from_numpy(rng.standard_normal((B, S, 3 * H), np.float32)
+                           ).to(cuda, torch.bfloat16)
+    q, k, v = qkv.split(H, dim=-1)
+    bias = _bias(rng, B, S, cuda)
+    before = attention.launches["kernel_attention_packed"]
+    got = attention.fused_attention_packed(q, k, v, bias, 12)
+    assert attention.launches["kernel_attention_packed"] == before + 1
+    want = attention.attention_packed_plain(q, k, v, bias, 12)
+    assert torch.isfinite(got.float()).all()
+    assert float(_row_cos(got, want, H).min()) > 0.9999
+
+
+@pytest.mark.parametrize("B,S,hd", [(2, 128, 26), (1, 512, 26), (3, 16, 26),
+                                    (2, 128, 32), (2, 64, 64)])
+def test_k6_matches_plain(cuda, B, S, hd):
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, 12, S, hd), np.float32)
+                                ).to(cuda, torch.bfloat16) for _ in range(3))
+    bias = _bias(rng, B, S, cuda)
+    before = attention.launches["kernel_attention"]
+    got = attention.fused_attention(q, k, v, bias, 12)
+    assert attention.launches["kernel_attention"] == before + 1
+    want = attention.attention_plain(q, k, v, bias, 12)
+    assert torch.isfinite(got.float()).all()
+    assert float(_row_cos(got, want, hd).min()) > 0.9999
+    # no bias is a zero bias
+    assert torch.equal(attention.fused_attention(q, k, v, None, 12),
+                       attention.fused_attention(q, k, v, torch.zeros_like(bias),
+                                                 12))
+
+
+def _ffn_args(rng, M, H, I, cuda):
+    x, _, _, weights = _layer_inputs(rng, 1, M, H, I)
+    w1, b1, w2, b2, g, be = weights[6:]
+    return [torch.from_numpy(x[0]).to(cuda, torch.bfloat16),
+            *[torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2 else None)
+              for a in (w1, b1, w2, b2, g, be)]]
+
+
+@pytest.mark.parametrize("M,H,I", [(100, 384, 1536), (64, 312, 1200),
+                                   (40, 768, 3072), (16, 128, 256)])
+def test_k7_matches_plain(cuda, M, H, I):
+    args = _ffn_args(np.random.default_rng(H), M, H, I, cuda)
+    before = ffn.launches["kernel_ffn"]
+    got = ffn.fused_ffn(*args)
+    assert ffn.launches["kernel_ffn"] == before + 1
+    want = ffn.ffn_plain(*args)
+    assert torch.isfinite(got.float()).all()
+    assert float(_row_cos(got, want, H).min()) > 0.9999
+
+
+@pytest.mark.parametrize("include_padding", [False, True])
+@pytest.mark.parametrize("B,S", [(3, 16), (2, 512)])
+def test_k8_matches_plain(cuda, B, S, include_padding):
+    rng = np.random.default_rng(S)
+    hidden = torch.from_numpy(rng.standard_normal((B, S, 384), np.float32)).to(cuda)
+    mask = (_bias(rng, B, S, cuda) == 0).int()
+    before = attention.launches["kernel_mean_pool"]
+    got = attention.fused_mean_pool(hidden, mask, include_padding)
+    assert attention.launches["kernel_mean_pool"] == before + 1
+    want = attention.mean_pool_plain(hidden, mask, include_padding)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((got.norm(dim=-1) - 1).abs().max()) <= 1e-5
+
+
+def test_per_op_kernels_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(0)
+    qkv = torch.from_numpy(rng.standard_normal((2, 32, 3 * 384), np.float32)
+                           ).to(cuda)
+    q, k, v = qkv.bfloat16().split(384, dim=-1)
+    with pytest.raises(ValueError, match="bf16"):          # f32 is plain-only
+        attention.fused_attention_packed(*qkv.split(384, dim=-1), None, 12)
+    with pytest.raises(ValueError, match="128 % head_dim"):
+        attention.fused_attention_packed(q, k, v, None, 16)  # hd 24
+    with pytest.raises(ValueError, match="S % 16"):
+        attention.fused_attention_packed(q[:, :20], k[:, :20], v[:, :20],
+                                         None, 12)
+    with pytest.raises(ValueError, match="unit feature stride"):
+        t = q.transpose(1, 2).contiguous().transpose(1, 2)
+        attention.fused_attention_packed(t, t, t, None, 12)
+    heads = q.reshape(2, 32, 12, 32).transpose(1, 2)          # a strided view
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.fused_attention(heads, heads, heads, None, 12)
+    with pytest.raises(ValueError, match="bf16"):
+        h32 = heads.float().contiguous()
+        attention.fused_attention(h32, h32, h32, None, 12)
+    big = torch.zeros((1, 2, 16, 160), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        attention.fused_attention(big, big, big, None, 2)
+    long = torch.zeros((1, 1, 528, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="S <= 512"):
+        attention.fused_attention(long, long, long, None, 1)
+
+    args = _ffn_args(rng, 32, 384, 1536, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        ffn.fused_ffn(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="non-contiguous"):
+        xt = args[0].t().contiguous().t()
+        ffn.fused_ffn(xt, *args[1:])
+    odd = _ffn_args(rng, 16, 100, 256, cuda)                   # H % 8 != 0
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ffn.fused_ffn(*odd)
+    wide = _ffn_args(rng, 16, 1024, 8192, cuda)                # h is 262 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        ffn.fused_ffn(*wide)
+
+    hidden = torch.zeros((2, 32, 384), device=cuda)
+    mask = torch.ones((2, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        attention.fused_mean_pool(hidden.bfloat16(), mask)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        attention.fused_mean_pool(hidden.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), mask)
+    with pytest.raises(ValueError, match="mask"):
+        attention.fused_mean_pool(hidden, mask[:, :16])
+
+
+@pytest.mark.parametrize("impl", [dict(layer_impl="ops", pool_impl="fused"),
+                                  dict(attn_impl="xla"),
+                                  dict(hidden_size=312, num_heads=12,
+                                       intermediate_size=1200)])
+def test_per_op_encode_batch_on_cuda_matches_cpu(cuda, impl):
+    """The per-op routes on the card (K5 + K7 + K8; einsum + K7; the
+    TinyBERT-width fallback to K6 + K7) against the same model on the
+    CPU; K1 never runs."""
+    shape = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+                 intermediate_size=256, max_position_embeddings=64,
+                 dtype=torch.bfloat16)
+    cfg = bert.BertConfig(**{**shape, **impl})
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(5, 512, (8, 32)))
+    mask = torch.ones((8, 32), dtype=torch.int32)
+    mask[3, 9:] = 0
+    k1 = layer.launches["kernel_bert_layer"]
+    got = bert.encode_batch(bert.BertModel(cfg, params, device=cuda),
+                            ids.to(cuda), mask.to(cuda)).cpu()
+    assert layer.launches["kernel_bert_layer"] == k1
     want = bert.encode_batch(bert.BertModel(cfg, params, device="cpu"),
                              ids, mask)
     cos = (got * want).sum(-1)

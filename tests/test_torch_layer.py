@@ -72,7 +72,7 @@ def test_wrapper_runs_plain_on_cpu_without_launching():
     x, _, bias, weights = _inputs(1)
     args = (torch.from_numpy(x).bfloat16(), torch.from_numpy(bias),
             *[torch.from_numpy(w) for w in weights])
-    before = layer.launches
+    before = dict(layer.launches)
     got = layer.fused_bert_layer(*args, nh=NH)
     want = layer.bert_layer_plain(*args, nh=NH)
     assert torch.equal(got, want)

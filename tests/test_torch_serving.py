@@ -38,7 +38,7 @@ from dawnsearch_tpu_torch.models.encoder import SentenceEncoder
 from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
                                                    build_vocab_from_corpus)
 from dawnsearch_tpu_torch.models.weights import params_from_numpy
-from dawnsearch_tpu_torch.node import DawnNode
+from dawnsearch_tpu_torch.node import DawnNode, check_config, unported_settings
 from dawnsearch_tpu_torch.ops import quant
 from dawnsearch_tpu_torch.serving.batcher import EmbeddingBatcher
 from dawnsearch_tpu_torch.serving.fused import FusedIngestPath, FusedQueryPath
@@ -154,19 +154,64 @@ def test_text_search_matches_reference(tree, vocab, ref_encoder, fused_gate,
             svc.shutdown()
 
 
-UNPORTED = [("model_dir", "/models/minilm"), ("udp", True), ("index_cc", True),
+SETTINGS = [("model_dir", "/models/minilm"), ("udp", True), ("index_cc", True),
             ("index_kind", "sharded"), ("dist_num_processes", 2),
             ("layer_impl", "layer_i8"), ("layer_impl", "ops"),
             ("attn_impl", "xla"), ("pool_impl", "fused"),
             ("compute_dtype", "f32")]
+# the per-op encoder path (K5-K8) serves these now
+PORTED = {("layer_impl", "ops"), ("attn_impl", "xla"), ("pool_impl", "fused")}
 
 
-@pytest.mark.parametrize("field,value", UNPORTED)
+@pytest.mark.parametrize("field,value", SETTINGS)
 def test_node_refuses_unported_settings(tmp_path, field, value):
+    """A setting is refused, before the data dir is touched, exactly while
+    the port does not cover it."""
     cfg = Config(device="cpu", data_dir=str(tmp_path), **{field: value})
+    if (field, value) in PORTED:
+        assert unported_settings(cfg) == []
+        check_config(cfg)
+        return
+    assert unported_settings(cfg)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
         DawnNode(cfg)
     assert not os.listdir(tmp_path)  # refused before touching the data dir
+
+
+@pytest.mark.parametrize("field", ["attn_impl", "layer_impl", "pool_impl"])
+def test_node_refuses_an_unknown_route(tmp_path, field):
+    """A typo must not quietly pick a route (attn_impl="fusd" would run
+    the whole-layer kernel, as the reference's bert.py:180 reads it)."""
+    cfg = Config(device="cpu", data_dir=str(tmp_path), **{field: "fusd"})
+    with pytest.raises(ValueError, match=f"unknown {field} 'fusd'"):
+        DawnNode(cfg)
+    assert not os.listdir(tmp_path)
+
+
+def test_node_serves_the_per_op_path(tmp_path):
+    """layer_impl="ops" and pool_impl="fused" reach the node's own
+    encoder (make_encoder, MiniLM width), which serves an inserted page
+    at rank 1; on the CPU every kernel wrapper runs its plain twin."""
+    cfg = Config(device="cpu", web=True, web_listen_address="127.0.0.1:0",
+                 accept_insert=True, data_dir=str(tmp_path), layer_impl="ops",
+                 pool_impl="fused")
+    node = DawnNode(cfg).start()
+    try:
+        mcfg = node.encoder.model.cfg
+        assert (mcfg.layer_impl, mcfg.attn_impl, mcfg.pool_impl) == \
+            ("ops", "fused", "fused")
+        base = f"http://127.0.0.1:{node.http_port}"
+        pages = [{"url": f"https://o/{i}", "title": "", "text": t}
+                 for i, t in enumerate(PAGES[:8])]
+        assert len(_http(base + "/api/insert", {"pages": pages})["inserted"]) == 8
+        got = _http(base + "/api/search?q=" + urllib.parse.quote(PAGES[6]))
+        assert got["results"][0]["url"] == "https://o/6"
+        metrics = _http(base + "/api/metrics")
+        assert not any(metrics.get(n, 0) for n in (
+            "kernel_attention_packed", "kernel_ffn", "kernel_mean_pool",
+            "kernel_bert_layer"))
+    finally:
+        node.stop()
 
 
 @pytest.mark.parametrize("dtype", ["i4", "bf16"])
