@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port (dawnsearch_tpu_torch) once on one GPU.
 
     python3 chip_smoke.py                 # every phase, as a release check
-    python3 chip_smoke.py --phases build,k1,k2
+    python3 chip_smoke.py --phases build,k1,k4,k2
     python3 chip_smoke.py --phases k3,k2bf16,recall_i4,i4_scale
     python3 chip_smoke.py --phases attn,ffn,pool,ops   # the per-op encoder
 
@@ -10,10 +10,18 @@ Phases, each printing one progress line; any failure exits non-zero:
   device    card name and power limit (nvidia-smi); fails without CUDA
   build     nvcc builds csrc/*.cu into dawnsearch_tpu_torch/_build/ (one
             nvcc per source, in parallel) and prints ptxas' registers
-  k1        whole-layer kernel vs bert_layer_plain at MiniLM width, bf16,
-            (B=64, S=128), (B=8, S=512) and (B=64, S=16: short queries)
-            with ragged masks; timed, beside torch's TransformerEncoderLayer
-            fast path on the same weights (the library yardstick)
+  k1        whole-layer kernel vs bert_layer_plain, bf16, ragged masks: at
+            MiniLM width (H=384, hd 32) at (B, S) = (64, 128), (8, 512) and
+            (64, 16: short queries), at BERT-base width (H=768, hd 64,
+            I=3072) at (64, 128) and BERT-large width (H=1024, 16 heads of
+            64, I=4096) at (8, 512); timed, beside torch's
+            TransformerEncoderLayer fast path on the same weights (the
+            library yardstick)
+  k4        the W8A8 whole-layer kernel vs bert_layer_i8_plain with ragged
+            masks at MiniLM and BERT-base widths (64, 128) and BERT-large
+            (8, 512), each timed beside K1 on the same weights; then a
+            12-layer BERT-base-width encode_batch on K1 and on K4, device
+            time at B = 1 and 64, S = 128
   k2        i8 score+select vs select_candidates_plain at 1,048,576 x 384
             codes and 1024 queries: values and ids bit-equal; timed
   k3        i4 score+select (K3) at 1,048,576 logical rows (201 MB packed)
@@ -44,23 +52,26 @@ Phases, each printing one progress line; any failure exits non-zero:
             (FusedQueryPath over 270,000 i8 rows): host-timed tokenize,
             encode, select and whole query at B=1, 8, 64, and the device
             busy share and top kernels from torch.profiler
-  ops       the per-op encoder end to end through SentenceEncoder on the
-            smoke texts, each run against the same encoder on the CPU:
-            MiniLM width with layer_impl="ops" (pool "fused" and "xla")
-            and with attn_impl="xla", and TinyBERT width (H=312, 12 heads,
-            I=1200, 4 layers) with layer_impl="layer", which must fall back
-            to K6 + K7; the counters each run raised; encode ms at B=1, 8,
-            64 (S=128) on the K1 and the per-op paths, as device time
-            (CUDA-graph replays) and as host time over 6 alternating rounds
-            (median [min, max])
+  ops       the encoder end to end through SentenceEncoder on the smoke
+            texts, each run against the same encoder on the CPU: MiniLM
+            width with layer_impl="layer_i8" (K4) and "ops" (pool "fused"
+            and "xla") and with attn_impl="xla", and TinyBERT width (H=312,
+            12 heads, I=1200, 4 layers) with layer_impl="layer", which must
+            fall back to K6 + K7; the counters each run raised; encode ms
+            at B=1, 8, 64 (S=128) on the K1 and the per-op paths, as device
+            time (CUDA-graph replays) and as host time over 6 alternating
+            rounds (median [min, max])
   node      `python -m dawnsearch_tpu_torch` over a 270,000-page store
-            (past the 262,144-row gate of the fused select), once each
-            with index_dtype i8, i4 and bf16, and once more on i8 with
-            DAWNSEARCH_LAYER_IMPL=ops DAWNSEARCH_POOL_IMPL=fused: 32 pages
-            through /api/insert, 8 of them queried back through
-            /api/search at rank 1, the encoder's kernel counters (K1; or
-            K5, K7 and K8 with K1 at 0) and the tier's select counter read
-            from /api/metrics
+            (past the 262,144-row gate of the fused select) as wide as its
+            encoder: on the seeded MiniLM weights once each with
+            index_dtype i8, i4 and bf16, on i8 with DAWNSEARCH_LAYER_IMPL=ops
+            DAWNSEARCH_POOL_IMPL=fused and with DAWNSEARCH_LAYER_IMPL=layer_i8;
+            then on a seeded 12-layer BERT-base checkpoint written to a
+            DAWNSEARCH_MODEL_DIR, on K1 and on K4: 32 pages through
+            /api/insert, 8 of them queried back through /api/search at rank
+            1, the encoder's kernel counters (K1, K4, or K5, K7 and K8, the
+            others at 0) and the tier's select counter read from
+            /api/metrics
 
 The last two lines of a full run are a JSON line of per-kernel results
 and {"ok": true, "device": {...}}. Times are CUDA-event medians of 10
@@ -77,6 +88,7 @@ the node runs and the ops phase's encoders, each started from zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -94,10 +106,27 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "k1", "k2", "k3", "k2bf16", "attn", "ffn",
+PHASES = ("device", "build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
           "pool", "recall", "recall_i4", "i4_scale", "profile", "ops", "node")
-KERNEL_PHASES = {"build", "k1", "k2", "k3", "k2bf16", "attn", "ffn", "pool"}
-K1_SHAPES = ((64, 128), (8, 512), (64, 16))
+KERNEL_PHASES = {"build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
+                 "pool"}
+# layer widths (H, nh, I): all-MiniLM-L6-v2, BERT-base, BERT-large
+MINILM_W, BASE_W, LARGE_W = (384, 12, 1536), (768, 12, 3072), (1024, 16, 4096)
+# (width, B, S); the first is the entry's headline shape
+K1_SHAPES = ((MINILM_W, 64, 128), (MINILM_W, 8, 512), (MINILM_W, 64, 16),
+             (BASE_W, 64, 128), (LARGE_W, 8, 512))
+K4_SHAPES = ((MINILM_W, 64, 128), (BASE_W, 64, 128), (LARGE_W, 8, 512))
+# bert-base-uncased's config.json (HF hub), the node runs' BERT-base
+# checkpoint; the weights are seeded, 12 layers at full width
+BERT_BASE_CONFIG = {
+    "architectures": ["BertForMaskedLM"], "attention_probs_dropout_prob": 0.1,
+    "gradient_checkpointing": False, "hidden_act": "gelu",
+    "hidden_dropout_prob": 0.1, "hidden_size": 768, "initializer_range": 0.02,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-12,
+    "max_position_embeddings": 512, "model_type": "bert",
+    "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 0,
+    "position_embedding_type": "absolute", "transformers_version": "4.6.0.dev0",
+    "type_vocab_size": 2, "use_cache": True, "vocab_size": 30522}
 # (H, nh, B, S); the first of each is the entry's headline shape: K5's
 # is the node's per-op path, K6's the TinyBERT-width fallback
 K5_SHAPES = ((384, 12, 64, 128), (384, 12, 8, 512), (384, 12, 64, 16),
@@ -132,7 +161,8 @@ BF16_VAL_TOL, BF16_ID_SHARE = 3.1e-5, 0.99
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # each kernel entry's launch counter in /api/metrics
-COUNTER = {"bert_layer": "kernel_bert_layer", "select_i8": "kernel_select",
+COUNTER = {"bert_layer": "kernel_bert_layer",
+           "bert_layer_i8": "kernel_bert_layer_i8", "select_i8": "kernel_select",
            "select_i8_qbf16": "kernel_select_i8_qbf16",
            "select_bf16": "kernel_select_bf16",
            "select_i4": "kernel_select_i4",
@@ -140,19 +170,26 @@ COUNTER = {"bert_layer": "kernel_bert_layer", "select_i8": "kernel_select",
            "attention_packed": "kernel_attention_packed",
            "attention": "kernel_attention", "ffn": "kernel_ffn",
            "mean_pool": "kernel_mean_pool"}
-ENCODER_COUNTERS = ("kernel_bert_layer", "kernel_attention_packed",
-                    "kernel_attention", "kernel_ffn", "kernel_mean_pool")
+ENCODER_COUNTERS = ("kernel_bert_layer", "kernel_bert_layer_i8",
+                    "kernel_attention_packed", "kernel_attention", "kernel_ffn",
+                    "kernel_mean_pool")
 # select launch counters (ops/scan_select.VARIANTS) by node tier
 NODE_SELECT = {"i8": "kernel_select", "i4": "kernel_select_i4",
                "bf16": "kernel_select_bf16"}
 PER_OP_ENV = {"DAWNSEARCH_LAYER_IMPL": "ops", "DAWNSEARCH_POOL_IMPL": "fused"}
+K4_ENV = {"DAWNSEARCH_LAYER_IMPL": "layer_i8"}
+K1, K4 = ("kernel_bert_layer",), ("kernel_bert_layer_i8",)
 # (label, tier, extra environment, encoder counters that must rise,
-# encoder counters that must stay 0)
+# encoder counters that must stay 0, model: None for the node's seeded
+# MiniLM weights, "base" for the seeded BERT-base checkpoint)
 NODE_RUNS = (
-    *((t, t, {}, ("kernel_bert_layer",), ()) for t in NODE_TIERS),
+    *((t, t, {}, K1, K4, None) for t in NODE_TIERS),
     ("i8-ops", "i8", PER_OP_ENV,
-     ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"),
-     ("kernel_bert_layer",)))
+     ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"), K1 + K4,
+     None),
+    ("i8-k4", "i8", K4_ENV, K4, K1, None),
+    ("base", "i8", {}, K1, K4, "base"),
+    ("base-k4", "i8", K4_ENV, K4, K1, "base"))
 
 TEXTS = [
     "the lighthouse keeper climbed the spiral stairs every night to trim the wick and watch the storm roll over the black rocks",
@@ -279,12 +316,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _layer_weights(rng: np.random.Generator, H: int, I: int, dev) -> list:
-    """Seeded weights of one layer at width H, FFN I: bf16 matrices and
-    non-trivial f32 biases and LayerNorm parameters."""
+def _layer_weights(rng: np.random.Generator, H: int, I: int, dev,
+                   dtype=torch.bfloat16) -> list:
+    """Seeded weights of one layer at width H, FFN I: matrices in `dtype`
+    and non-trivial f32 biases and LayerNorm parameters."""
     def mat(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32) * 0.05
-                                ).to(dev, torch.bfloat16)
+                                ).to(dev, dtype)
 
     def vec(n, base=0.0):
         return torch.from_numpy(base + rng.standard_normal(n, np.float32) * 0.1
@@ -314,38 +352,49 @@ def library_layer(weights: list, H: int, I: int, nh: int):
     return lay
 
 
+def layer_flops(B: int, S: int, H: int, I: int) -> tuple[int, int]:
+    """(projection, attention) operations of one layer: 2·M·(4H² + 2HI)
+    and 4·B·S²·H."""
+    return 2 * B * S * (4 * H * H + 2 * H * I), 4 * B * S * S * H
+
+
 def k1_bound(B: int, S: int, H: int, I: int, x, weights) -> dict:
-    """Projections 2·M·(4H² + 2HI) plus attention 4·B·S²·H at the bf16
-    peak; bytes: x, y, the weights and the (B, S) key bias."""
-    flops = 2 * B * S * (4 * H * H + 2 * H * I) + 4 * B * S * S * H
-    return bound(flops, "bf16", 2 * nbytes(x) + nbytes(*weights) + B * S * 4)
+    """Projections and attention at the bf16 peak; bytes: x, y, the
+    weights and the (B, S) key bias."""
+    return bound(sum(layer_flops(B, S, H, I)), "bf16",
+                 2 * nbytes(x) + nbytes(*weights) + B * S * 4)
+
+
+def _token_check(got, want, mask) -> tuple[float, float, bool]:
+    """max |got - want| and min per-token cosine over unmasked tokens, and
+    whether the output is finite."""
+    got, want = got.float(), want.float()
+    err = float((got - want)[mask].abs().max())
+    cos = torch.nn.functional.cosine_similarity(got[mask], want[mask], dim=-1)
+    return err, float(cos.min()), bool(torch.isfinite(got).all())
 
 
 def phase_k1(results: list) -> None:
     from dawnsearch_tpu_torch.ops import layer
     rng = np.random.default_rng(1)
-    H, I, nh = 384, 1536, 12
     dev = torch.device("cuda")
-    weights = _layer_weights(rng, H, I, dev)
-    lib = library_layer(weights, H, I, nh)
-    shapes = []
-    for B, S in K1_SHAPES:
+    shapes, made = [], {}
+    for (H, nh, I), B, S in K1_SHAPES:
+        if (H, I) not in made:
+            weights = _layer_weights(rng, H, I, dev)
+            made[(H, I)] = weights, library_layer(weights, H, I, nh)
+        weights, lib = made[(H, I)]
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
                              ).to(dev, torch.bfloat16)
-        lengths = rng.integers(S // 8, S + 1, B)
-        lengths[0] = S
-        mask = torch.from_numpy(np.arange(S)[None, :] < lengths[:, None]).to(dev)
-        bias = torch.where(mask, 0.0, -1e30).float()
+        mask, bias = _ragged(rng, B, S, dev)
         got = layer.fused_bert_layer(x, bias, *weights, nh=nh).float()
         want = layer.bert_layer_plain(x, bias, *weights, nh=nh).float()
         torch.cuda.synchronize()
-        err = float((got - want)[mask].abs().max())
-        cos = torch.nn.functional.cosine_similarity(got[mask], want[mask], dim=-1)
+        err, cos, finite = _token_check(got, want, mask)
         m = mask[..., None].float()
         pooled = torch.nn.functional.cosine_similarity(
             (got * m).sum(1), (want * m).sum(1), dim=-1)
-        ok = bool(torch.isfinite(got).all()) and float(cos.min()) > COS_MIN \
-            and float(pooled.min()) > COS_MIN
+        ok = finite and cos > COS_MIN and float(pooled.min()) > COS_MIN
         with torch.inference_mode():
             lib_out = lib(x, src_key_padding_mask=~mask).float()
             lib_cos = float(torch.nn.functional.cosine_similarity(
@@ -355,19 +404,20 @@ def phase_k1(results: list) -> None:
         plain_ms = cuda_ms(lambda: layer.bert_layer_plain(x, bias, *weights,
                                                           nh=nh))
         bd = k1_bound(B, S, H, I, x, weights)
-        say(f"phase k1 B={B} S={S}: max|d|={err:.3e} min token cos="
-            f"{float(cos.min()):.6f} min pooled cos={float(pooled.min()):.6f}"
-            f" kernel {ms:.3f} ms plain {plain_ms:.3f} ms library "
-            f"{library_ms:.3f} ms (min token cos vs plain {lib_cos:.4f}) "
-            f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        shape = f"B={B} S={S} H={H} nh={nh} I={I} bf16"
+        say(f"phase k1 {shape}: max|d|={err:.3e} min token cos={cos:.6f} "
+            f"min pooled cos={float(pooled.min()):.6f} kernel {ms:.3f} ms "
+            f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms (min token "
+            f"cos vs plain {lib_cos:.4f}) bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"B={B} S={S} (cos bound {COS_MIN})")
+                                 f"{shape} (cos bound {COS_MIN})")
         if lib_cos < 0.99:
             raise AssertionError(f"the library layer computes another "
                                  f"function (token cos {lib_cos:.4f})")
-        shapes.append({"shape": f"B={B} S={S} H={H} I={I} bf16",
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        shapes.append({"shape": shape, "max_abs_err": err,
+                       "min_token_cos": cos, "ms": ms, "plain_ms": plain_ms,
                        **bd, "library_ms": library_ms})
     # the entry's numbers are the first (serving-batch) shape's; the
     # others ride along
@@ -375,6 +425,108 @@ def phase_k1(results: list) -> None:
                     "source": "dawnsearch_tpu_torch/csrc/layer.cu",
                     "replaces": "dawnsearch_tpu/ops/layer.py:275",
                     **shapes[0], "other_shapes": shapes[1:]})
+
+
+def k4_bound(B: int, S: int, H: int, I: int, x, qweights: list) -> dict:
+    """The four projections at the int8 peak plus attention at the bf16
+    peak, or the bytes (x, y, i8 weights, scales, biases, key bias) over
+    the HBM bandwidth, whichever is larger."""
+    proj, attn = layer_flops(B, S, H, I)
+    t_ops = (proj / PEAK_OPS["int8"] + attn / PEAK_OPS["bf16"]) * 1e3
+    t_bytes = (2 * nbytes(x) + nbytes(*qweights) + B * S * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_k4(results: list) -> None:
+    """K4 against bert_layer_i8_plain on ragged masks at MiniLM, BERT-base
+    and BERT-large widths, each timed beside K1 on the same f32 weights
+    (bf16 for K1, i8 codes and scales from quant_cols for K4); then a
+    12-layer BERT-base-width encode_batch on K1 and on K4 at B = 1 and 64,
+    S = 128, as device time (CUDA-graph replays). No single PyTorch call
+    computes a W8A8 layer, so there is no library time."""
+    from dawnsearch_tpu_torch.ops import layer
+    rng = np.random.default_rng(14)
+    dev = torch.device("cuda")
+    shapes = []
+    for (H, nh, I), B, S in K4_SHAPES:
+        f32 = _layer_weights(rng, H, I, dev, dtype=torch.float32)
+        k1w = [t.bfloat16() if t.ndim == 2 else t for t in f32]
+        # quantized on the CPU from the f32 matrices, as the model does at load
+        k4w = [tuple(q.to(dev) for q in layer.quant_cols(t.cpu()))
+               if t.ndim == 2 else t for t in f32]
+        flat = [t for w in k4w for t in (w if isinstance(w, tuple) else (w,))]
+        x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
+                             ).to(dev, torch.bfloat16)
+        mask, bias = _ragged(rng, B, S, dev)
+        got = layer.fused_bert_layer_i8(x, bias, *k4w, nh=nh)
+        want = layer.bert_layer_i8_plain(x, bias, *k4w, nh=nh)
+        k1_out = layer.fused_bert_layer(x, bias, *k1w, nh=nh)
+        torch.cuda.synchronize()
+        err, cos, finite = _token_check(got, want, mask)
+        k1_cos = _token_check(got, k1_out, mask)[1]
+        ms = cuda_ms(lambda: layer.fused_bert_layer_i8(x, bias, *k4w, nh=nh))
+        k1_ms = cuda_ms(lambda: layer.fused_bert_layer(x, bias, *k1w, nh=nh))
+        plain_ms = cuda_ms(lambda: layer.bert_layer_i8_plain(x, bias, *k4w,
+                                                             nh=nh))
+        bd = k4_bound(B, S, H, I, x, flat)
+        shape = f"B={B} S={S} H={H} nh={nh} I={I} bf16 W8A8"
+        say(f"phase k4 {shape}: max|d|={err:.3e} min token cos={cos:.6f} "
+            f"(vs K1 {k1_cos:.6f}) kernel {ms:.3f} ms K1 {k1_ms:.3f} ms "
+            f"(K4/K1 {ms / k1_ms:.3f}) plain {plain_ms:.3f} ms bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        if not (finite and cos >= KERNEL_COS_MIN):
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{shape} (cos bound {KERNEL_COS_MIN})")
+        shapes.append({"shape": shape, "max_abs_err": err,
+                       "min_token_cos": cos, "min_token_cos_vs_k1": k1_cos,
+                       "ms": ms, "k1_ms": k1_ms, "plain_ms": plain_ms, **bd,
+                       "library_ms": None})
+        del f32, k1w, k4w, flat
+    results.append({"name": "bert_layer_i8", "route": "cuda",
+                    "source": "dawnsearch_tpu_torch/csrc/layer_i8.cu",
+                    "replaces": "dawnsearch_tpu/ops/layer.py:318",
+                    **shapes[0], "other_shapes": shapes[1:]})
+    encode_base(rng, dev)
+
+
+def encode_base(rng: np.random.Generator, dev) -> None:
+    """A 12-layer BERT-base-width encoder (seeded weights) on K1 and on
+    K4: device time of encode_batch at B = 1 and 64, S = 128, each the
+    median of 10 CUDA-graph replays of 3 calls, alternating the routes'
+    order; the pooled cosine of the two routes' embeddings."""
+    from dawnsearch_tpu_torch.models.bert import (BertConfig, BertModel,
+                                                  encode_batch)
+    from dawnsearch_tpu_torch.models.weights import params_from_numpy
+    H, nh, I = BASE_W
+    cfg = BertConfig(hidden_size=H, num_heads=nh, intermediate_size=I,
+                     num_layers=12, dtype=torch.bfloat16)
+    tree = params_from_numpy(_encoder_tree(rng, cfg))
+    models = {impl: BertModel(dataclasses.replace(cfg, layer_impl=impl), tree,
+                              device=dev) for impl in ("layer", "layer_i8")}
+    del tree
+    for B in (1, 64):
+        ids = torch.from_numpy(rng.integers(1000, cfg.vocab_size, (B, 128))
+                               ).to(dev)
+        mask, _ = _ragged(rng, B, 128, dev)
+        mask = mask.int()
+        embs = {k: encode_batch(m, ids, mask) for k, m in models.items()}
+        cos = float((embs["layer"] * embs["layer_i8"]).sum(-1).min())
+        ms: dict = {k: [] for k in models}
+        for r in range(2):
+            for impl in (("layer", "layer_i8") if r == 0 else
+                         ("layer_i8", "layer")):
+                ms[impl].append(graph_ms(lambda m=models[impl]: encode_batch(
+                    m, ids, mask), calls=3))
+        say(f"phase k4 encode BERT-base 12 layers B={B} S=128: K1 device "
+            f"{ms['layer']} ms, K4 device {ms['layer_i8']} ms (K4/K1 "
+            f"{np.median(ms['layer_i8']) / np.median(ms['layer']):.3f}); "
+            f"min pooled cos K4 vs K1 {cos:.6f}")
+        if not (all(bool(torch.isfinite(e).all()) for e in embs.values())
+                and cos > 0.99):
+            raise AssertionError(f"BERT-base encode on K1 and K4 disagree: "
+                                 f"min cos {cos}")
 
 
 def phase_k2(results: list) -> None:
@@ -945,21 +1097,24 @@ def phase_ops(counts: dict) -> None:
     minilm = dict(vocab_size=len(vocab), dtype=torch.bfloat16)
     tiny = dict(minilm, **TINYBERT)
     # (label, config, counters that must rise, counters that must stay 0)
+    k1, k4 = "kernel_bert_layer", "kernel_bert_layer_i8"
     runs = (
-        ("minilm layer", dict(minilm), {"kernel_bert_layer"}, set()),
+        ("minilm layer", dict(minilm), {k1}, {k4}),
+        ("minilm layer_i8", dict(minilm, layer_impl="layer_i8"), {k4},
+         {k1, "kernel_attention_packed", "kernel_attention", "kernel_ffn"}),
         ("minilm ops+fused pool", dict(minilm, layer_impl="ops",
                                        pool_impl="fused"),
          {"kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"},
-         {"kernel_bert_layer", "kernel_attention"}),
+         {k1, k4, "kernel_attention"}),
         ("minilm ops", dict(minilm, layer_impl="ops"),
          {"kernel_attention_packed", "kernel_ffn"},
-         {"kernel_bert_layer", "kernel_attention", "kernel_mean_pool"}),
+         {k1, k4, "kernel_attention", "kernel_mean_pool"}),
         ("minilm attn_impl=xla", dict(minilm, attn_impl="xla"),
-         {"kernel_ffn"}, {"kernel_bert_layer", "kernel_attention_packed",
+         {"kernel_ffn"}, {k1, k4, "kernel_attention_packed",
                           "kernel_attention", "kernel_mean_pool"}),
         ("tinybert layer", dict(tiny, layer_impl="layer"),
          {"kernel_attention", "kernel_ffn"},
-         {"kernel_bert_layer", "kernel_attention_packed", "kernel_mean_pool"}),
+         {k1, k4, "kernel_attention_packed", "kernel_mean_pool"}),
     )
     trees = {}
     embs, encoders = {}, {}
@@ -987,7 +1142,8 @@ def phase_ops(counts: dict) -> None:
             raise AssertionError(f"ops {label}: cos {cos} (bound {COS_MIN}) or "
                                  f"a wrong route: {ran}")
         embs[label], encoders[label] = emb, enc
-    for label in ("minilm ops+fused pool", "minilm ops", "minilm attn_impl=xla"):
+    for label in ("minilm layer_i8", "minilm ops+fused pool", "minilm ops",
+                  "minilm attn_impl=xla"):
         cos = float(np.min(np.sum(embs[label] * embs["minilm layer"], axis=1)))
         say(f"phase ops {label} vs the K1 path: min cos {cos:.6f}")
         if cos < COS_MIN:
@@ -1032,16 +1188,16 @@ def _http(url: str, body: dict | None = None, timeout: float = 120.0) -> dict:
         return json.loads(r.read())
 
 
-def seed_store(data_dir: str, n: int, seed: int = 4) -> None:
-    """A page store of n synthetic pages: seeded unit embeddings, ids
-    contiguous from 1."""
+def seed_store(data_dir: str, n: int, dim: int = 384, seed: int = 4) -> None:
+    """A page store of n synthetic pages: seeded unit embeddings of `dim`,
+    ids contiguous from 1."""
     from dawnsearch_tpu_torch.index.provider import DB_FILE
     from dawnsearch_tpu_torch.index.store import PageStore
     rng = np.random.default_rng(seed)
-    store = PageStore(os.path.join(data_dir, DB_FILE))
+    store = PageStore(os.path.join(data_dir, DB_FILE), dim=dim)
     try:
         for s in range(0, n, 16384):
-            e = rng.standard_normal((min(16384, n - s), 384), np.float32)
+            e = rng.standard_normal((min(16384, n - s), dim), np.float32)
             e /= np.linalg.norm(e, axis=1, keepdims=True)
             store.insert_batch([(f"https://synthetic.example/{s + j}", "",
                                  f"synthetic page {s + j}", v)
@@ -1050,25 +1206,70 @@ def seed_store(data_dir: str, n: int, seed: int = 4) -> None:
         store.close()
 
 
-def run_nodes(n_pages: int) -> dict:
-    """Seed one store, then run the node once per entry of NODE_RUNS on a
-    copy of it (a copy holds no index snapshot, so each run builds its own
-    index). Returns every kernel counter's increase, summed over runs."""
+def write_base_checkpoint(model_dir: str, seed: int = 15) -> None:
+    """A BERT-base-width checkpoint as a user drops one into model_dir:
+    bert-base-uncased's config.json, model.safetensors (12 seeded layers
+    written by the port's own writer) and a 30522-line vocab.txt with the
+    specials at BERT's positions and the smoke texts' words."""
+    from dawnsearch_tpu_torch.models.bert import BertConfig
+    from dawnsearch_tpu_torch.models.tokenizer import build_vocab_from_corpus
+    from dawnsearch_tpu_torch.models.weights import (params_from_numpy,
+                                                     save_safetensors)
+    c = BERT_BASE_CONFIG
+    cfg = BertConfig(vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+                     num_layers=c["num_hidden_layers"],
+                     num_heads=c["num_attention_heads"],
+                     intermediate_size=c["intermediate_size"])
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    save_safetensors(params_from_numpy(_encoder_tree(
+        np.random.default_rng(seed), cfg)),
+        os.path.join(model_dir, "model.safetensors"), cfg)
+    specials = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+                + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    words = [w for w in build_vocab_from_corpus(TEXTS) if w not in specials]
+    vocab = specials + words
+    vocab += [f"[unused{i}]" for i in range(99, 99 + cfg.vocab_size - len(vocab))]
+    with open(os.path.join(model_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+
+
+def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
+    """Run the node once per entry of `runs`, each on a copy of a seeded
+    store as wide as its encoder (a copy holds no index snapshot, so each
+    run builds its own index); the BERT-base runs serve a checkpoint
+    written once. Returns every kernel counter's increase, summed over
+    runs."""
     work = tempfile.mkdtemp(prefix="dawn-node-")
     try:
-        seed = os.path.join(work, "seed")
-        os.makedirs(seed)
-        t0 = time.perf_counter()
-        seed_store(seed, n_pages)
-        say(f"phase node: seeded {n_pages} pages in "
-            f"{time.perf_counter() - t0:.1f} s")
+        stores: dict = {}
         total: dict = {}
-        for label, tier, env, up, zero in NODE_RUNS:
+        for label, tier, env, up, zero, model in runs:
+            env = dict(env)
+            dim = 384
+            if model == "base":
+                model_dir = os.path.join(work, "bert-base")
+                if not os.path.exists(model_dir):
+                    t0 = time.perf_counter()
+                    write_base_checkpoint(model_dir)
+                    say(f"phase node: wrote a BERT-base checkpoint in "
+                        f"{time.perf_counter() - t0:.1f} s")
+                env["DAWNSEARCH_MODEL_DIR"] = model_dir
+                dim = BERT_BASE_CONFIG["hidden_size"]
+            if dim not in stores:
+                stores[dim] = os.path.join(work, f"seed-{dim}")
+                os.makedirs(stores[dim])
+                t0 = time.perf_counter()
+                seed_store(stores[dim], n_pages, dim)
+                say(f"phase node: seeded {n_pages} pages of {dim} dims in "
+                    f"{time.perf_counter() - t0:.1f} s")
             data_dir = os.path.join(work, label)
-            shutil.copytree(seed, data_dir)
+            shutil.copytree(stores[dim], data_dir)
             for name, n in run_node(data_dir, label, tier, env, up,
                                     zero).items():
                 total[name] = total.get(name, 0) + n
+            shutil.rmtree(data_dir, ignore_errors=True)
         return total
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1172,6 +1373,7 @@ def main(argv=None) -> int:
     scale: list = []
     ops_counts: dict = {}
     for name, run in (("k1", lambda: phase_k1(results)),
+                      ("k4", lambda: phase_k4(results)),
                       ("k2", lambda: phase_k2(results)),
                       ("k3", lambda: phase_k3(results)),
                       ("k2bf16", lambda: phase_k2bf16(results)),

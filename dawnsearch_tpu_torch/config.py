@@ -33,8 +33,8 @@ class Config:
     # --- engine section ---
     # torch device the encoder and index live on; "cuda" needs a GPU
     device: str = "cuda"
-    # safetensors + vocab.txt + config.json (not ported yet: node.py
-    # refuses a set model_dir)
+    # a bert-family HF checkpoint: config.json + model.safetensors +
+    # vocab.txt (none: MiniLM width, seeded weights)
     model_dir: str | None = None
     embed_batch_size: int = 64  # cross-request batching cap
     embed_max_wait_ms: float = 5.0  # batcher flush deadline
@@ -42,7 +42,7 @@ class Config:
     seq_buckets: tuple[int, ...] = (16, 32, 64, 128, 256, 512)
     compute_dtype: str = "bf16"  # encoder matmul dtype: "bf16" | "f32"
     attn_impl: str = "fused"  # "fused" (K5 / K6) | "xla" (einsum + K7)
-    # "layer" (whole-layer kernel K1) | "layer_i8" (K4, not ported) |
+    # "layer" (whole-layer kernel K1) | "layer_i8" (K4, W8A8 projections) |
     # "ops" (per-op kernels K5 or K6, and K7)
     layer_impl: str = "layer"
     pool_impl: str = "xla"  # "xla" | "fused" (K8)

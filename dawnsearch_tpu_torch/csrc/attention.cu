@@ -5,6 +5,9 @@
 //      q, k, v (B, S, H), the heads packed on the feature axis;
 //   K6 fused_attention (body _attn_kernel, pallas_call at :105):
 //      q, k, v (B, nh, S, hd), any head dim.
+// It is also K1's attention step (csrc/layer.cu's wrapper). A second
+// kernel at the end of this file, with f32 output and every sum in a fixed
+// order, is K4's (csrc/layer_i8.cu).
 // It takes base pointers with (batch, head, row) element strides, so K5
 // reads q, k and v as column slices of the projection's (B·S, 3H) output
 // (row stride 3H, head offset h·hd) with no split copy, and K6 reads
@@ -275,6 +278,195 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K4's attention step: the same contract with an f32 output, as
+// dawnsearch_tpu/ops/layer.py::_layer_kernel_i8 keeps its context in f32
+// (:199-201), and with every sum in one fixed order:
+//
+//   s_ij = (((q_i0·k_j0) + q_i1·k_j1) + ...)   over d ascending
+//   l_i  = ((p_i0 + p_i1) + ...)               over keys ascending
+//   o_id = ((p̂_i0·v_0d + p̂_i1·v_1d) + ...)     over keys ascending
+//
+// Each bf16 x bf16 product is exact in f32, so every step rounds once, as
+// a plain twin written as the same ascending loops does
+// (ops/layer.py::attention_f32_plain). Why: K4 re-quantizes the context
+// to i8 per row, and one ulp of difference in ctx can flip a code, which
+// the next three quantizations amplify; with WMMA's accumulation order a
+// few tokens in 4096 drift to a cosine of 0.9999 from a plain twin that
+// sums in another order. Fixed-order sums keep K4 and its twin equal.
+//
+// Design: CUDA-core FMAs (no tensor cores). One CTA owns 32 query rows of
+// one (sequence, head) and all S of their scores, kept in shared memory
+// (64 KB at S = 512): pass 1 walks 64-key tiles of K, computes each score
+// once and the row maxima; pass 2 walks the tiles of V, turns the stored
+// scores into p, sums l and accumulates PV. Q, K and V are staged as f32.
+// A thread computes a 4 x 4 block of scores (queries qb + 8i, keys
+// kb + 16j) and a 4 x DPT block of outputs; 32 threads sum l, one row
+// each. The order of every sum is the loop order above, whatever the
+// thread mapping. It costs 2·B·nh·S²·hd f32 FMAs (QKᵀ and PV once each).
+constexpr int SQ_QT = 32;
+constexpr int SQ_KT = 64;
+constexpr int SQ_THREADS = 128;
+
+__host__ __device__ constexpr int sq_ld(int hdp) { return hdp + 1; }
+
+size_t sq_smem_bytes(int hdp, int S) {
+  return sizeof(float) * ((size_t)SQ_QT * sq_ld(hdp) +          // Q
+                          (size_t)SQ_KT * sq_ld(hdp) +          // K or V
+                          (size_t)SQ_QT * (S + 1) +             // s, then p
+                          (size_t)SQ_QT * (SQ_KT + 1) +         // p̂ tile
+                          SQ_QT + (size_t)S);                   // l, bias
+}
+
+// rows x hd tile of a strided bf16 source as f32 (row pitch ld); rows
+// >= valid are zero
+__device__ __forceinline__ void load_f32(float* dst, int ld, const bf16* src,
+                                         long long rstride, int rows,
+                                         int valid, int hd) {
+  for (int idx = threadIdx.x; idx < rows * hd; idx += SQ_THREADS) {
+    const int r = idx / hd, c = idx % hd;
+    dst[r * ld + c] = r < valid ? __bfloat162float(src[r * rstride + c]) : 0.0f;
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(SQ_THREADS)
+attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const float* __restrict__ bias,
+                     float* __restrict__ out, int S, int hd, Strides in,
+                     Strides ot, float scale) {
+  constexpr int LD = sq_ld(HDP), PLD = SQ_KT + 1, DPT = HDP / 16;
+  extern __shared__ __align__(16) float sm[];
+  const int SLD = S + 1;
+  float* Qs = sm;
+  float* Ts = Qs + SQ_QT * LD;        // the staged K (pass 1) or V (pass 2)
+  float* Ss = Ts + SQ_KT * LD;        // every score of the CTA's rows, then p
+  float* Pb = Ss + SQ_QT * SLD;       // bf16-rounded p of one key tile
+  float* Ls = Pb + SQ_QT * PLD;
+  float* Bs = Ls + SQ_QT;
+
+  const int t = threadIdx.x, qb = t / 16, kb = t % 16;
+  const int q0 = blockIdx.x * SQ_QT, h = blockIdx.y, b = blockIdx.z;
+  const long long in_off = (long long)b * in.b + (long long)h * in.h;
+  const int q_valid = min(SQ_QT, S - q0);
+  load_f32(Qs, LD, q + in_off + (long long)q0 * in.r, in.r, SQ_QT, q_valid, hd);
+  for (int j = t; j < S; j += SQ_THREADS) Bs[j] = bias[(long long)b * S + j];
+
+  // pass 1: s = (q·k)·scale + bias for queries qb + 8i and keys kb + 16j
+  // of each tile (keys past the tile's kn are computed on zero rows and
+  // dropped), and the row maxima (order-free)
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int k0 = 0; k0 < S; k0 += SQ_KT) {
+    const int kn = min(SQ_KT, S - k0);
+    __syncthreads();
+    load_f32(Ts, LD, k + in_off + (long long)k0 * in.r, in.r, SQ_KT, kn, hd);
+    __syncthreads();
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+    for (int d = 0; d < hd; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(qb + 8 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ts[(kb + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = kb + 16 * j;
+      if (key >= kn) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float sv = __fadd_rn(__fmul_rn(sc[i][j], scale), Bs[k0 + key]);
+        Ss[(qb + 8 * i) * SLD + k0 + key] = sv;
+        m[i] = fmaxf(m[i], sv);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
+
+  // pass 2: p, l and PV, each summed over keys in ascending order
+  const int db = t % 16;               // PV: queries qb + 8i, dims db + 16e
+  float acc[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.0f;
+  float l = 0.0f;                      // threads t < SQ_QT: row t's sum
+  for (int k0 = 0; k0 < S; k0 += SQ_KT) {
+    const int kn = min(SQ_KT, S - k0);
+    __syncthreads();
+    load_f32(Ts, LD, v + in_off + (long long)k0 * in.r, in.r, SQ_KT, kn, hd);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = kb + 16 * j;
+      if (key >= kn) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* sp = Ss + (qb + 8 * i) * SLD + k0 + key;
+        const float p = expf(__fsub_rn(*sp, m[i]));
+        *sp = p;
+        Pb[(qb + 8 * i) * PLD + key] = __bfloat162float(__float2bfloat16(p));
+      }
+    }
+    __syncthreads();
+    if (t < SQ_QT)
+      for (int j = 0; j < kn; ++j) l = __fadd_rn(l, Ss[t * SLD + k0 + j]);
+    for (int j = 0; j < kn; ++j) {
+      float vv[DPT];
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) vv[e] = Ts[j * LD + db + 16 * e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pb = Pb[(qb + 8 * i) * PLD + j];
+#pragma unroll
+        for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(pb, vv[e], acc[i][e]);
+      }
+    }
+  }
+  if (t < SQ_QT) Ls[t] = l;
+  __syncthreads();
+
+  float* ob = out + (long long)b * ot.b + (long long)h * ot.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = qb + 8 * i;
+    if (r >= q_valid) continue;
+    const float inv = 1.0f / Ls[r];
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) {
+      const int d = db + 16 * e;
+      if (d < hd) ob[(long long)(q0 + r) * ot.r + d] = __fmul_rn(acc[i][e], inv);
+    }
+  }
+}
+
+template <int HDP>
+cudaError_t launch_seq(const bf16* q, const bf16* k, const bf16* v,
+                       const float* bias, float* out, int B, int nh, int S,
+                       int hd, Strides in, Strides ot, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = sq_smem_bytes(HDP, S);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_seq_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + SQ_QT - 1) / SQ_QT, nh, B);
+  attention_seq_kernel<HDP><<<grid, SQ_THREADS, smem, stream>>>(
+      q, k, v, bias, out, S, hd, in, ot, scale);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -285,14 +477,15 @@ extern "C" {
 
 // Masked attention of every (sequence, head): q, k and v share the
 // element strides (in_b, in_h, in_r) and have unit stride along the head
-// dim; out has (out_b, out_h, out_r). bias is the (B, S) f32 additive key
-// bias. Needs 1 <= hd <= 128, S % 16 == 0, S <= 512. Returns a
-// cudaError_t.
+// dim; out has (out_b, out_h, out_r), bf16 (the WMMA kernel: K1, K5, K6)
+// or, with out_f32, f32 from the fixed-order kernel (K4). bias is the
+// (B, S) f32 additive key bias. Needs 1 <= hd <= 128, S % 16 == 0,
+// S <= 512. Returns a cudaError_t.
 int dawn_attention(const void* q, const void* k, const void* v,
                    const void* bias, void* out, int B, int nh, int S, int hd,
                    long long in_b, long long in_h, long long in_r,
                    long long out_b, long long out_h, long long out_r,
-                   float scale, void* stream) {
+                   float scale, int out_f32, void* stream) {
   if (B <= 0 || nh <= 0 || S <= 0 || S % 16 != 0 || S > MAX_S || hd <= 0 ||
       hd > 128 || B > 65535 || nh > 65535)
     return (int)cudaErrorInvalidValue;
@@ -308,6 +501,20 @@ int dawn_attention(const void* q, const void* k, const void* v,
   const float* bp = static_cast<const float*>(bias);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_f32) {
+    float* of = static_cast<float*>(out);
+    if (hd <= 16)
+      return (int)launch_seq<16>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+                                 scale, s);
+    if (hd <= 32)
+      return (int)launch_seq<32>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+                                 scale, s);
+    if (hd <= 64)
+      return (int)launch_seq<64>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+                                 scale, s);
+    return (int)launch_seq<128>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+                                scale, s);
+  }
   // one instance per power-of-two padded head dim: each instance costs
   // seconds of nvcc, and head dims between them are rare
   if (hd <= 16)

@@ -12,9 +12,10 @@
 //
 // Design. The TPU kernel keeps a whole row block and every intermediate in
 // ~64 MB of VMEM. A Hopper SM has 227 KB of shared memory, so the layer is
-// split into two hand-written kernels and five launches per layer:
+// split into five launches per layer, four of them this file's GEMM:
 //   gemm_kernel<EPI_BIAS>  x·Wqkv + b            -> qkv  (M, 3H) bf16
-//   attention_kernel       one CTA per (query tile, head, sequence) -> ctx
+//   attention              csrc/attention.cu's kernel (dawn_attention), q,
+//                          k and v read as column views of qkv -> ctx
 //   gemm_kernel<EPI_LN>    ctx·Wo + bo + x -> LN -> x1 (M, H) bf16
 //   gemm_kernel<EPI_GELU>  x1·W1 + b1 -> GELU    -> h  (M, I) bf16
 //   gemm_kernel<EPI_LN>    h·W2 + b2 + x1 -> LN  -> y  (M, H) bf16
@@ -22,10 +23,11 @@
 // 64x128 output tiles staged through shared memory for the epilogue. For
 // the LayerNorm epilogue one CTA owns 32 whole rows: it walks every
 // 128-column chunk of N, keeps the f32 row block in shared memory and
-// normalises it there, so the residual add and LN never touch HBM in f32.
-// Attention keeps K and V of one (sequence, head) in shared memory (at
-// S=512, hd=32: 80 KB with padding) plus the f32 score rows of a 32-query
-// tile; QKᵀ and PV run on WMMA, softmax on the CUDA cores.
+// normalises it there, so the residual add and LN never touch HBM in f32
+// (at H = 1024 the row block is 129 KB). The attention kernel pads the
+// head dim to 16, 32, 64 or 128, so every width of the reference's
+// envelope (128 % hd == 0, H % 128 == 0) runs; the wrapper
+// (ops/layer.py::_layer_cuda) makes the five launches.
 //
 // What bounds it. At MiniLM width (H=384, I=1536) the four projections are
 // ~96% of the layer's FLOPs, and at B·S >= 8192 rows they are compute bound
@@ -40,8 +42,7 @@
 //  - heads are computed one at a time: the 128-lane block-diagonal packing
 //    of ops/layer.py:70-112 is a TPU lane trick;
 //  - GELU uses erff (CUDA's correctly rounded-to-2-ulp erf) where the TPU
-//    kernel uses the A&S 7.1.26 polynomial (|err| <= 1.5e-7);
-//  - the head dimension is fixed at 32 (MiniLM); the wrapper refuses others.
+//    kernel uses the A&S 7.1.26 polynomial (|err| <= 1.5e-7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +64,6 @@ constexpr int EPI_BIAS = 0;
 constexpr int EPI_GELU = 1;
 constexpr int EPI_LN = 2;
 
-constexpr int HD = 32;                 // head dim served by attention_kernel
-constexpr int HD_LD = HD + 8;
-constexpr int ATT_THREADS = 128;
-
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
 }
@@ -74,13 +71,6 @@ __host__ __device__ constexpr size_t align128(size_t x) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -206,131 +196,6 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   }
 }
 
-// Row stride of the f32 score buffer, which later holds the (QT, HD)
-// output tile too: wide enough for either.
-__host__ __device__ int score_ld(int S) { return (S > HD ? S : HD) + 4; }
-
-size_t attention_smem_bytes(int qt, int S) {
-  return align128((size_t)qt * HD_LD * sizeof(bf16)) +         // Q
-         2 * align128((size_t)S * HD_LD * sizeof(bf16)) +      // K, V
-         align128((size_t)qt * score_ld(S) * sizeof(float)) +  // scores, out
-         align128((size_t)qt * (S + 8) * sizeof(bf16)) +       // bf16 probs
-         align128((size_t)S * sizeof(float)) +                 // mask bias
-         align128((size_t)qt * sizeof(float));                 // 1 / Σp
-}
-
-// qkv (B·S, 3H) bf16 -> ctx (B·S, H) bf16 for head blockIdx.y, sequence
-// blockIdx.z, query rows [blockIdx.x·QT, +QT).
-template <int QT>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask_bias,
-                 bf16* __restrict__ ctx, int S, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldS = score_ld(S), ldP = S + 8;
-  size_t off = 0;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + off);
-  off += align128((size_t)QT * HD_LD * sizeof(bf16));
-  bf16* Ks = reinterpret_cast<bf16*>(smem + off);
-  off += align128((size_t)S * HD_LD * sizeof(bf16));
-  bf16* Vs = reinterpret_cast<bf16*>(smem + off);
-  off += align128((size_t)S * HD_LD * sizeof(bf16));
-  float* Ss = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)QT * ldS * sizeof(float));
-  bf16* Ps = reinterpret_cast<bf16*>(smem + off);
-  off += align128((size_t)QT * ldP * sizeof(bf16));
-  float* bs = reinterpret_cast<float*>(smem + off);
-  off += align128((size_t)S * sizeof(float));
-  float* inv = reinterpret_cast<float*>(smem + off);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const size_t row0 = (size_t)b * S;
-  const int ld = 3 * H;
-
-  for (int idx = tid; idx < S * (HD / 8); idx += ATT_THREADS) {
-    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-    const bf16* src = qkv + (row0 + r) * ld + h * HD + c;
-    *reinterpret_cast<uint4*>(Ks + r * HD_LD + c) =
-        *reinterpret_cast<const uint4*>(src + H);
-    *reinterpret_cast<uint4*>(Vs + r * HD_LD + c) =
-        *reinterpret_cast<const uint4*>(src + 2 * H);
-  }
-  for (int idx = tid; idx < QT * (HD / 8); idx += ATT_THREADS) {
-    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-    *reinterpret_cast<uint4*>(Qs + r * HD_LD + c) =
-        *reinterpret_cast<const uint4*>(qkv + (row0 + q0 + r) * ld + h * HD + c);
-  }
-  for (int j = tid; j < S; j += ATT_THREADS) bs[j] = mask_bias[row0 + j];
-  __syncthreads();
-
-  // scores = Q · Kᵀ (f32), one 16x16 fragment at a time
-  const int nfm = QT / 16, nfn = S / 16;
-  for (int f = warp; f < nfm * nfn; f += ATT_THREADS / 32) {
-    const int fm = f / nfn, fn = f % nfn;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::load_matrix_sync(a, Qs + fm * 16 * HD_LD + kk, HD_LD);
-      wmma::load_matrix_sync(kb, Ks + fn * 16 * HD_LD + kk, HD_LD);
-      wmma::mma_sync(acc, a, kb, acc);
-    }
-    wmma::store_matrix_sync(Ss + fm * 16 * ldS + fn * 16, acc, ldS,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // softmax rows in f32; probabilities rounded to bf16 for PV, the
-  // normaliser taken from the unrounded f32 values (ops/layer.py:103-111)
-  for (int r = warp; r < QT; r += ATT_THREADS / 32) {
-    float* srow = Ss + r * ldS;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const float s = srow[j] * scale + bs[j];
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      const float p = expf(srow[j] - m);
-      sum += p;
-      Ps[r * ldP + j] = __float2bfloat16(p);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) inv[r] = 1.0f / sum;
-  }
-  __syncthreads();
-
-  // ctx = P · V (f32), staged in the score buffer
-  float* Os = Ss;
-  constexpr int ldO = HD + 4;
-  for (int f = warp; f < nfm * (HD / 16); f += ATT_THREADS / 32) {
-    const int fm = f / (HD / 16), fn = f % (HD / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < S; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-      wmma::load_matrix_sync(a, Ps + fm * 16 * ldP + kk, ldP);
-      wmma::load_matrix_sync(vb, Vs + kk * HD_LD + fn * 16, HD_LD);
-      wmma::mma_sync(acc, a, vb, acc);
-    }
-    // Os aliases the score buffer (ldO <= ldS): every warp finished
-    // reading scores before the barrier above
-    wmma::store_matrix_sync(Os + fm * 16 * ldO + fn * 16, acc, ldO,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < QT * HD; idx += ATT_THREADS) {
-    const int r = idx / HD, c = idx % HD;
-    ctx[(row0 + q0 + r) * H + h * HD + c] =
-        __float2bfloat16(Os[r * ldO + c] * inv[r]);
-  }
-}
-
 template <int BM, int EPI>
 cudaError_t launch_gemm(const void* a, const void* w, const void* bias,
                         const void* resid, const void* ln_s, const void* ln_b,
@@ -347,21 +212,6 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* bias,
       static_cast<const float*>(bias), static_cast<const bf16*>(resid),
       static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
       static_cast<bf16*>(out), M, N, K, eps);
-  return cudaGetLastError();
-}
-
-template <int QT>
-cudaError_t launch_attention(const void* qkv, const void* mask_bias, void* ctx,
-                             int B, int S, int H, int nh, cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes(QT, S);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(S / QT, nh, B);
-  attention_kernel<QT><<<grid, ATT_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask_bias),
-      static_cast<bf16*>(ctx), S, H, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -392,20 +242,6 @@ int dawn_bert_gemm(const void* a, const void* w, const void* bias,
                                           M, N, K, eps, s);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// Masked multi-head attention over the packed qkv rows; head dim 32,
-// S % 16 == 0. mask_bias is the (B, S) f32 additive key bias.
-int dawn_bert_attention(const void* qkv, const void* mask_bias, void* ctx,
-                        int B, int S, int H, int nh, void* stream) {
-  if (nh <= 0 || H != nh * HD || S <= 0 || S % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int qt = (S % 32 == 0) ? 32 : 16;
-  if (attention_smem_bytes(qt, S) > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (qt == 32)
-    return (int)launch_attention<32>(qkv, mask_bias, ctx, B, S, H, nh, s);
-  return (int)launch_attention<16>(qkv, mask_bias, ctx, B, S, H, nh, s);
 }
 
 const char* dawn_error_string(int err) {

@@ -2,13 +2,13 @@
 
 Port of dawnsearch_tpu/models/bert.py for the `bert` family: embeddings +
 LayerNorm (bert.py:232-251), the layer stack, mean-pool and L2 normalize
-(bert.py:275-325). A layer runs one of the reference's two paths, routed
+(bert.py:275-325). A layer runs one of the reference's paths, routed
 condition for condition as `_layer_fwd` does (bert.py:125-126, :139,
-:180-181):
+:180-195):
 
-- the whole-layer kernel (ops/layer.py, K1) for layer_impl="layer" when
-  attn_impl is not "xla" and the width fits the packed envelope
-  (128 % head_dim == 0, H % 128 == 0);
+- a whole-layer kernel (ops/layer.py) when attn_impl is not "xla" and the
+  width fits the packed envelope (128 % head_dim == 0, H % 128 == 0): K1
+  for layer_impl="layer", K4 (W8A8 projections) for layer_impl="layer_i8";
 - otherwise the per-op path: the QKV projection, attention (packed K5 in
   the envelope, head-major K6 outside it, both ops/attention.py; einsum
   attention for attn_impl="xla"), the output projection, a residual add in
@@ -27,6 +27,9 @@ ported, so no route here carries one.
 Parameters never require gradients; encode_batch runs under
 torch.inference_mode(). Matrices are stored in the compute dtype, biases,
 LayerNorm parameters and embeddings in f32, as the reference casts them.
+A layer on K4's route stores its matrices only as i8 codes and f32
+per-column scales, quantized once from the f32 parameters (the reference
+quantizes the same f32 matrices on every call, ops/layer.py:344-347).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from dawnsearch_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_packed,
                                                 fused_mean_pool)
 from dawnsearch_tpu_torch.ops.ffn import fused_ffn
-from dawnsearch_tpu_torch.ops.layer import fused_bert_layer
+from dawnsearch_tpu_torch.ops.layer import (fused_bert_layer,
+                                            fused_bert_layer_i8, quant_cols)
 from dawnsearch_tpu_torch.ops.vector import layer_norm, normalize
 
 Params = dict
@@ -57,15 +61,17 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    # the vocab's pad id (config.json); the node checks its tokenizer's
+    pad_token_id: int = 0
     # compute dtype of the projections; softmax and LayerNorm stay f32
     dtype: torch.dtype = torch.float32
     # "fused" = K5 (packed) or K6 attention kernels; "xla" = einsum attention
     attn_impl: str = "fused"
     # "xla" = plain mean-pool + normalize; "fused" = K8
     pool_impl: str = "xla"
-    # "layer" = the whole-layer kernel K1 where the width fits; "ops" = the
-    # per-op kernels above (also the fallback outside the envelope);
-    # "layer_i8" = K4, not ported yet
+    # "layer" = the whole-layer kernel K1 where the width fits; "layer_i8" =
+    # K4, the same layer with W8A8 projections; "ops" = the per-op kernels
+    # above (also the fallback outside the envelope)
     layer_impl: str = "layer"
 
     @property
@@ -98,6 +104,15 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _packed(cfg: BertConfig) -> bool:
     """The width fits the reference's packed-lane envelope."""
     return 128 % cfg.head_dim == 0 and cfg.hidden_size % 128 == 0
+
+
+def layer_route(cfg: BertConfig) -> str:
+    """The path every layer of `cfg` takes: "layer" (K1), "layer_i8" (K4)
+    or "ops" (bert.py:180-181)."""
+    if (cfg.layer_impl in ("layer", "layer_i8") and cfg.attn_impl != "xla"
+            and _packed(cfg)):
+        return cfg.layer_impl
+    return "ops"
 
 
 def _attention(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
@@ -136,11 +151,16 @@ def _layer_fwd(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
                bias: torch.Tensor | None) -> torch.Tensor:
     """One post-LN layer (bert.py:168-215) on the route the config and
     width pick."""
-    if (cfg.layer_impl in ("layer", "layer_i8") and cfg.attn_impl != "xla"
-            and _packed(cfg)):
-        if cfg.layer_impl == "layer_i8":
-            raise NotImplementedError("layer_impl='layer_i8' needs K4, not "
-                                      "ported yet (ROADMAP.md Queue 1 item 7)")
+    route = layer_route(cfg)
+    if route == "layer_i8":
+        i8 = layer.i8
+        return fused_bert_layer_i8(
+            x.to(cfg.dtype), bias, i8("qkv_w"), layer.qkv_b, i8("attn_out_w"),
+            layer.attn_out_b, layer.attn_ln_scale, layer.attn_ln_bias,
+            i8("ffn_in_w"), layer.ffn_in_b, i8("ffn_out_w"), layer.ffn_out_b,
+            layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
+            eps=cfg.layer_norm_eps)
+    if route == "layer":
         return fused_bert_layer(
             x.to(cfg.dtype), bias, layer.qkv_w, layer.qkv_b, layer.attn_out_w,
             layer.attn_out_b, layer.attn_ln_scale, layer.attn_ln_bias,
@@ -163,7 +183,9 @@ def _frozen(t, device, dtype=torch.float32) -> nn.Parameter:
 
 
 class BertLayer(nn.Module):
-    """One post-LN layer's weights; forward is `_layer_fwd`."""
+    """One post-LN layer's weights; forward is `_layer_fwd`. On K4's route
+    each matrix `m` is held only as `m_codes` (i8) and `m_scales` (f32
+    per column); on the others in the compute dtype."""
 
     MATRICES = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
     VECTORS = ("qkv_b", "attn_out_b", "attn_ln_scale", "attn_ln_bias",
@@ -172,10 +194,20 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, layer: Params, *, device):
         super().__init__()
         self.cfg = cfg
+        k4 = layer_route(cfg) == "layer_i8"
         for name in self.MATRICES:
-            setattr(self, name, _frozen(layer[name], device, cfg.dtype))
+            if k4:
+                codes, scales = quant_cols(torch.as_tensor(layer[name]).float())
+                setattr(self, name + "_codes", _frozen(codes, device, torch.int8))
+                setattr(self, name + "_scales", _frozen(scales, device))
+            else:
+                setattr(self, name, _frozen(layer[name], device, cfg.dtype))
         for name in self.VECTORS:
             setattr(self, name, _frozen(layer[name], device))
+
+    def i8(self, name: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """Matrix `name` as K4 takes it: (i8 codes, f32 scales)."""
+        return getattr(self, name + "_codes"), getattr(self, name + "_scales")
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
         return _layer_fwd(x, self, self.cfg, bias)

@@ -1,8 +1,11 @@
-"""Encoder parameters: seeded random init and the bridge from the
-reference's parameter tree.
+"""Encoder parameters: seeded random init, the bridge from the reference's
+parameter tree, and HF checkpoints (safetensors + config.json).
 
-Port of dawnsearch_tpu/models/weights.py:26-61 (init_params). Both
-packages use one layout, the reference's stacked tree:
+Port of dawnsearch_tpu/models/weights.py for the `bert` family:
+init_params (:26-61), from_hf_tensors / to_hf_tensors (:76-155, :247-297),
+config_from_hf (:169-211), load_params (:214-240) and
+load_safetensors / save_safetensors (:158-166, :300-310). Both packages
+use one layout, the reference's stacked tree:
 
     {"embeddings": {"word", "position", "token_type", "ln_scale", "ln_bias"},
      "layers": {"qkv_w" (L, H, 3H), "qkv_b" (L, 3H), "attn_out_w" (L, H, H),
@@ -10,21 +13,43 @@ packages use one layout, the reference's stacked tree:
                 "ffn_in_w" (L, H, I), "ffn_in_b" (L, I), "ffn_out_w" (L, I, H),
                 "ffn_out_b", "ffn_ln_scale", "ffn_ln_bias"}}
 
-Matrices are (in, out), so x·W is a plain product and the K1 kernel reads
-them row-major without a transpose. The tree here holds f32 tensors;
-BertModel casts the matrices to its compute dtype once, on load.
-Loading HF safetensors (the reference's load_params / config_from_hf)
-is not ported yet.
+Matrices are (in, out), so x·W is a plain product and the kernels read
+them row-major without a transpose; HF's torch Linear stores (out, in), so
+every matrix is transposed on import and export. The tree here holds f32
+CPU tensors; BertModel casts (or, for K4, quantizes) the matrices once, on
+load.
+
+The safetensors file format is read and written here in numpy (an 8-byte
+little-endian header length, a JSON header of dtype / shape / data_offsets
+per tensor, then the raw little-endian bytes), so the port needs no
+`safetensors` package. It reads the dtypes the reference's numpy reader
+reads and refuses any other (BF16, F8) by the tensor's name.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import struct
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from dawnsearch_tpu_torch.models.bert import MINILM_L6, BertConfig, Params
+
+# safetensors dtype tag -> numpy little-endian dtype
+ST_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8",
+             "I32": "<i4", "I16": "<i2", "I8": "i1", "U64": "<u8",
+             "U32": "<u4", "U16": "<u2", "U8": "u1", "BOOL": "?"}
+_ST_TAGS = {np.dtype(v): k for k, v in ST_DTYPES.items()}
+
+# model families of the reference this port does not serve yet, with the
+# ROADMAP.md Queue 1 item that adds each
+UNPORTED_FAMILIES = {"mpnet": "item 6 (MPNet with K1's rel_bias)",
+                     "roberta": "item 11 (RoBERTa: the BPE tokenizer and "
+                                "offset position ids)"}
 
 
 def init_params(generator: torch.Generator,
@@ -71,3 +96,236 @@ def params_from_numpy(tree: Mapping[str, Any]) -> Params:
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, dtype=np.float32, copy=True))
+
+
+# -- safetensors ----------------------------------------------------------
+
+def read_safetensors(path: str) -> dict[str, np.ndarray]:
+    """Every tensor of a safetensors file, as read-only numpy arrays over a
+    memory map (nothing is copied until a caller converts)."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) != 8:
+            raise ValueError(f"{path}: not a safetensors file (no header)")
+        (n,) = struct.unpack("<Q", head)
+        if n > size - 8:
+            raise ValueError(f"{path}: header length {n} past the end of "
+                             f"the file ({size} bytes)")
+        header = json.loads(f.read(n))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        tag, shape = info["dtype"], tuple(info["shape"])
+        if tag not in ST_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {tag}, which "
+                             f"this reader does not take (it reads "
+                             f"{', '.join(ST_DTYPES)})")
+        dt = np.dtype(ST_DTYPES[tag])
+        begin, end = info["data_offsets"]
+        if not 0 <= begin <= end <= data.size or \
+                end - begin != dt.itemsize * int(np.prod(shape)):
+            raise ValueError(f"{path}: tensor {name!r} ({tag} {shape}) has "
+                             f"bad data_offsets {info['data_offsets']}")
+        out[name] = data[begin:end].view(dt).reshape(shape)
+    return out
+
+
+def write_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
+    """Write numpy arrays as a safetensors file (tensors in name order,
+    the header padded with spaces to a multiple of 8 bytes)."""
+    header, arrays, offset = {}, [], 0
+    for name in sorted(tensors):
+        a = np.asarray(tensors[name], order="C")  # keeps 0-d arrays 0-d
+        if a.dtype not in _ST_TAGS:
+            raise ValueError(f"tensor {name!r}: dtype {a.dtype} has no "
+                             "safetensors tag here")
+        header[name] = {"dtype": _ST_TAGS[a.dtype], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        arrays.append(a)
+        offset += a.nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for a in arrays:
+            f.write(a.tobytes())
+
+
+# -- HF tensor names <-> the stacked tree -----------------------------------
+
+_NAMES = dict(q="attention.self.query", k="attention.self.key",
+              v="attention.self.value", o="attention.output.dense",
+              attn_ln="attention.output.LayerNorm")
+
+
+def _strip_prefix(tensors: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Accept `bert.`-prefixed and bare tensor namings."""
+    return {name[len("bert."):] if name.startswith("bert.") else name: t
+            for name, t in tensors.items()}
+
+
+def from_hf_tensors(tensors: Mapping[str, np.ndarray],
+                    cfg: BertConfig = MINILM_L6) -> Params:
+    """HF BertModel tensor dict (numpy) -> stacked tree of f32 tensors.
+    Tensors it does not use (position_ids, the pooler) are ignored; a
+    checkpoint with more layers than cfg is refused."""
+    t = _strip_prefix(tensors)
+
+    def get(name: str) -> np.ndarray:
+        if name not in t:
+            raise KeyError(f"missing tensor {name!r}; have {sorted(t)[:8]}...")
+        return np.asarray(t[name], dtype=np.float32)
+
+    emb = {
+        "word": get("embeddings.word_embeddings.weight"),
+        "position": get("embeddings.position_embeddings.weight"),
+        "token_type": get("embeddings.token_type_embeddings.weight"),
+        "ln_scale": get("embeddings.LayerNorm.weight"),
+        "ln_bias": get("embeddings.LayerNorm.bias"),
+    }
+    per_layer: dict[str, list[np.ndarray]] = {k: [] for k in (
+        "qkv_w", "qkv_b", "attn_out_w", "attn_out_b",
+        "attn_ln_scale", "attn_ln_bias",
+        "ffn_in_w", "ffn_in_b", "ffn_out_w", "ffn_out_b",
+        "ffn_ln_scale", "ffn_ln_bias",
+    )}
+    n = _NAMES
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        per_layer["qkv_w"].append(np.concatenate(
+            [get(p + n[h] + ".weight").T for h in "qkv"], axis=1))
+        per_layer["qkv_b"].append(np.concatenate(
+            [get(p + n[h] + ".bias") for h in "qkv"]))
+        per_layer["attn_out_w"].append(get(p + n["o"] + ".weight").T)
+        per_layer["attn_out_b"].append(get(p + n["o"] + ".bias"))
+        per_layer["attn_ln_scale"].append(get(p + n["attn_ln"] + ".weight"))
+        per_layer["attn_ln_bias"].append(get(p + n["attn_ln"] + ".bias"))
+        per_layer["ffn_in_w"].append(get(p + "intermediate.dense.weight").T)
+        per_layer["ffn_in_b"].append(get(p + "intermediate.dense.bias"))
+        per_layer["ffn_out_w"].append(get(p + "output.dense.weight").T)
+        per_layer["ffn_out_b"].append(get(p + "output.dense.bias"))
+        per_layer["ffn_ln_scale"].append(get(p + "output.LayerNorm.weight"))
+        per_layer["ffn_ln_bias"].append(get(p + "output.LayerNorm.bias"))
+
+    # a checkpoint deeper than cfg (an L12 file against the L6 default
+    # because config.json is missing) must fail, not serve half an encoder
+    extra = f"encoder.layer.{cfg.num_layers}."
+    if any(k.startswith(extra) for k in t):
+        raise ValueError(
+            f"checkpoint has layers beyond the configured {cfg.num_layers} "
+            f"(found {extra}*); put the model's real config.json next to "
+            "model.safetensors")
+    return params_from_numpy({"embeddings": emb, "layers": {
+        k: np.stack(v) for k, v in per_layer.items()}})
+
+
+def to_hf_tensors(params: Params, cfg: BertConfig = MINILM_L6
+                  ) -> dict[str, np.ndarray]:
+    """Stacked tree -> HF BertModel tensor dict (inverse of
+    from_hf_tensors): un-stack layers, split the fused QKV, transpose back
+    to torch's (out, in)."""
+    def np_(x) -> np.ndarray:
+        return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x,
+                          dtype=np.float32)
+
+    H, n = cfg.hidden_size, _NAMES
+    emb = params["embeddings"]
+    out = {
+        "embeddings.word_embeddings.weight": np_(emb["word"]),
+        "embeddings.position_embeddings.weight": np_(emb["position"]),
+        "embeddings.token_type_embeddings.weight": np_(emb["token_type"]),
+        "embeddings.LayerNorm.weight": np_(emb["ln_scale"]),
+        "embeddings.LayerNorm.bias": np_(emb["ln_bias"]),
+    }
+    L = params["layers"]
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        qkv_w, qkv_b = np_(L["qkv_w"][i]), np_(L["qkv_b"][i])
+        for j, h in enumerate("qkv"):
+            out[p + n[h] + ".weight"] = qkv_w[:, j * H:(j + 1) * H].T
+            out[p + n[h] + ".bias"] = qkv_b[j * H:(j + 1) * H]
+        out[p + n["o"] + ".weight"] = np_(L["attn_out_w"][i]).T
+        out[p + n["o"] + ".bias"] = np_(L["attn_out_b"][i])
+        out[p + n["attn_ln"] + ".weight"] = np_(L["attn_ln_scale"][i])
+        out[p + n["attn_ln"] + ".bias"] = np_(L["attn_ln_bias"][i])
+        out[p + "intermediate.dense.weight"] = np_(L["ffn_in_w"][i]).T
+        out[p + "intermediate.dense.bias"] = np_(L["ffn_in_b"][i])
+        out[p + "output.dense.weight"] = np_(L["ffn_out_w"][i]).T
+        out[p + "output.dense.bias"] = np_(L["ffn_out_b"][i])
+        out[p + "output.LayerNorm.weight"] = np_(L["ffn_ln_scale"][i])
+        out[p + "output.LayerNorm.bias"] = np_(L["ffn_ln_bias"][i])
+    return out
+
+
+def load_safetensors(path: str, cfg: BertConfig = MINILM_L6) -> Params:
+    """Load an HF safetensors checkpoint (model.safetensors) from disk."""
+    return from_hf_tensors(read_safetensors(path), cfg)
+
+
+def save_safetensors(params: Params, path: str,
+                     cfg: BertConfig = MINILM_L6) -> None:
+    """Export params as an HF-naming safetensors checkpoint."""
+    write_safetensors(to_hf_tensors(params, cfg), path)
+
+
+def config_from_hf(model_dir: str) -> BertConfig | None:
+    """A BertConfig from model_dir/config.json (None without one), so any
+    BERT-family encoder loads by pointing model_dir at its checkout.
+    Refuses a non-gelu activation (every kernel computes exact erf GELU), a
+    family this port does not serve yet, and an unknown family."""
+    path = os.path.join(model_dir, "config.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        hf = json.load(f)
+    model_type = hf.get("model_type", "bert")
+    if model_type in UNPORTED_FAMILIES:
+        raise ValueError(f"{path}: model_type={model_type!r} is not ported yet "
+                         f"(ROADMAP.md Queue 1 "
+                         f"{UNPORTED_FAMILIES[model_type]})")
+    if model_type != "bert":
+        raise ValueError(f"{path}: model_type={model_type!r} is not a "
+                         "supported encoder family (bert, mpnet, roberta)")
+    act = hf.get("hidden_act", "gelu")
+    if act != "gelu":
+        raise ValueError(
+            f"{path}: hidden_act={act!r} is not supported (this encoder "
+            "computes exact erf gelu); re-export the model or use a "
+            "gelu-activation checkpoint")
+    return BertConfig(
+        vocab_size=hf.get("vocab_size", 30522),
+        hidden_size=hf.get("hidden_size", 384),
+        num_layers=hf.get("num_hidden_layers", 6),
+        num_heads=hf.get("num_attention_heads", 12),
+        intermediate_size=hf.get("intermediate_size", 1536),
+        max_position_embeddings=hf.get("max_position_embeddings", 512),
+        type_vocab_size=hf.get("type_vocab_size", 2),
+        layer_norm_eps=hf.get("layer_norm_eps", 1e-12),
+        pad_token_id=hf.get("pad_token_id", 0),
+    )
+
+
+def load_params(model_dir: str | None, cfg: BertConfig | None = None,
+                seed: int = 0) -> tuple[Params, bool, BertConfig]:
+    """(params, pretrained, cfg): the checkpoint in model_dir when it has
+    one, else seeded random weights. model_dir/config.json owns the shape
+    fields; the caller's cfg keeps its compute-policy fields (dtype and
+    kernel routes)."""
+    if model_dir:
+        hf_cfg = config_from_hf(model_dir)
+        if hf_cfg is not None:
+            cfg = hf_cfg if cfg is None else dataclasses.replace(
+                hf_cfg, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+                pool_impl=cfg.pool_impl, layer_impl=cfg.layer_impl)
+    if cfg is None:
+        cfg = MINILM_L6
+    if model_dir:
+        for cand in ("model.safetensors", "pytorch_model.safetensors"):
+            p = os.path.join(model_dir, cand)
+            if os.path.exists(p):
+                return load_safetensors(p, cfg), True, cfg
+    return init_params(torch.Generator().manual_seed(seed), cfg), False, cfg

@@ -3,11 +3,14 @@
 Port of dawnsearch_tpu/node.py (the reference's main-binary bootstrap,
 the reference's src/bin/dawnsearch.rs:37-154) for what this package
 serves: text search and page insert over HTTP, on one device. The
-encoder runs the whole-layer kernel (K1) by default, or the per-op path
-(layer_impl="ops": attention K5 or K6 and the fused FFN K7 in every layer;
-attn_impl="xla": einsum attention and K7), and pools with K8 when
-pool_impl="fused". The score+select kernels are K2 for an i8 or bf16
-index and K3 for the i4 capacity tier.
+encoder is the checkpoint in model_dir (a `bert`-family HF checkpoint:
+config.json, model.safetensors, vocab.txt) or seeded MiniLM-width weights.
+It runs the whole-layer kernel (K1) by default, its W8A8 twin (K4) for
+layer_impl="layer_i8", or the per-op path (layer_impl="ops": attention K5
+or K6 and the fused FFN K7 in every layer; attn_impl="xla": einsum
+attention and K7), and pools with K8 when pool_impl="fused". The
+score+select kernels are K2 for an i8 or bf16 index and K3 for the i4
+capacity tier; the index is as wide as the encoder.
 The 10-minute save timer and the save on shutdown are kept.
 
 The node never serves something other than what its config asked for:
@@ -29,7 +32,7 @@ from dawnsearch_tpu_torch.utils.logging import service_logger, set_debug
 log = service_logger("Node")
 
 SAVE_INTERVAL_S = 600.0  # reference: 10-minute save timer (dawnsearch.rs:84)
-WEIGHT_SEED = 0          # random weights when no model_dir is given
+WEIGHT_SEED = 0          # random weights when model_dir has no checkpoint
 
 
 def random_instance_id(n: int = 16) -> str:
@@ -42,17 +45,14 @@ def unported_settings(cfg: Config) -> list[str]:
     """Each setting of `cfg` this port cannot serve yet, with the
     ROADMAP.md item (Queue 1) that adds it."""
     checks = [
-        (cfg.model_dir, "model_dir (pretrained weights)",
-         "safetensors weight loading"),
         (cfg.udp, "udp", "UDP and ingest services"),
         (cfg.index_cc, "index_cc", "UDP and ingest services"),
         (cfg.index_kind != "flat", f"index_kind={cfg.index_kind!r}",
          "sharding and multihost"),
         (cfg.dist_num_processes > 1 or bool(cfg.dist_coordinator),
          "dist_* (multihost)", "sharding and multihost"),
-        (cfg.layer_impl == "layer_i8", "layer_impl='layer_i8'", "K4"),
         (cfg.compute_dtype != "bf16", f"compute_dtype={cfg.compute_dtype!r}",
-         "the f32 variants of K1 and K5-K7"),
+         "the f32 variants of K1, K4 and K5-K7"),
     ]
     return [f"{what} is not ported yet (ROADMAP.md Queue 1: {item})"
             for bad, what, item in checks if bad]
@@ -79,28 +79,48 @@ def check_config(cfg: Config) -> None:
 
 
 def make_encoder(cfg: Config):
-    """SentenceEncoder on cfg.device: MiniLM width on the layer, attention
-    and pool routes of the config, random weights from a seeded generator
-    and a self-contained vocab (as the reference node does with no
-    model_dir, dawnsearch_tpu/node.py:47-82)."""
+    """SentenceEncoder on cfg.device, on the layer, attention and pool
+    routes of the config (dawnsearch_tpu/node.py:33-97): the shape from
+    model_dir/config.json, the weights from model.safetensors and the
+    WordPiece vocab from vocab.txt; without model_dir (or without those
+    files) MiniLM width, weights from a seeded generator and a
+    self-contained vocab."""
     import torch
 
     from dawnsearch_tpu_torch.models.bert import BertConfig
     from dawnsearch_tpu_torch.models.encoder import SentenceEncoder
     from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
                                                        build_vocab_from_corpus)
-    from dawnsearch_tpu_torch.models.weights import init_params
+    from dawnsearch_tpu_torch.models.weights import load_params
 
-    bert_cfg = BertConfig(dtype=torch.bfloat16, attn_impl=cfg.attn_impl,
-                          pool_impl=cfg.pool_impl, layer_impl=cfg.layer_impl)
-    params = init_params(torch.Generator().manual_seed(WEIGHT_SEED), bert_cfg)
-    corpus = [string.ascii_lowercase, string.digits,
-              "the quick brown fox jumps over the lazy dog"]
-    tok = WordPieceTokenizer(build_vocab_from_corpus(corpus, size=4096))
-    log.info("encoder ready (random weights, device=%s, hidden=%d, layers=%d, "
-             "layer_impl=%s, attn_impl=%s, pool_impl=%s)", cfg.device,
-             bert_cfg.hidden_size, bert_cfg.num_layers, bert_cfg.layer_impl,
-             bert_cfg.attn_impl, bert_cfg.pool_impl)
+    base_cfg = BertConfig(
+        dtype=torch.bfloat16 if cfg.compute_dtype == "bf16" else torch.float32,
+        attn_impl=cfg.attn_impl, pool_impl=cfg.pool_impl,
+        layer_impl=cfg.layer_impl)
+    params, pretrained, bert_cfg = load_params(cfg.model_dir, cfg=base_cfg,
+                                               seed=WEIGHT_SEED)
+    vocab_path = (os.path.join(cfg.model_dir, "vocab.txt")
+                  if cfg.model_dir else None)
+    if vocab_path and os.path.exists(vocab_path):
+        tok = WordPieceTokenizer.from_vocab_file(vocab_path)
+        if pretrained and tok.pad_id != bert_cfg.pad_token_id:
+            # the encoder pads with the tokenizer's pad id; a checkpoint
+            # whose config disagrees has mismatched files
+            raise ValueError(
+                f"tokenizer pad id {tok.pad_id} != config.json pad_token_id "
+                f"{bert_cfg.pad_token_id}: mismatched checkpoint files in "
+                f"{cfg.model_dir}")
+    else:
+        corpus = [string.ascii_lowercase, string.digits,
+                  "the quick brown fox jumps over the lazy dog"]
+        tok = WordPieceTokenizer(build_vocab_from_corpus(corpus, size=4096))
+        if pretrained:
+            log.warning("pretrained weights but no vocab.txt: tokenization "
+                        "will not match the checkpoint")
+    log.info("encoder ready (pretrained=%s, device=%s, hidden=%d, layers=%d, "
+             "layer_impl=%s, attn_impl=%s, pool_impl=%s)", pretrained,
+             cfg.device, bert_cfg.hidden_size, bert_cfg.num_layers,
+             bert_cfg.layer_impl, bert_cfg.attn_impl, bert_cfg.pool_impl)
     return SentenceEncoder(params, tok, cfg=bert_cfg,
                            seq_buckets=tuple(cfg.seq_buckets),
                            device=cfg.device)

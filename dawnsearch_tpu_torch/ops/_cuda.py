@@ -136,13 +136,14 @@ def lib() -> ctypes.CDLL:
                            ctypes.c_float)
             cdll.dawn_bert_gemm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
             cdll.dawn_bert_gemm.restype = i
-            cdll.dawn_bert_attention.argtypes = [p, p, p, i, i, i, i, p]
-            cdll.dawn_bert_attention.restype = i
+            cdll.dawn_bert_layer_i8.argtypes = [ctypes.POINTER(p), i, i, i, i,
+                                                i, f, p]
+            cdll.dawn_bert_layer_i8.restype = i
             cdll.dawn_select.argtypes = [i, i, p, p, p, p, ll, p, p, i, ll,
                                          i, p]
             cdll.dawn_select.restype = i
             cdll.dawn_attention.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll,
-                                            ll, ll, ll, ll, f, p]
+                                            ll, ll, ll, ll, f, i, p]
             cdll.dawn_attention.restype = i
             cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
             cdll.dawn_ffn.restype = i

@@ -173,5 +173,5 @@ def _attention_cuda(name: str, q, k, v, bias, out, B, nh, S, hd, strides,
     _cuda.check(lib.dawn_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), B, nh, S, hd, *strides, *out_strides,
-        1.0 / math.sqrt(hd), _cuda.stream_handle(q)), name)
+        1.0 / math.sqrt(hd), 0, _cuda.stream_handle(q)), name)
     _cuda.count(launches, name)

@@ -1,8 +1,9 @@
-"""One post-LN BERT layer: the K1 CUDA kernel and its plain twin.
+"""One post-LN BERT layer: the K1 and K4 CUDA kernels and their plain twins.
 
-Counterpart of dawnsearch_tpu/ops/layer.py::fused_bert_layer (the
-whole-layer Pallas kernel). The math is the reference's, rounding point
-for rounding point (ops/layer.py:115-154):
+Counterparts of dawnsearch_tpu/ops/layer.py::fused_bert_layer (K1, the
+whole-layer Pallas kernel) and ::fused_bert_layer_i8 (K4, the same layer
+with W8A8 projections). K1's math is the reference's, rounding point for
+rounding point (ops/layer.py:115-154):
 
     qkv = bf16(x·Wqkv + b)
     ctx = bf16(softmax(q·kᵀ/√hd + bias)·v)   p rounded to bf16 before PV,
@@ -10,28 +11,46 @@ for rounding point (ops/layer.py:115-154):
     x1  = bf16(LN(ctx·Wo + bo + x))
     y   = LN(GELU_erf(x1·W1 + b1)·W2 + b2 + x1)   (h rounded to bf16)
 
-`fused_bert_layer` launches the hand-written kernel
-(csrc/layer.cu: five launches — three GEMM epilogues and attention) for a
-CUDA tensor and runs `bert_layer_plain` for a CPU tensor. There is no
-fallback between the two: a CUDA input the kernel does not take raises.
+K4's (ops/layer.py:157-211) quantizes each projection's input per row
+(`s = max(rowabsmax, 1e-6)`, codes `round(a·(127/s))`), multiplies the i8
+codes with i8 weight codes exactly, and scales back
+`f32(acc)·(s·f32(1/127))·ws`. qkv is rounded to the compute dtype; the
+attention context, x1 and h stay f32; GELU uses the A&S 7.1.26 erf
+polynomial. K4's attention sums in one fixed order
+(`attention_f32_plain`), which its kernel follows. Weights are quantized
+once per column from the f32 parameters (`quant_cols`); the wrappers take
+each matrix as its (codes, scales) pair.
+
+`fused_bert_layer` launches csrc/layer.cu's GEMMs and csrc/attention.cu's
+attention (five launches), `fused_bert_layer_i8` csrc/layer_i8.cu (nine
+launches from one C call), for a CUDA tensor; each runs its plain twin
+(`bert_layer_plain`, `bert_layer_i8_plain`) for a CPU tensor. There is no
+fallback between the two: a CUDA input a kernel does not take raises. On
+the card both take bf16 activations and the reference's envelope: H = nh·hd
+with 128 % hd == 0 and H % 128 == 0, I % 128 == 0, S % 16 == 0, S <= 512.
 
 Weights keep the JAX layout: (in, out) matrices, 1-D biases and LN
-parameters; matrices in the compute dtype, the rest f32.
+parameters; K1's matrices in the compute dtype, the rest f32.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from dawnsearch_tpu_torch.ops import _cuda
 from dawnsearch_tpu_torch.ops._cuda import check_tensor
+from dawnsearch_tpu_torch.ops.ffn import erf_poly
 from dawnsearch_tpu_torch.ops.vector import layer_norm
 
-# Layer launches of the CUDA kernel in this process (one per call, each
-# being five CUDA launches), by METRICS name (_cuda.count).
-launches = {"kernel_bert_layer": 0}
+# Layer launches of the CUDA kernels in this process (one per call, each
+# being several CUDA launches), by METRICS name (_cuda.count).
+launches = {"kernel_bert_layer": 0, "kernel_bert_layer_i8": 0}
+
+MAX_SEQ = 512
+INV127 = 1.0 / 127.0  # folded to f32(1/127) in f32 products, as the reference
 
 
 def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
@@ -69,8 +88,8 @@ def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
 def fused_bert_layer(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
                      w2, b2, fln_s, fln_b, *, nh: int,
                      eps: float = 1e-12) -> torch.Tensor:
-    """One BERT layer: the CUDA kernel for a CUDA x, the plain version
-    for a CPU x (same signature as bert_layer_plain)."""
+    """K1: one BERT layer, the CUDA kernels for a CUDA x, the plain
+    version for a CPU x (same signature as bert_layer_plain)."""
     if not x.is_cuda:
         return bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s,
                                 aln_b, w1, b1, w2, b2, fln_s, fln_b, nh=nh,
@@ -79,31 +98,47 @@ def fused_bert_layer(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
                        b1, w2, b2, fln_s, fln_b, nh=nh, eps=eps)
 
 
+def _check_layer(what: str, x, bias, nh: int, I: int):
+    """Dtype and envelope of a whole-layer kernel's input; returns the
+    bias to pass (zeros for None)."""
+    B, S, H = x.shape
+    hd = H // nh if nh > 0 else 0
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what} takes bf16 activations on CUDA, got "
+                         f"{x.dtype} (f32 compute runs only in the plain twin; "
+                         "the f32 variant is ROADMAP Queue 2)")
+    if (hd == 0 or H != nh * hd or 128 % hd or H % 128 or I % 128 or S % 16
+            or S > MAX_SEQ):
+        raise ValueError(f"{what} needs H = nh·hd with 128 % hd == 0, "
+                         f"H % 128 == 0, I % 128 == 0, S % 16 == 0 and "
+                         f"S <= {MAX_SEQ}; got H={H} nh={nh} I={I} S={S}")
+    check_tensor(x, f"{what} x", torch.bfloat16, (B, S, H), x.device)
+    if bias is None:
+        bias = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    check_tensor(bias, f"{what} bias", torch.float32, (B, S), x.device)
+    return bias
+
+
+def _check_vectors(what: str, dev, H: int, I: int, **vectors) -> None:
+    for name, t in vectors.items():
+        n = 3 * H if name == "qkv_b" else I if name == "b1" else H
+        check_tensor(t, f"{what} {name}", torch.float32, (n,), dev)
+
+
 def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                 b2, fln_s, fln_b, *, nh: int, eps: float) -> torch.Tensor:
     B, S, H = x.shape
     I = w1.shape[1]
     dev = x.device
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"K1 takes bf16 activations on CUDA, got {x.dtype} "
-                         "(f32 compute runs only in bert_layer_plain)")
-    if H != nh * 32 or H % 128 or I % 128 or S % 16:
-        raise ValueError(f"K1 needs head dim 32, H % 128 == 0, I % 128 == 0 "
-                         f"and S % 16 == 0; got H={H} nh={nh} I={I} S={S}")
-    bf, f32 = torch.bfloat16, torch.float32
-    check_tensor(x, "K1 x", bf, (B, S, H), dev)
+    bias = _check_layer("K1", x, bias, nh, I)
+    bf = torch.bfloat16
     for name, t, shape in (("qkv_w", qkv_w, (H, 3 * H)), ("ao_w", ao_w, (H, H)),
                            ("w1", w1, (H, I)), ("w2", w2, (I, H))):
         check_tensor(t, f"K1 {name}", bf, shape, dev)
-    for name, t, n in (("qkv_b", qkv_b, 3 * H), ("ao_b", ao_b, H),
-                       ("aln_s", aln_s, H), ("aln_b", aln_b, H), ("b1", b1, I),
-                       ("b2", b2, H), ("fln_s", fln_s, H), ("fln_b", fln_b, H)):
-        check_tensor(t, f"K1 {name}", f32, (n,), dev)
-    if bias is None:
-        bias = torch.zeros((B, S), dtype=f32, device=dev)
-    check_tensor(bias, "K1 bias", f32, (B, S), dev)
+    _check_vectors("K1", dev, H, I, qkv_b=qkv_b, ao_b=ao_b, aln_s=aln_s,
+                   aln_b=aln_b, b1=b1, b2=b2, fln_s=fln_s, fln_b=fln_b)
 
-    M = B * S
+    M, hd = B * S, H // nh
     lib = _cuda.lib()
     stream = _cuda.stream_handle(x)
     qkv = torch.empty((M, 3 * H), dtype=bf, device=dev)
@@ -116,9 +151,13 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
     _cuda.check(gemm(x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), null,
                      null, null, qkv.data_ptr(), M, 3 * H, H, 0, eps, stream),
                 "K1 qkv projection")
-    _cuda.check(lib.dawn_bert_attention(qkv.data_ptr(), bias.data_ptr(),
-                                        ctx.data_ptr(), B, S, H, nh, stream),
-                "K1 attention")
+    # q, k and v are column views of qkv (row stride 3H), as K5 reads them;
+    # the C entry is called directly so K5's launch counter counts K5 only
+    q = qkv.data_ptr()
+    _cuda.check(lib.dawn_attention(q, q + 2 * H, q + 4 * H, bias.data_ptr(),
+                                   ctx.data_ptr(), B, nh, S, hd, S * 3 * H, hd,
+                                   3 * H, S * H, hd, H, 1.0 / math.sqrt(hd), 0,
+                                   stream), "K1 attention")
     _cuda.check(gemm(ctx.data_ptr(), ao_w.data_ptr(), ao_b.data_ptr(),
                      x.data_ptr(), aln_s.data_ptr(), aln_b.data_ptr(),
                      x1.data_ptr(), M, H, H, 2, eps, stream),
@@ -131,4 +170,120 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                      2, eps, stream),
                 "K1 FFN out + LN")
     _cuda.count(launches, "kernel_bert_layer")
+    return y
+
+
+# -- K4 ---------------------------------------------------------------------
+
+def quant_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, N) f32 weights -> (i8 codes (K, N), f32 per-column scales (N,)):
+    scale = max(column absmax, 1e-12) / 127, codes = round(w / scale),
+    half to even. The reference's _quant_cols (ops/layer.py:214-218) as
+    written: both divisions are true f32 divisions (a tensor divisor: torch
+    on CUDA turns a division by a scalar into a product with its
+    reciprocal)."""
+    w = w.float()
+    amax = w.abs().amax(dim=0).clamp_min(1e-12)
+    s = torch.div(amax, torch.full_like(amax, 127.0))
+    return torch.round(w / s).to(torch.int8), s
+
+
+def _mm_i8(a32: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
+           ) -> torch.Tensor:
+    """(M, K) f32 @ per-column i8 weights -> (M, N) f32, the reference's
+    _mm_i8 (ops/layer.py:157-172). The i8 product is taken in f64, which
+    is exact here (|acc| <= 127²·K < 2^53) on the CPU and on CUDA, and
+    rounded to f32 once, as s32 -> f32 rounds."""
+    s = a32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    aq = torch.round(a32 * torch.div(torch.full_like(s, 127.0), s))
+    acc = (aq.double() @ wq.double()).float()
+    return acc * (s * INV127) * ws.float()
+
+
+def attention_f32_plain(qkv, bias, B, S, H, nh) -> torch.Tensor:
+    """(M, 3H) bf16 qkv -> (M, H) f32 context with every sum in the order
+    of K4's attention step (csrc/attention.cu, out_f32): scores over the
+    head dim ascending, the softmax sum and PV over keys ascending, each
+    step rounded once (bf16 x bf16 products are exact in f32). The
+    contract of bert_layer_plain's attention, unrounded; the fixed order
+    is what keeps K4 and this twin equal through K4's next quantization
+    (the kernel's note says why)."""
+    hd = H // nh
+    q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2).float()
+               for t in qkv.split(H, dim=-1))
+    s = torch.zeros((B, nh, S, S), dtype=torch.float32, device=qkv.device)
+    for d in range(hd):
+        s = s + q[..., d:d + 1] * k[..., d].unsqueeze(-2)
+    s = s * (1.0 / math.sqrt(hd))
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pb = p.to(qkv.dtype).float()
+    l = torch.zeros((B, nh, S, 1), dtype=torch.float32, device=qkv.device)
+    o = torch.zeros((B, nh, S, hd), dtype=torch.float32, device=qkv.device)
+    for j in range(S):
+        l = l + p[..., j:j + 1]
+        o = o + pb[..., j:j + 1] * v[..., j:j + 1, :]
+    o = o * (1.0 / l)
+    return o.transpose(1, 2).reshape(B * S, H)
+
+
+def bert_layer_i8_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
+                        b1, w2, b2, fln_s, fln_b, *, nh: int,
+                        eps: float = 1e-12) -> torch.Tensor:
+    """(B, S, H) x + (B, S) f32 additive key bias (or None) -> (B, S, H) in
+    x's dtype; each of qkv_w, ao_w, w1, w2 is a (codes, scales) pair from
+    quant_cols."""
+    B, S, H = x.shape
+    dt = x.dtype
+    x32 = x.reshape(B * S, H).float()
+    qkv = (_mm_i8(x32, *qkv_w) + qkv_b.float()).to(dt)
+    ctx = attention_f32_plain(qkv, bias, B, S, H, nh)           # f32
+    att = _mm_i8(ctx, *ao_w) + ao_b.float() + x32
+    x1 = layer_norm(att, aln_s, aln_b, eps)                      # f32
+    h = _mm_i8(x1, *w1) + b1.float()
+    h = 0.5 * h * (1.0 + erf_poly(h * 2.0 ** -0.5))              # f32
+    y = _mm_i8(h, *w2) + b2.float() + x1
+    return layer_norm(y, fln_s, fln_b, eps).reshape(B, S, H).to(dt)
+
+
+def fused_bert_layer_i8(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
+                        b1, w2, b2, fln_s, fln_b, *, nh: int,
+                        eps: float = 1e-12) -> torch.Tensor:
+    """K4: one BERT layer with W8A8 projections, the CUDA kernel for a
+    CUDA x, bert_layer_i8_plain for a CPU x (same signature; each matrix
+    argument is its (i8 codes, f32 scales) pair)."""
+    if not x.is_cuda:
+        return bert_layer_i8_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s,
+                                   aln_b, w1, b1, w2, b2, fln_s, fln_b, nh=nh,
+                                   eps=eps)
+    B, S, H = x.shape
+    I = w1[0].shape[1]
+    dev = x.device
+    bias = _check_layer("K4", x, bias, nh, I)
+    for name, (q, s), (k, n) in (("qkv_w", qkv_w, (H, 3 * H)),
+                                 ("ao_w", ao_w, (H, H)), ("w1", w1, (H, I)),
+                                 ("w2", w2, (I, H))):
+        check_tensor(q, f"K4 {name} codes", torch.int8, (k, n), dev)
+        check_tensor(s, f"K4 {name} scales", torch.float32, (n,), dev)
+    _check_vectors("K4", dev, H, I, qkv_b=qkv_b, ao_b=ao_b, aln_s=aln_s,
+                   aln_b=aln_b, b1=b1, b2=b2, fln_s=fln_s, fln_b=fln_b)
+
+    M, W = B * S, max(H, I)
+    y = torch.empty((B, S, H), dtype=torch.bfloat16, device=dev)
+    scratch = (torch.empty((M, W), dtype=torch.int8, device=dev),
+               torch.empty((M,), dtype=torch.float32, device=dev),
+               torch.empty((M, 3 * H), dtype=torch.bfloat16, device=dev),
+               torch.empty((M, W), dtype=torch.float32, device=dev),
+               torch.empty((M, H), dtype=torch.float32, device=dev))
+    if any(t.data_ptr() % 16 for t in (x, qkv_w[0], ao_w[0], w1[0], w2[0])):
+        raise ValueError("K4 reads x and the weight codes in 16-byte "
+                         "vectors: their storage must be 16-byte aligned")
+    ptrs = [t.data_ptr() for t in (
+        x, bias, *qkv_w, qkv_b, *ao_w, ao_b, aln_s, aln_b, *w1, b1, *w2, b2,
+        fln_s, fln_b, y, *scratch)]
+    _cuda.check(_cuda.lib().dawn_bert_layer_i8(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, H, nh, I, eps,
+        _cuda.stream_handle(x)), "K4 layer")
+    _cuda.count(launches, "kernel_bert_layer_i8")
     return y

@@ -9,7 +9,10 @@ package, so it also runs on a machine that has only torch:
 K2 (i8 queries) and K3 (i8 queries) must be bit-equal to their plain
 twin; the bf16-query variants agree within two key steps (3.1e-5) on the
 values and on at least 99% of the window ids; K1 agrees to the bf16 bound
-of the reference's own tests (per-row cosine > 0.999). The per-op
+of the reference's own tests (per-row cosine > 0.999) at every head dim
+of the packed envelope; K4 agrees with bert_layer_i8_plain at per-token
+cosine >= 0.9999 (the same rounding points and exact s32 sums; f32 sums
+of LayerNorm and attention in another order). The per-op
 kernels K5, K6 and K7 agree with their plain twins at per-row cosine
 > 0.9999 (the same bf16 rounding points, f32 sums in another order); K8,
 all f32, within 1e-5.
@@ -23,6 +26,7 @@ from dawnsearch_tpu_torch.index.flat import FlatIndex, quantize_rows_i8
 from dawnsearch_tpu_torch.models import bert
 from dawnsearch_tpu_torch.models.weights import init_params
 from dawnsearch_tpu_torch.ops import attention, ffn, layer
+from dawnsearch_tpu_torch.ops.layer import quant_cols
 from dawnsearch_tpu_torch.ops import scan_select as ss
 from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
 
@@ -72,15 +76,107 @@ def test_k1_matches_plain(cuda, B, S):
 
 
 def test_k1_refuses_what_it_does_not_take(cuda):
-    x, _, bias, weights = _layer_inputs(np.random.default_rng(0), 2, 16)
+    """f32 activations are plain-only; a head dim of 64 (nh = 6 at
+    H = 384), once refused, now runs and agrees with the plain twin; a
+    width outside the envelope is refused."""
+    x, mask, bias, weights = _layer_inputs(np.random.default_rng(0), 2, 16)
     w = [torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2 else None)
          for a in weights]
     xt = torch.from_numpy(x).to(cuda)
     bt = torch.from_numpy(bias).to(cuda)
     with pytest.raises(ValueError, match="bf16"):
         layer.fused_bert_layer(xt, bt, *w, nh=12)          # f32 is plain-only
-    with pytest.raises(ValueError, match="head dim 32"):
-        layer.fused_bert_layer(xt.bfloat16(), bt, *w, nh=6)
+    got = layer.fused_bert_layer(xt.bfloat16(), bt, *w, nh=6).float()
+    want = layer.bert_layer_plain(xt.bfloat16(), bt, *w, nh=6).float()
+    m = torch.from_numpy(mask).to(cuda)
+    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
+    assert torch.isfinite(got).all() and float(cos.min()) > 0.999
+    with pytest.raises(ValueError, match="128 % hd == 0"):
+        layer.fused_bert_layer(xt.bfloat16(), bt, *w, nh=16)  # hd 24
+
+
+@pytest.mark.parametrize("H,nh,I", [(256, 16, 512), (768, 12, 3072),
+                                    (256, 2, 1024)])
+def test_k1_every_packed_head_dim(cuda, H, nh, I):
+    """hd 16, 64 and 128 against bert_layer_plain."""
+    B, S = 2, 64
+    x, mask, bias, weights = _layer_inputs(np.random.default_rng(H + nh), B, S,
+                                           H, I)
+    w = [torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2 else None)
+         for a in weights]
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    bt = torch.from_numpy(bias).to(cuda)
+    before = layer.launches["kernel_bert_layer"]
+    got = layer.fused_bert_layer(xt, bt, *w, nh=nh).float()
+    assert layer.launches["kernel_bert_layer"] == before + 1
+    want = layer.bert_layer_plain(xt, bt, *w, nh=nh).float()
+    m = torch.from_numpy(mask).to(cuda)
+    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
+    assert torch.isfinite(got).all() and float(cos.min()) > 0.999
+
+
+def _k4_args(rng, B, S, H, I, cuda):
+    x, mask, bias, weights = _layer_inputs(rng, B, S, H, I)
+    w = [torch.from_numpy(a) for a in weights]
+    for i in (0, 2, 6, 8):
+        w[i] = tuple(t.to(cuda) for t in quant_cols(w[i]))
+    w = [t if isinstance(t, tuple) else t.to(cuda) for t in w]
+    return (torch.from_numpy(x).to(cuda, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda), w,
+            torch.from_numpy(mask).to(cuda))
+
+
+@pytest.mark.parametrize("B,S,H,nh,I", [(3, 128, 384, 12, 1536),
+                                        (2, 64, 768, 12, 3072),
+                                        (1, 512, 1024, 16, 4096)])
+def test_k4_matches_plain(cuda, B, S, H, nh, I):
+    """MiniLM, BERT-base and BERT-large widths, ragged masks."""
+    x, bias, w, m = _k4_args(np.random.default_rng(H), B, S, H, I, cuda)
+    before = dict(layer.launches)
+    got = layer.fused_bert_layer_i8(x, bias, *w, nh=nh).float()
+    assert layer.launches["kernel_bert_layer_i8"] == \
+        before["kernel_bert_layer_i8"] + 1
+    assert layer.launches["kernel_bert_layer"] == before["kernel_bert_layer"]
+    want = layer.bert_layer_i8_plain(x, bias, *w, nh=nh).float()
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
+    assert float(cos.min()) >= 0.9999
+
+
+def test_k4_refuses_what_it_does_not_take(cuda):
+    x, bias, w, _ = _k4_args(np.random.default_rng(1), 2, 16, 384, 1536, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        layer.fused_bert_layer_i8(x.float(), bias, *w, nh=12)  # plain-only
+    with pytest.raises(ValueError, match="128 % hd == 0"):
+        layer.fused_bert_layer_i8(x, bias, *w, nh=16)          # hd 24
+    with pytest.raises(ValueError, match="S % 16 == 0"):
+        layer.fused_bert_layer_i8(x[:, :10], bias[:, :10], *w, nh=12)
+    bad = list(w)
+    bad[0] = (w[0][0].float(), w[0][1])                        # not i8 codes
+    with pytest.raises(ValueError, match="K4 qkv_w codes"):
+        layer.fused_bert_layer_i8(x, bias, *bad, nh=12)
+
+
+def test_k4_encode_batch_on_cuda_matches_cpu(cuda):
+    """layer_impl="layer_i8" on the card: K4 in every layer, K1 never."""
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                          num_heads=4, intermediate_size=512,
+                          max_position_embeddings=64, dtype=torch.bfloat16,
+                          layer_impl="layer_i8")
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(5, 512, (8, 32)))
+    mask = torch.ones((8, 32), dtype=torch.int32)
+    mask[5, 7:] = 0
+    before = dict(layer.launches)
+    got = bert.encode_batch(bert.BertModel(cfg, params, device=cuda),
+                            ids.to(cuda), mask.to(cuda)).cpu()
+    assert layer.launches["kernel_bert_layer_i8"] == \
+        before["kernel_bert_layer_i8"] + 2
+    assert layer.launches["kernel_bert_layer"] == before["kernel_bert_layer"]
+    want = bert.encode_batch(bert.BertModel(cfg, params, device="cpu"),
+                             ids, mask)
+    assert float((got * want).sum(-1).min()) > 0.999
 
 
 def _rows_and_queries(cuda, B, seed, n=32768):

@@ -13,7 +13,9 @@ a 2-layer model, in f32 and bf16, for:
 - layer_impl="ops" with pool_impl="fused", the per-op node's setting:
   K5 + K7 in every layer, then K8;
 - the envelope fallback at H=64, nh=4 under layer_impl="layer": H % 128 != 0,
-  so both packages take head-major attention (K6) + K7.
+  so both packages take head-major attention (K6) + K7; the same holds for
+  layer_impl="layer_i8", whose K4 route is held against the reference in
+  tests/test_torch_layer_i8.py.
 
 Tolerances are the reference's: f32 atol 1e-4, bf16 per-row cosine
 > 0.999. The routing itself is checked by recording which kernel wrappers
@@ -138,21 +140,32 @@ def test_each_route_calls_its_kernels_and_launches_none_on_cpu(
     assert [dict(m.launches) for m in (attention, ffn, layer)] == counts
 
 
-def test_layer_i8_refuses_in_the_envelope_and_falls_back_outside(batch):
-    """layer_impl="layer_i8" would run K4, which is not ported: the model
-    raises where the reference runs it, and takes the per-op path where
-    the reference does too (outside the packed envelope)."""
+def test_layer_i8_refuses_in_the_envelope_and_falls_back_outside(
+        batch, monkeypatch):
+    """layer_impl="layer_i8" runs K4 (fused_bert_layer_i8) in every layer
+    where the reference runs its W8A8 kernel, inside the packed envelope,
+    and the per-op path where the reference does too, outside it
+    (bert.py:180-195). The name is kept from when the port refused K4's
+    route; nothing is refused now."""
     ids, mask = batch
-    for H, raises in ((128, True), (64, False)):
+    called = []
+    for name in ("fused_attention_packed", "fused_attention", "fused_ffn",
+                 "fused_bert_layer", "fused_bert_layer_i8"):
+        real = getattr(bert, name)
+        monkeypatch.setattr(bert, name, lambda *a, _n=name, _f=real, **kw:
+                            called.append(_n) or _f(*a, **kw))
+    for H, want in ((128, ["fused_bert_layer_i8"] * L),
+                    (64, ["fused_attention", "fused_ffn"] * L)):
         cfg = bert.BertConfig(vocab_size=VOCAB, hidden_size=H, num_layers=L,
                               num_heads=4, intermediate_size=I,
                               max_position_embeddings=P, layer_impl="layer_i8")
         model = bert.BertModel(cfg, params_from_numpy(
             params_tree(np.random.default_rng(0), H)), device="cpu")
-        run = lambda: bert.encode_batch(model, torch.from_numpy(ids).long(),
-                                        torch.from_numpy(mask))
-        if raises:
-            with pytest.raises(NotImplementedError, match="K4"):
-                run()
-        else:
-            assert run().shape == (B, H)
+        called.clear()
+        out = bert.encode_batch(model, torch.from_numpy(ids).long(),
+                                torch.from_numpy(mask))
+        assert out.shape == (B, H) and bool(torch.isfinite(out).all())
+        assert called == want
+        # K4's route holds the matrices only as i8 codes and scales
+        assert hasattr(model.layers[0], "qkv_w") == (H == 64)
+        assert hasattr(model.layers[0], "qkv_w_codes") == (H == 128)

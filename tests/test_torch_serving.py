@@ -159,8 +159,9 @@ SETTINGS = [("model_dir", "/models/minilm"), ("udp", True), ("index_cc", True),
             ("layer_impl", "layer_i8"), ("layer_impl", "ops"),
             ("attn_impl", "xla"), ("pool_impl", "fused"),
             ("compute_dtype", "f32")]
-# the per-op encoder path (K5-K8) serves these now
-PORTED = {("layer_impl", "ops"), ("attn_impl", "xla"), ("pool_impl", "fused")}
+# served now: the per-op encoder path (K5-K8), HF checkpoints and K4
+PORTED = {("layer_impl", "ops"), ("attn_impl", "xla"), ("pool_impl", "fused"),
+          ("model_dir", "/models/minilm"), ("layer_impl", "layer_i8")}
 
 
 @pytest.mark.parametrize("field,value", SETTINGS)
@@ -210,6 +211,47 @@ def test_node_serves_the_per_op_path(tmp_path):
         assert not any(metrics.get(n, 0) for n in (
             "kernel_attention_packed", "kernel_ffn", "kernel_mean_pool",
             "kernel_bert_layer"))
+    finally:
+        node.stop()
+
+
+def test_node_serves_a_checkpoint_on_k4(tree, vocab, tmp_path):
+    """A node on a model_dir (config.json, model.safetensors written by the
+    port, vocab.txt) with layer_impl="layer_i8": make_encoder takes the
+    checkpoint's shape, K4's route holds i8 weights, the index is as wide
+    as the encoder, and an inserted page comes back at rank 1."""
+    from dawnsearch_tpu_torch.models.weights import save_safetensors
+
+    model_dir = tmp_path / "model"
+    model_dir.mkdir()
+    save_safetensors(params_from_numpy(tree), str(model_dir / "model.safetensors"),
+                     BertConfig(**SHAPE))
+    with open(model_dir / "config.json", "w") as f:
+        json.dump({"model_type": "bert", "hidden_act": "gelu", "hidden_size": H,
+                   "num_hidden_layers": L, "num_attention_heads": NH,
+                   "intermediate_size": I, "vocab_size": VOCAB,
+                   "max_position_embeddings": P, "pad_token_id": 0}, f)
+    (model_dir / "vocab.txt").write_text(
+        "\n".join(sorted(vocab, key=vocab.get)) + "\n", encoding="utf-8")
+    cfg = Config(device="cpu", web=True, web_listen_address="127.0.0.1:0",
+                 accept_insert=True, data_dir=str(tmp_path / "data"),
+                 model_dir=str(model_dir), layer_impl="layer_i8",
+                 seq_buckets=(16, 32))
+    node = DawnNode(cfg).start()
+    try:
+        mcfg = node.encoder.model.cfg
+        assert (mcfg.hidden_size, mcfg.num_layers, mcfg.layer_impl) == \
+            (H, L, "layer_i8")
+        assert node.encoder.model.layers[0].qkv_w_codes.dtype == torch.int8
+        assert node.provider.index.dim == H
+        base = f"http://127.0.0.1:{node.http_port}"
+        pages = [{"url": f"https://k/{i}", "title": "", "text": t}
+                 for i, t in enumerate(PAGES[:8])]
+        assert len(_http(base + "/api/insert", {"pages": pages})["inserted"]) == 8
+        got = _http(base + "/api/search?q=" + urllib.parse.quote(PAGES[4]))
+        assert got["results"][0]["url"] == "https://k/4"
+        metrics = _http(base + "/api/metrics")
+        assert metrics.get("kernel_bert_layer_i8", 0) == 0  # CPU: plain only
     finally:
         node.stop()
 
