@@ -16,12 +16,18 @@ Phases, each printing one progress line; any failure exits non-zero:
             I=3072) at (64, 128) and BERT-large width (H=1024, 16 heads of
             64, I=4096) at (8, 512); timed, beside torch's
             TransformerEncoderLayer fast path on the same weights (the
-            library yardstick)
+            library yardstick); then K1 with MPNet's rel_bias (a seeded
+            (32, nh) table gathered by the port's position_bias) at
+            all-mpnet-base-v2's width at (64, 128) and (8, 512), timed
+            beside K1 without it and beside the library layer with rel and
+            the key mask as one float src_mask
   k4        the W8A8 whole-layer kernel vs bert_layer_i8_plain with ragged
             masks at MiniLM and BERT-base widths (64, 128) and BERT-large
-            (8, 512), each timed beside K1 on the same weights; then a
-            12-layer BERT-base-width encode_batch on K1 and on K4, device
-            time at B = 1 and 64, S = 128
+            (8, 512), each timed beside K1 on the same weights; K4 with
+            rel_bias at all-mpnet-base-v2's width at (64, 128) and
+            (8, 512), timed beside K4 without it; then 12-layer BERT-base
+            and MPNet-base encode_batch on K1 and on K4, device time at
+            B = 1 and 64, S = 128
   k2        i8 score+select vs select_candidates_plain at 1,048,576 x 384
             codes and 1024 queries: values and ids bit-equal; timed
   k3        i4 score+select (K3) at 1,048,576 logical rows (201 MB packed)
@@ -55,9 +61,12 @@ Phases, each printing one progress line; any failure exits non-zero:
   ops       the encoder end to end through SentenceEncoder on the smoke
             texts, each run against the same encoder on the CPU: MiniLM
             width with layer_impl="layer_i8" (K4) and "ops" (pool "fused"
-            and "xla") and with attn_impl="xla", and TinyBERT width (H=312,
+            and "xla") and with attn_impl="xla", TinyBERT width (H=312,
             12 heads, I=1200, 4 layers) with layer_impl="layer", which must
-            fall back to K6 + K7; the counters each run raised; encode ms
+            fall back to K6 + K7, and all-mpnet-base-v2's width (2 layers)
+            with layer_impl="ops", which must run K7 and never K5 or K6
+            (einsum attention under the position bias); the counters each
+            run raised; encode ms
             at B=1, 8, 64 (S=128) on the K1 and the per-op paths, as device
             time (CUDA-graph replays) and as host time over 6 alternating
             rounds (median [min, max])
@@ -67,10 +76,13 @@ Phases, each printing one progress line; any failure exits non-zero:
             index_dtype i8, i4 and bf16, on i8 with DAWNSEARCH_LAYER_IMPL=ops
             DAWNSEARCH_POOL_IMPL=fused and with DAWNSEARCH_LAYER_IMPL=layer_i8;
             then on a seeded 12-layer BERT-base checkpoint written to a
-            DAWNSEARCH_MODEL_DIR, on K1 and on K4: 32 pages through
-            /api/insert, 8 of them queried back through /api/search at rank
-            1, the encoder's kernel counters (K1, K4, or K5, K7 and K8, the
-            others at 0) and the tier's select counter read from
+            DAWNSEARCH_MODEL_DIR, on K1 and on K4, and on a seeded 12-layer
+            all-mpnet-base-v2 checkpoint (its config.json, a 30527-line
+            MPNet-layout vocab) on K1 and on K4, both with rel_bias: 32
+            pages through /api/insert, 8 of them queried back through
+            /api/search at rank 1, the encoder's kernel counters (K1, K4,
+            K1 rel, K4 rel, or K5, K7 and K8, the others at 0; K5 and K6 at
+            0 on MPNet) and the tier's select counter read from
             /api/metrics
 
 The last two lines of a full run are a JSON line of per-kernel results
@@ -116,6 +128,9 @@ MINILM_W, BASE_W, LARGE_W = (384, 12, 1536), (768, 12, 3072), (1024, 16, 4096)
 K1_SHAPES = ((MINILM_W, 64, 128), (MINILM_W, 8, 512), (MINILM_W, 64, 16),
              (BASE_W, 64, 128), (LARGE_W, 8, 512))
 K4_SHAPES = ((MINILM_W, 64, 128), (BASE_W, 64, 128), (LARGE_W, 8, 512))
+# K1 and K4 with MPNet's relative-position bias (rel_bias), at
+# all-mpnet-base-v2's width: (B, S), the first the entry's headline shape
+REL_SHAPES = ((64, 128), (8, 512))
 # bert-base-uncased's config.json (HF hub), the node runs' BERT-base
 # checkpoint; the weights are seeded, 12 layers at full width
 BERT_BASE_CONFIG = {
@@ -127,6 +142,18 @@ BERT_BASE_CONFIG = {
     "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 0,
     "position_embedding_type": "absolute", "transformers_version": "4.6.0.dev0",
     "type_vocab_size": 2, "use_cache": True, "vocab_size": 30522}
+# sentence-transformers/all-mpnet-base-v2's config.json (HF hub), the node
+# runs' MPNet checkpoint; the weights are seeded, 12 layers at full width
+MPNET_CONFIG = {
+    "architectures": ["MPNetForMaskedLM"], "attention_probs_dropout_prob": 0.1,
+    "bos_token_id": 0, "eos_token_id": 2, "hidden_act": "gelu",
+    "hidden_dropout_prob": 0.1, "hidden_size": 768, "initializer_range": 0.02,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-05,
+    "max_position_embeddings": 514, "model_type": "mpnet",
+    "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 1,
+    "relative_attention_num_buckets": 32, "vocab_size": 30527}
+MPNET_EPS = MPNET_CONFIG["layer_norm_eps"]
+REL_BUCKETS = MPNET_CONFIG["relative_attention_num_buckets"]
 # (H, nh, B, S); the first of each is the entry's headline shape: K5's
 # is the node's per-op path, K6's the TinyBERT-width fallback
 K5_SHAPES = ((384, 12, 64, 128), (384, 12, 8, 512), (384, 12, 64, 16),
@@ -162,7 +189,10 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # each kernel entry's launch counter in /api/metrics
 COUNTER = {"bert_layer": "kernel_bert_layer",
-           "bert_layer_i8": "kernel_bert_layer_i8", "select_i8": "kernel_select",
+           "bert_layer_i8": "kernel_bert_layer_i8",
+           "bert_layer_rel": "kernel_bert_layer_rel",
+           "bert_layer_i8_rel": "kernel_bert_layer_i8_rel",
+           "select_i8": "kernel_select",
            "select_i8_qbf16": "kernel_select_i8_qbf16",
            "select_bf16": "kernel_select_bf16",
            "select_i4": "kernel_select_i4",
@@ -171,6 +201,7 @@ COUNTER = {"bert_layer": "kernel_bert_layer",
            "attention": "kernel_attention", "ffn": "kernel_ffn",
            "mean_pool": "kernel_mean_pool"}
 ENCODER_COUNTERS = ("kernel_bert_layer", "kernel_bert_layer_i8",
+                    "kernel_bert_layer_rel", "kernel_bert_layer_i8_rel",
                     "kernel_attention_packed", "kernel_attention", "kernel_ffn",
                     "kernel_mean_pool")
 # select launch counters (ops/scan_select.VARIANTS) by node tier
@@ -179,17 +210,22 @@ NODE_SELECT = {"i8": "kernel_select", "i4": "kernel_select_i4",
 PER_OP_ENV = {"DAWNSEARCH_LAYER_IMPL": "ops", "DAWNSEARCH_POOL_IMPL": "fused"}
 K4_ENV = {"DAWNSEARCH_LAYER_IMPL": "layer_i8"}
 K1, K4 = ("kernel_bert_layer",), ("kernel_bert_layer_i8",)
+K1R, K4R = ("kernel_bert_layer_rel",), ("kernel_bert_layer_i8_rel",)
+K5K6 = ("kernel_attention_packed", "kernel_attention")
 # (label, tier, extra environment, encoder counters that must rise,
 # encoder counters that must stay 0, model: None for the node's seeded
-# MiniLM weights, "base" for the seeded BERT-base checkpoint)
+# MiniLM weights, "base" / "mpnet" for the seeded BERT-base /
+# all-mpnet-base-v2 checkpoint)
 NODE_RUNS = (
-    *((t, t, {}, K1, K4, None) for t in NODE_TIERS),
+    *((t, t, {}, K1, K4 + K1R + K4R, None) for t in NODE_TIERS),
     ("i8-ops", "i8", PER_OP_ENV,
-     ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"), K1 + K4,
-     None),
-    ("i8-k4", "i8", K4_ENV, K4, K1, None),
-    ("base", "i8", {}, K1, K4, "base"),
-    ("base-k4", "i8", K4_ENV, K4, K1, "base"))
+     ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"),
+     K1 + K4 + K1R + K4R, None),
+    ("i8-k4", "i8", K4_ENV, K4, K1 + K1R + K4R, None),
+    ("base", "i8", {}, K1, K4 + K1R + K4R, "base"),
+    ("base-k4", "i8", K4_ENV, K4, K1 + K1R + K4R, "base"),
+    ("mpnet", "i8", {}, K1R, K1 + K4 + K4R + K5K6, "mpnet"),
+    ("mpnet-k4", "i8", K4_ENV, K4R, K1 + K4 + K1R + K5K6, "mpnet"))
 
 TEXTS = [
     "the lighthouse keeper climbed the spiral stairs every night to trim the wick and watch the storm roll over the black rocks",
@@ -331,13 +367,13 @@ def _layer_weights(rng: np.random.Generator, H: int, I: int, dev,
             mat(H, I), vec(I), mat(I, H), vec(H), vec(H, 1.0), vec(H)]
 
 
-def library_layer(weights: list, H: int, I: int, nh: int):
+def library_layer(weights: list, H: int, I: int, nh: int, eps: float = 1e-12):
     """torch's TransformerEncoderLayer (post-LN, erf GELU) in bf16 with the
     K1 weights: the one PyTorch call that computes the same layer. It is
     K1's library yardstick only; the port never calls it."""
     wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = weights
     lay = torch.nn.TransformerEncoderLayer(
-        H, nh, I, dropout=0.0, activation="gelu", layer_norm_eps=1e-12,
+        H, nh, I, dropout=0.0, activation="gelu", layer_norm_eps=eps,
         batch_first=True, device=wqkv.device, dtype=torch.bfloat16).eval()
     with torch.no_grad():
         for dst, src in ((lay.self_attn.in_proj_weight, wqkv.T),
@@ -358,11 +394,12 @@ def layer_flops(B: int, S: int, H: int, I: int) -> tuple[int, int]:
     return 2 * B * S * (4 * H * H + 2 * H * I), 4 * B * S * S * H
 
 
-def k1_bound(B: int, S: int, H: int, I: int, x, weights) -> dict:
+def k1_bound(B: int, S: int, H: int, I: int, x, weights, rel=None) -> dict:
     """Projections and attention at the bf16 peak; bytes: x, y, the
-    weights and the (B, S) key bias."""
+    weights, the (B, S) key bias and the (nh, S, S) rel_bias if any (its
+    B·nh·S² adds are left out: < 0.1% of the operations)."""
     return bound(sum(layer_flops(B, S, H, I)), "bf16",
-                 2 * nbytes(x) + nbytes(*weights) + B * S * 4)
+                 2 * nbytes(x) + nbytes(*weights, rel) + B * S * 4)
 
 
 def _token_check(got, want, mask) -> tuple[float, float, bool]:
@@ -413,7 +450,7 @@ def phase_k1(results: list) -> None:
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"{shape} (cos bound {COS_MIN})")
-        if lib_cos < 0.99:
+        if not lib_cos >= 0.99:  # NaN fails too
             raise AssertionError(f"the library layer computes another "
                                  f"function (token cos {lib_cos:.4f})")
         shapes.append({"shape": shape, "max_abs_err": err,
@@ -425,15 +462,96 @@ def phase_k1(results: list) -> None:
                     "source": "dawnsearch_tpu_torch/csrc/layer.cu",
                     "replaces": "dawnsearch_tpu/ops/layer.py:275",
                     **shapes[0], "other_shapes": shapes[1:]})
+    phase_k1_rel(results, rng, made[BASE_W[0], BASE_W[2]][0])
 
 
-def k4_bound(B: int, S: int, H: int, I: int, x, qweights: list) -> dict:
+def _rel_bias(rng: np.random.Generator, S: int, nh: int, dev):
+    """MPNet's (nh, S, S) f32 score bias, gathered by the port's
+    position_bias from a seeded (32, nh) table."""
+    from dawnsearch_tpu_torch.models.mpnet import position_bias
+    table = torch.from_numpy(rng.standard_normal((REL_BUCKETS, nh), np.float32)
+                             * 0.5).to(dev)
+    return position_bias(table, S, nh, REL_BUCKETS)
+
+
+def phase_k1_rel(results: list, rng: np.random.Generator,
+                 weights: list) -> None:
+    """K1 with MPNet's rel_bias at all-mpnet-base-v2's width, on the
+    BERT-base entry's weights, vs bert_layer_plain with the same operand
+    (per-token cosine >= KERNEL_COS_MIN), timed beside K1 without it. The
+    library yardstick is the same TransformerEncoderLayer with rel_bias
+    plus the key mask as one float (B·nh, S, S) src_mask, off torch's MHA
+    fast path (which reads a float 3-D mask as a boolean one and returns
+    NaN)."""
+    from dawnsearch_tpu_torch.ops import layer
+    H, nh, I = BASE_W
+    dev = weights[0].device
+    lib = library_layer(weights, H, I, nh, eps=MPNET_EPS)
+    shapes = []
+    for B, S in REL_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
+                             ).to(dev, torch.bfloat16)
+        mask, bias = _ragged(rng, B, S, dev)
+        rel = _rel_bias(rng, S, nh, dev)
+
+        def k1(rel_bias=rel):
+            return layer.fused_bert_layer(x, bias, *weights, nh=nh,
+                                          eps=MPNET_EPS, rel_bias=rel_bias)
+        got = k1().float()
+        want = layer.bert_layer_plain(x, bias, *weights, nh=nh, eps=MPNET_EPS,
+                                      rel_bias=rel).float()
+        norel = k1(None).float()
+        torch.cuda.synchronize()
+        err, cos, finite = _token_check(got, want, mask)
+        moved = _token_check(norel, want, mask)[1]
+        src_mask = (rel[None] + bias[:, None, None, :]).to(torch.bfloat16) \
+            .reshape(B * nh, S, S)
+        fastpath = torch.backends.mha.get_fastpath_enabled()
+        torch.backends.mha.set_fastpath_enabled(False)
+        try:
+            with torch.inference_mode():
+                lib_out = lib(x, src_mask=src_mask).float()
+                lib_cos = float(torch.nn.functional.cosine_similarity(
+                    lib_out[mask], want[mask], dim=-1).min())
+                library_ms = cuda_ms(lambda: lib(x, src_mask=src_mask))
+        finally:
+            torch.backends.mha.set_fastpath_enabled(fastpath)
+        ms = cuda_ms(k1)
+        norel_ms = cuda_ms(lambda: k1(None))
+        plain_ms = cuda_ms(lambda: layer.bert_layer_plain(
+            x, bias, *weights, nh=nh, eps=MPNET_EPS, rel_bias=rel))
+        bd = k1_bound(B, S, H, I, x, weights, rel)
+        shape = f"B={B} S={S} H={H} nh={nh} I={I} bf16 rel_bias"
+        say(f"phase k1 {shape}: max|d|={err:.3e} min token cos={cos:.6f} "
+            f"(without rel {moved:.4f}) kernel {ms:.3f} ms, without rel "
+            f"{norel_ms:.3f} ms, plain {plain_ms:.3f} ms library "
+            f"{library_ms:.3f} ms (min token cos vs plain {lib_cos:.4f}) "
+            f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        if not (finite and cos >= KERNEL_COS_MIN):
+            raise AssertionError(f"K1 with rel_bias disagrees with its plain "
+                                 f"version at {shape} (cos bound "
+                                 f"{KERNEL_COS_MIN})")
+        if not lib_cos >= 0.99:  # NaN fails too
+            raise AssertionError(f"the library layer computes another "
+                                 f"function (token cos {lib_cos:.4f})")
+        shapes.append({"shape": shape, "max_abs_err": err,
+                       "min_token_cos": cos, "min_token_cos_without_rel": moved,
+                       "ms": ms, "norel_ms": norel_ms, "plain_ms": plain_ms,
+                       **bd, "library_ms": library_ms})
+    results.append({"name": "bert_layer_rel", "route": "cuda",
+                    "source": "dawnsearch_tpu_torch/csrc/attention.cu",
+                    "replaces": "dawnsearch_tpu/ops/layer.py:275 (rel_bias)",
+                    **shapes[0], "other_shapes": shapes[1:]})
+
+
+def k4_bound(B: int, S: int, H: int, I: int, x, qweights: list,
+             rel=None) -> dict:
     """The four projections at the int8 peak plus attention at the bf16
-    peak, or the bytes (x, y, i8 weights, scales, biases, key bias) over
-    the HBM bandwidth, whichever is larger."""
+    peak, or the bytes (x, y, i8 weights, scales, biases, key bias, the
+    rel_bias if any) over the HBM bandwidth, whichever is larger."""
     proj, attn = layer_flops(B, S, H, I)
     t_ops = (proj / PEAK_OPS["int8"] + attn / PEAK_OPS["bf16"]) * 1e3
-    t_bytes = (2 * nbytes(x) + nbytes(*qweights) + B * S * 4) \
+    t_bytes = (2 * nbytes(x) + nbytes(*qweights, rel) + B * S * 4) \
         / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -488,28 +606,90 @@ def phase_k4(results: list) -> None:
                     "source": "dawnsearch_tpu_torch/csrc/layer_i8.cu",
                     "replaces": "dawnsearch_tpu/ops/layer.py:318",
                     **shapes[0], "other_shapes": shapes[1:]})
-    encode_base(rng, dev)
+    phase_k4_rel(results, rng, dev)
+    for family in ("bert", "mpnet"):
+        encode_base(rng, dev, family)
 
 
-def encode_base(rng: np.random.Generator, dev) -> None:
-    """A 12-layer BERT-base-width encoder (seeded weights) on K1 and on
-    K4: device time of encode_batch at B = 1 and 64, S = 128, each the
-    median of 10 CUDA-graph replays of 3 calls, alternating the routes'
-    order; the pooled cosine of the two routes' embeddings."""
+def phase_k4_rel(results: list, rng: np.random.Generator, dev) -> None:
+    """K4 with MPNet's rel_bias at all-mpnet-base-v2's width vs
+    bert_layer_i8_plain with the same operand (per-token cosine >=
+    KERNEL_COS_MIN: the twin repeats the kernel's fixed-order attention),
+    timed beside K4 without it on the same weights."""
+    from dawnsearch_tpu_torch.ops import layer
+    H, nh, I = BASE_W
+    f32 = _layer_weights(rng, H, I, dev, dtype=torch.float32)
+    k4w = [tuple(q.to(dev) for q in layer.quant_cols(t.cpu()))
+           if t.ndim == 2 else t for t in f32]
+    flat = [t for w in k4w for t in (w if isinstance(w, tuple) else (w,))]
+    shapes = []
+    for B, S in REL_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
+                             ).to(dev, torch.bfloat16)
+        mask, bias = _ragged(rng, B, S, dev)
+        rel = _rel_bias(rng, S, nh, dev)
+
+        def k4(rel_bias=rel):
+            return layer.fused_bert_layer_i8(x, bias, *k4w, nh=nh,
+                                             eps=MPNET_EPS, rel_bias=rel_bias)
+        got = k4()
+        want = layer.bert_layer_i8_plain(x, bias, *k4w, nh=nh, eps=MPNET_EPS,
+                                         rel_bias=rel)
+        norel = k4(None)
+        torch.cuda.synchronize()
+        err, cos, finite = _token_check(got, want, mask)
+        moved = _token_check(norel, want, mask)[1]
+        ms = cuda_ms(k4)
+        norel_ms = cuda_ms(lambda: k4(None))
+        plain_ms = cuda_ms(lambda: layer.bert_layer_i8_plain(
+            x, bias, *k4w, nh=nh, eps=MPNET_EPS, rel_bias=rel))
+        bd = k4_bound(B, S, H, I, x, flat, rel)
+        shape = f"B={B} S={S} H={H} nh={nh} I={I} bf16 W8A8 rel_bias"
+        say(f"phase k4 {shape}: max|d|={err:.3e} min token cos={cos:.6f} "
+            f"(without rel {moved:.4f}) kernel {ms:.3f} ms, without rel "
+            f"{norel_ms:.3f} ms, plain {plain_ms:.3f} ms bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        if not (finite and cos >= KERNEL_COS_MIN):
+            raise AssertionError(f"K4 with rel_bias disagrees with its plain "
+                                 f"version at {shape} (cos bound "
+                                 f"{KERNEL_COS_MIN})")
+        shapes.append({"shape": shape, "max_abs_err": err,
+                       "min_token_cos": cos, "min_token_cos_without_rel": moved,
+                       "ms": ms, "norel_ms": norel_ms, "plain_ms": plain_ms,
+                       **bd, "library_ms": None})
+    results.append({"name": "bert_layer_i8_rel", "route": "cuda",
+                    "source": "dawnsearch_tpu_torch/csrc/attention.cu",
+                    "replaces": "dawnsearch_tpu/ops/layer.py:275 (rel_bias)",
+                    **shapes[0], "other_shapes": shapes[1:]})
+
+
+def encode_base(rng: np.random.Generator, dev, family: str) -> None:
+    """A 12-layer BERT-base or all-mpnet-base-v2 encoder (seeded weights,
+    family "bert" or "mpnet") on K1 and on K4: device time of encode_batch
+    at B = 1 and 64, S = 128, each the median of 10 CUDA-graph replays of 3
+    calls, alternating the routes' order; the pooled cosine of the two
+    routes' embeddings."""
     from dawnsearch_tpu_torch.models.bert import (BertConfig, BertModel,
                                                   encode_batch)
+    from dawnsearch_tpu_torch.models.mpnet import MPNET_BASE, MPNetModel
     from dawnsearch_tpu_torch.models.weights import params_from_numpy
     H, nh, I = BASE_W
-    cfg = BertConfig(hidden_size=H, num_heads=nh, intermediate_size=I,
-                     num_layers=12, dtype=torch.bfloat16)
+    if family == "mpnet":
+        cfg, model_cls, name = MPNET_BASE, MPNetModel, "MPNet-base"
+    else:
+        cfg = BertConfig(hidden_size=H, num_heads=nh, intermediate_size=I,
+                         num_layers=12)
+        model_cls, name = BertModel, "BERT-base"
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     tree = params_from_numpy(_encoder_tree(rng, cfg))
-    models = {impl: BertModel(dataclasses.replace(cfg, layer_impl=impl), tree,
+    models = {impl: model_cls(dataclasses.replace(cfg, layer_impl=impl), tree,
                               device=dev) for impl in ("layer", "layer_i8")}
     del tree
     for B in (1, 64):
         ids = torch.from_numpy(rng.integers(1000, cfg.vocab_size, (B, 128))
                                ).to(dev)
         mask, _ = _ragged(rng, B, 128, dev)
+        ids = torch.where(mask, ids, cfg.pad_token_id)
         mask = mask.int()
         embs = {k: encode_batch(m, ids, mask) for k, m in models.items()}
         cos = float((embs["layer"] * embs["layer_i8"]).sum(-1).min())
@@ -519,13 +699,13 @@ def encode_base(rng: np.random.Generator, dev) -> None:
                          ("layer_i8", "layer")):
                 ms[impl].append(graph_ms(lambda m=models[impl]: encode_batch(
                     m, ids, mask), calls=3))
-        say(f"phase k4 encode BERT-base 12 layers B={B} S=128: K1 device "
+        say(f"phase k4 encode {name} 12 layers B={B} S=128: K1 device "
             f"{ms['layer']} ms, K4 device {ms['layer_i8']} ms (K4/K1 "
             f"{np.median(ms['layer_i8']) / np.median(ms['layer']):.3f}); "
             f"min pooled cos K4 vs K1 {cos:.6f}")
         if not (all(bool(torch.isfinite(e).all()) for e in embs.values())
                 and cos > 0.99):
-            raise AssertionError(f"BERT-base encode on K1 and K4 disagree: "
+            raise AssertionError(f"{name} encode on K1 and K4 disagree: "
                                  f"min cos {cos}")
 
 
@@ -688,7 +868,7 @@ def _check_attention(tag: str, shape: str, kernel, plain, library, width,
     if not ok:
         raise AssertionError(f"{tag} disagrees with its plain twin at {shape} "
                              f"(cos bound {KERNEL_COS_MIN})")
-    if lib_cos < 0.99:
+    if not lib_cos >= 0.99:  # NaN fails too
         raise AssertionError(f"the library attention computes another "
                              f"function (row cos {lib_cos:.4f})")
     return {"shape": shape, "max_abs_err": err, "min_row_cos": cos, "ms": ms,
@@ -1054,8 +1234,9 @@ def _zero_counters() -> None:
 
 
 def _encoder_tree(rng: np.random.Generator, cfg) -> dict:
-    """Seeded weights in the reference's stacked layout: matrices with
-    std 0.05, biases and LayerNorm parameters away from their init."""
+    """Seeded weights in the reference's stacked layout for cfg's family:
+    matrices with std 0.05, biases and LayerNorm parameters away from their
+    init, MPNet's relative-position table with std 0.5."""
     H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
     def w(*shape):
@@ -1064,17 +1245,23 @@ def _encoder_tree(rng: np.random.Generator, cfg) -> dict:
     def v(*shape, base=0.0):
         return (base + rng.standard_normal(shape, np.float32) * 0.1
                 ).astype(np.float32)
-    return {
-        "embeddings": {"word": w(cfg.vocab_size, H),
-                       "position": w(cfg.max_position_embeddings, H),
-                       "token_type": w(2, H), "ln_scale": v(H, base=1.0),
-                       "ln_bias": v(H)},
+    mpnet = cfg.model_type == "mpnet"  # no token types, a (32, nh) table
+    emb = {"word": w(cfg.vocab_size, H),
+           "position": w(cfg.max_position_embeddings, H)}
+    if not mpnet:
+        emb["token_type"] = w(2, H)
+    tree = {
+        "embeddings": {**emb, "ln_scale": v(H, base=1.0), "ln_bias": v(H)},
         "layers": {"qkv_w": w(L, H, 3 * H), "qkv_b": v(L, 3 * H),
                    "attn_out_w": w(L, H, H), "attn_out_b": v(L, H),
                    "attn_ln_scale": v(L, H, base=1.0), "attn_ln_bias": v(L, H),
                    "ffn_in_w": w(L, H, I), "ffn_in_b": v(L, I),
                    "ffn_out_w": w(L, I, H), "ffn_out_b": v(L, H),
                    "ffn_ln_scale": v(L, H, base=1.0), "ffn_ln_bias": v(L, H)}}
+    if mpnet:
+        tree["rel_bias"] = v(cfg.relative_attention_num_buckets,
+                             cfg.num_heads) * 5.0
+    return tree
 
 
 def phase_ops(counts: dict) -> None:
@@ -1085,6 +1272,7 @@ def phase_ops(counts: dict) -> None:
     same weights). Adds each kernel's launches to `counts`."""
     from dawnsearch_tpu_torch.models.bert import BertConfig, encode_batch
     from dawnsearch_tpu_torch.models.encoder import SentenceEncoder
+    from dawnsearch_tpu_torch.models.mpnet import MPNET_BASE
     from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
                                                        build_vocab_from_corpus)
     from dawnsearch_tpu_torch.models.weights import params_from_numpy
@@ -1093,11 +1281,17 @@ def phase_ops(counts: dict) -> None:
     corpus = [string.ascii_lowercase, string.digits,
               "the quick brown fox jumps over the lazy dog"]
     vocab = build_vocab_from_corpus(corpus, size=4096)
-    tok = WordPieceTokenizer(vocab)
+    mp_vocab = _mpnet_layout(sorted(vocab, key=vocab.get))
+    toks = {"bert": WordPieceTokenizer(vocab), "mpnet": WordPieceTokenizer(
+        {t: i for i, t in enumerate(mp_vocab)})}
     minilm = dict(vocab_size=len(vocab), dtype=torch.bfloat16)
     tiny = dict(minilm, **TINYBERT)
+    # all-mpnet-base-v2's width and family at 2 layers
+    mpnet = dict(dataclasses.asdict(MPNET_BASE), vocab_size=len(mp_vocab),
+                 num_layers=2, dtype=torch.bfloat16)
     # (label, config, counters that must rise, counters that must stay 0)
     k1, k4 = "kernel_bert_layer", "kernel_bert_layer_i8"
+    rel = {"kernel_bert_layer_rel", "kernel_bert_layer_i8_rel"}
     runs = (
         ("minilm layer", dict(minilm), {k1}, {k4}),
         ("minilm layer_i8", dict(minilm, layer_impl="layer_i8"), {k4},
@@ -1115,12 +1309,18 @@ def phase_ops(counts: dict) -> None:
         ("tinybert layer", dict(tiny, layer_impl="layer"),
          {"kernel_attention", "kernel_ffn"},
          {k1, k4, "kernel_attention_packed", "kernel_mean_pool"}),
+        # under MPNet's position bias the per-op path takes einsum
+        # attention, never K5 or K6 (as the reference does), and K7
+        ("mpnet ops", dict(mpnet, layer_impl="ops"), {"kernel_ffn"},
+         {k1, k4, *rel, "kernel_attention_packed", "kernel_attention",
+          "kernel_mean_pool"}),
     )
     trees = {}
     embs, encoders = {}, {}
     for label, kw, up, zero in runs:
         cfg = BertConfig(**kw)
-        key = (cfg.hidden_size, cfg.num_layers)
+        tok = toks[cfg.model_type]
+        key = (cfg.model_type, cfg.hidden_size, cfg.num_layers)
         if key not in trees:
             trees[key] = params_from_numpy(_encoder_tree(
                 np.random.default_rng(cfg.hidden_size), cfg))
@@ -1206,31 +1406,51 @@ def seed_store(data_dir: str, n: int, dim: int = 384, seed: int = 4) -> None:
         store.close()
 
 
-def write_base_checkpoint(model_dir: str, seed: int = 15) -> None:
-    """A BERT-base-width checkpoint as a user drops one into model_dir:
-    bert-base-uncased's config.json, model.safetensors (12 seeded layers
-    written by the port's own writer) and a 30522-line vocab.txt with the
-    specials at BERT's positions and the smoke texts' words."""
-    from dawnsearch_tpu_torch.models.bert import BertConfig
+def _bert_vocab(size: int) -> list:
+    """A BERT-layout vocab of `size` lines: the specials at BERT's
+    positions, the smoke texts' words, then [unusedN] filler."""
     from dawnsearch_tpu_torch.models.tokenizer import build_vocab_from_corpus
+    specials = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+                + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    words = [w for w in build_vocab_from_corpus(TEXTS) if w not in specials]
+    vocab = specials + words
+    return vocab + [f"[unused{i}]" for i in range(99, 99 + size - len(vocab))]
+
+
+def _mpnet_layout(body: list) -> list:
+    """all-mpnet-base-v2's vocab layout: <s> <pad> </s> <unk>, a whole BERT
+    vocab (its literal [PAD], [CLS], [SEP], [UNK] included), <mask> last."""
+    return ["<s>", "<pad>", "</s>", "<unk>", *body, "<mask>"]
+
+
+def write_checkpoint(model_dir: str, family: str, seed: int = 15) -> None:
+    """A checkpoint as a user drops one into model_dir: the published
+    config.json (bert-base-uncased's for "base", all-mpnet-base-v2's for
+    "mpnet"), model.safetensors (12 seeded layers at full width, written
+    by the port's own writer) and a vocab.txt of the config's size in the
+    family's layout, holding the smoke texts' words."""
+    from dawnsearch_tpu_torch.models.bert import BertConfig
+    from dawnsearch_tpu_torch.models.mpnet import MPNET_BASE
     from dawnsearch_tpu_torch.models.weights import (params_from_numpy,
                                                      save_safetensors)
-    c = BERT_BASE_CONFIG
-    cfg = BertConfig(vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
-                     num_layers=c["num_hidden_layers"],
-                     num_heads=c["num_attention_heads"],
-                     intermediate_size=c["intermediate_size"])
+    if family == "mpnet":
+        c, cfg = MPNET_CONFIG, MPNET_BASE
+        vocab = _mpnet_layout(_bert_vocab(c["vocab_size"] - 5))
+    else:
+        c = BERT_BASE_CONFIG
+        cfg = BertConfig(vocab_size=c["vocab_size"],
+                         hidden_size=c["hidden_size"],
+                         num_layers=c["num_hidden_layers"],
+                         num_heads=c["num_attention_heads"],
+                         intermediate_size=c["intermediate_size"])
+        vocab = _bert_vocab(c["vocab_size"])
+    assert len(vocab) == c["vocab_size"]
     os.makedirs(model_dir, exist_ok=True)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(c, f, indent=2)
     save_safetensors(params_from_numpy(_encoder_tree(
         np.random.default_rng(seed), cfg)),
         os.path.join(model_dir, "model.safetensors"), cfg)
-    specials = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
-                + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
-    words = [w for w in build_vocab_from_corpus(TEXTS) if w not in specials]
-    vocab = specials + words
-    vocab += [f"[unused{i}]" for i in range(99, 99 + cfg.vocab_size - len(vocab))]
     with open(os.path.join(model_dir, "vocab.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(vocab) + "\n")
 
@@ -1238,9 +1458,9 @@ def write_base_checkpoint(model_dir: str, seed: int = 15) -> None:
 def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
     """Run the node once per entry of `runs`, each on a copy of a seeded
     store as wide as its encoder (a copy holds no index snapshot, so each
-    run builds its own index); the BERT-base runs serve a checkpoint
-    written once. Returns every kernel counter's increase, summed over
-    runs."""
+    run builds its own index); the BERT-base and MPNet runs serve a
+    checkpoint of their family, each written once. Returns every kernel
+    counter's increase, summed over runs."""
     work = tempfile.mkdtemp(prefix="dawn-node-")
     try:
         stores: dict = {}
@@ -1248,15 +1468,15 @@ def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
         for label, tier, env, up, zero, model in runs:
             env = dict(env)
             dim = 384
-            if model == "base":
-                model_dir = os.path.join(work, "bert-base")
+            if model is not None:
+                model_dir = os.path.join(work, f"model-{model}")
                 if not os.path.exists(model_dir):
                     t0 = time.perf_counter()
-                    write_base_checkpoint(model_dir)
-                    say(f"phase node: wrote a BERT-base checkpoint in "
+                    write_checkpoint(model_dir, model)
+                    say(f"phase node: wrote a {model} checkpoint in "
                         f"{time.perf_counter() - t0:.1f} s")
                 env["DAWNSEARCH_MODEL_DIR"] = model_dir
-                dim = BERT_BASE_CONFIG["hidden_size"]
+                dim = 768
             if dim not in stores:
                 stores[dim] = os.path.join(work, f"seed-{dim}")
                 os.makedirs(stores[dim])

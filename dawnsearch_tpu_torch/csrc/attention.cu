@@ -14,9 +14,17 @@
 // head-major tensors (row stride hd). The contract keeps the reference's
 // rounding points (ops/attention.py:63-77 and :157-174):
 //
-//   s = f32(q·kᵀ)·(1/√hd) + bias      softmax in f32, bias (B, S) additive
-//   p = exp(s − rowmax),  l = Σ p       l over the unrounded f32 p
+//   s = f32(q·kᵀ)·(1/√hd) + bias [+ rel]   softmax in f32, bias (B, S) additive
+//   p = exp(s − rowmax),  l = Σ p            l over the unrounded f32 p
 //   o = out_dtype( f32(bf16(p)·v) · (1/l) )
+//
+// rel is the optional (nh, S, S) f32 score bias every sequence shares:
+// MPNet's relative-position bias, K1's and K4's `rel_bias` operand
+// (dawnsearch_tpu/ops/layer.py:70-112, `has_rel`). Each of the three terms
+// rounds once, in the reference's order (scale, then bias, then rel). It is
+// read from global memory, where it stays L2-resident across the batch
+// (12.6 MB at nh = 12, S = 512, in the card's 50 MB L2): a shared-memory
+// tile of it would take shared memory from the scores.
 //
 // Design. The TPU kernels hold every (S, S) score tile of a batch row in
 // VMEM. A Hopper SM has 227 KB of shared memory, and K and V of one
@@ -33,7 +41,9 @@
 // 16, 32, 64 or 128 (hd = 26 runs as 32). Softmax runs on the CUDA cores,
 // two lanes per row. Scale and bias are applied with __fmul_rn /
 // __fadd_rn so nvcc cannot contract them into an FMA the reference does
-// not do.
+// not do. With rel, a warp first rewrites its 16 x KT raw dots in shared
+// memory into finished scores (coalesced rel reads along the key axis), in
+// both passes: pass 1's row max and pass 2's p then see the same values.
 //
 // What bounds it. Attention is ~1% of a MiniLM layer's FLOPs: at B = 64,
 // S = 128, H = 384 it does 1.6 GFLOP and must move 25 MB (q, k, v, out),
@@ -124,8 +134,9 @@ template <int HDP>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                 bf16* __restrict__ out, int S, int hd, Strides in,
-                 Strides ot, float scale, int vec_in, int vec_out) {
+                 const float* __restrict__ rel, bf16* __restrict__ out, int S,
+                 int hd, Strides in, Strides ot, float scale, int vec_in,
+                 int vec_out) {
   using L = Smem<HDP>;
   constexpr int LD = L::LD, NF = HDP / 16;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -178,6 +189,31 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
   };
 
+  // with rel: Sw[r, c] = ((dot·scale) + bias) + rel[h, row r, key k0 + c];
+  // a lane owns keys c and c + 32 and walks the 16 rows, so its 16 loads
+  // of a column are independent and in flight together
+  const float* relw =
+      rel ? rel + ((long long)h * S + q0 + warp * 16) * S : nullptr;
+  auto add_rel = [&](int k0, int kn) {
+    for (int c = lane; c < kn; c += 32) {
+      const float b = Bs[k0 + c];
+      float rv[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) rv[r] = relw[(long long)r * S + k0 + c];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        float* sp = Sw + r * S_LD + c;
+        *sp = __fadd_rn(__fadd_rn(__fmul_rn(*sp, scale), b), rv[r]);
+      }
+    }
+    __syncwarp();
+  };
+  // row `row`'s score of key k0 + j
+  auto score = [&](int k0, int j) {
+    const float raw = Sw[row * S_LD + j];
+    return rel ? raw : __fadd_rn(__fmul_rn(raw, scale), Bs[k0 + j]);
+  };
+
   // pass 1: each row's max of s
   float m = -INFINITY;
   for (int k0 = 0; k0 < S; k0 += KT) {
@@ -187,9 +223,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (active) {
       scores(kn);
-      for (int j = half; j < kn; j += 2)
-        m = fmaxf(m, __fadd_rn(__fmul_rn(Sw[row * S_LD + j], scale),
-                               Bs[k0 + j]));
+      if (rel) add_rel(k0, kn);
+      for (int j = half; j < kn; j += 2) m = fmaxf(m, score(k0, j));
     }
   }
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
@@ -207,10 +242,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (active) {
       scores(kn);
+      if (rel) add_rel(k0, kn);
       for (int j = half; j < kn; j += 2) {
-        const float s = __fadd_rn(__fmul_rn(Sw[row * S_LD + j], scale),
-                                  Bs[k0 + j]);
-        const float p = expf(__fsub_rn(s, m));
+        const float p = expf(__fsub_rn(score(k0, j), m));
         l += p;
         Pw[row * P_LD + j] = __float2bfloat16(p);
       }
@@ -264,9 +298,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HDP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
-                   const float* bias, bf16* out, int B, int nh, int S, int hd,
-                   Strides in, Strides ot, float scale, bool vec_in,
-                   bool vec_out, cudaStream_t stream) {
+                   const float* bias, const float* rel, bf16* out, int B,
+                   int nh, int S, int hd, Strides in, Strides ot, float scale,
+                   bool vec_in, bool vec_out, cudaStream_t stream) {
   const size_t smem = Smem<HDP>::bytes(S);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -274,7 +308,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
   if (err != cudaSuccess) return err;
   dim3 grid((S + QT - 1) / QT, nh, B);
   attention_kernel<HDP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, bias, out, S, hd, in, ot, scale, vec_in, vec_out);
+      q, k, v, bias, rel, out, S, hd, in, ot, scale, vec_in, vec_out);
   return cudaGetLastError();
 }
 
@@ -304,6 +338,9 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 // kb + 16j) and a 4 x DPT block of outputs; 32 threads sum l, one row
 // each. The order of every sum is the loop order above, whatever the
 // thread mapping. It costs 2·B·nh·S²·hd f32 FMAs (QKᵀ and PV once each).
+// rel, when given, is added to each score after the bias, as in the WMMA
+// kernel; the staged rows past the sequence's end read none (they add 0
+// and are never written out).
 constexpr int SQ_QT = 32;
 constexpr int SQ_KT = 64;
 constexpr int SQ_THREADS = 128;
@@ -333,8 +370,8 @@ template <int HDP>
 __global__ void __launch_bounds__(SQ_THREADS)
 attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
-                     float* __restrict__ out, int S, int hd, Strides in,
-                     Strides ot, float scale) {
+                     const float* __restrict__ rel, float* __restrict__ out,
+                     int S, int hd, Strides in, Strides ot, float scale) {
   constexpr int LD = sq_ld(HDP), PLD = SQ_KT + 1, DPT = HDP / 16;
   extern __shared__ __align__(16) float sm[];
   const int SLD = S + 1;
@@ -352,12 +389,24 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_f32(Qs, LD, q + in_off + (long long)q0 * in.r, in.r, SQ_QT, q_valid, hd);
   for (int j = t; j < S; j += SQ_THREADS) Bs[j] = bias[(long long)b * S + j];
 
-  // pass 1: s = (q·k)·scale + bias for queries qb + 8i and keys kb + 16j
+  const float* relq = rel ? rel + ((long long)h * S + q0) * S : nullptr;
+
+  // pass 1: s = (q·k)·scale + bias [+ rel] for queries qb + 8i and keys kb + 16j
   // of each tile (keys past the tile's kn are computed on zero rows and
-  // dropped), and the row maxima (order-free)
+  // dropped), and the row maxima (order-free). The tile's rel values are
+  // loaded before its dot products, which hide their latency.
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int k0 = 0; k0 < S; k0 += SQ_KT) {
     const int kn = min(SQ_KT, S - k0);
+    float rv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = qb + 8 * i, key = kb + 16 * j;
+        rv[i][j] = relq && r < q_valid && key < kn
+                       ? relq[(long long)r * S + k0 + key] : 0.0f;
+      }
     __syncthreads();
     load_f32(Ts, LD, k + in_off + (long long)k0 * in.r, in.r, SQ_KT, kn, hd);
     __syncthreads();
@@ -383,8 +432,10 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (key >= kn) continue;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float sv = __fadd_rn(__fmul_rn(sc[i][j], scale), Bs[k0 + key]);
-        Ss[(qb + 8 * i) * SLD + k0 + key] = sv;
+        const int r = qb + 8 * i;
+        float sv = __fadd_rn(__fmul_rn(sc[i][j], scale), Bs[k0 + key]);
+        if (relq) sv = __fadd_rn(sv, rv[i][j]);
+        Ss[r * SLD + k0 + key] = sv;
         m[i] = fmaxf(m[i], sv);
       }
     }
@@ -453,9 +504,9 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HDP>
 cudaError_t launch_seq(const bf16* q, const bf16* k, const bf16* v,
-                       const float* bias, float* out, int B, int nh, int S,
-                       int hd, Strides in, Strides ot, float scale,
-                       cudaStream_t stream) {
+                       const float* bias, const float* rel, float* out, int B,
+                       int nh, int S, int hd, Strides in, Strides ot,
+                       float scale, cudaStream_t stream) {
   const size_t smem = sq_smem_bytes(HDP, S);
   cudaError_t err = cudaFuncSetAttribute(
       attention_seq_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -463,7 +514,7 @@ cudaError_t launch_seq(const bf16* q, const bf16* k, const bf16* v,
   if (err != cudaSuccess) return err;
   dim3 grid((S + SQ_QT - 1) / SQ_QT, nh, B);
   attention_seq_kernel<HDP><<<grid, SQ_THREADS, smem, stream>>>(
-      q, k, v, bias, out, S, hd, in, ot, scale);
+      q, k, v, bias, rel, out, S, hd, in, ot, scale);
   return cudaGetLastError();
 }
 
@@ -479,13 +530,15 @@ extern "C" {
 // element strides (in_b, in_h, in_r) and have unit stride along the head
 // dim; out has (out_b, out_h, out_r), bf16 (the WMMA kernel: K1, K5, K6)
 // or, with out_f32, f32 from the fixed-order kernel (K4). bias is the
-// (B, S) f32 additive key bias. Needs 1 <= hd <= 128, S % 16 == 0,
-// S <= 512. Returns a cudaError_t.
+// (B, S) f32 additive key bias; rel, nullable, the contiguous (nh, S, S)
+// f32 score bias shared by every sequence (K1's and K4's rel_bias; K5 and
+// K6 pass none). Needs 1 <= hd <= 128, S % 16 == 0, S <= 512. Returns a
+// cudaError_t.
 int dawn_attention(const void* q, const void* k, const void* v,
-                   const void* bias, void* out, int B, int nh, int S, int hd,
-                   long long in_b, long long in_h, long long in_r,
-                   long long out_b, long long out_h, long long out_r,
-                   float scale, int out_f32, void* stream) {
+                   const void* bias, const void* rel, void* out, int B, int nh,
+                   int S, int hd, long long in_b, long long in_h,
+                   long long in_r, long long out_b, long long out_h,
+                   long long out_r, float scale, int out_f32, void* stream) {
   if (B <= 0 || nh <= 0 || S <= 0 || S % 16 != 0 || S > MAX_S || hd <= 0 ||
       hd > 128 || B > 65535 || nh > 65535)
     return (int)cudaErrorInvalidValue;
@@ -499,34 +552,35 @@ int dawn_attention(const void* q, const void* k, const void* v,
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const float* bp = static_cast<const float*>(bias);
+  const float* rp = static_cast<const float*>(rel);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_f32) {
     float* of = static_cast<float*>(out);
     if (hd <= 16)
-      return (int)launch_seq<16>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+      return (int)launch_seq<16>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
                                  scale, s);
     if (hd <= 32)
-      return (int)launch_seq<32>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+      return (int)launch_seq<32>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
                                  scale, s);
     if (hd <= 64)
-      return (int)launch_seq<64>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+      return (int)launch_seq<64>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
                                  scale, s);
-    return (int)launch_seq<128>(qp, kp, vp, bp, of, B, nh, S, hd, in, ot,
+    return (int)launch_seq<128>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
                                 scale, s);
   }
   // one instance per power-of-two padded head dim: each instance costs
   // seconds of nvcc, and head dims between them are rare
   if (hd <= 16)
-    return (int)launch<16>(qp, kp, vp, bp, op, B, nh, S, hd, in, ot, scale,
-                           vec_in, vec_out, s);
+    return (int)launch<16>(qp, kp, vp, bp, rp, op, B, nh, S, hd, in, ot,
+                           scale, vec_in, vec_out, s);
   if (hd <= 32)
-    return (int)launch<32>(qp, kp, vp, bp, op, B, nh, S, hd, in, ot, scale,
-                           vec_in, vec_out, s);
+    return (int)launch<32>(qp, kp, vp, bp, rp, op, B, nh, S, hd, in, ot,
+                           scale, vec_in, vec_out, s);
   if (hd <= 64)
-    return (int)launch<64>(qp, kp, vp, bp, op, B, nh, S, hd, in, ot, scale,
-                           vec_in, vec_out, s);
-  return (int)launch<128>(qp, kp, vp, bp, op, B, nh, S, hd, in, ot, scale,
+    return (int)launch<64>(qp, kp, vp, bp, rp, op, B, nh, S, hd, in, ot,
+                           scale, vec_in, vec_out, s);
+  return (int)launch<128>(qp, kp, vp, bp, rp, op, B, nh, S, hd, in, ot, scale,
                           vec_in, vec_out, s);
 }
 

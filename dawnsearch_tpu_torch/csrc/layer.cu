@@ -5,7 +5,9 @@
 //
 //   qkv = bf16(x·Wqkv + bqkv)
 //   ctx = bf16(per head: bf16(exp(s - max)) · V  ·  1/Σexp(s - max)),
-//         s = (q·kᵀ)/√hd + mask_bias   (softmax in f32, normalised after PV)
+//         s = (q·kᵀ)/√hd + mask_bias [+ rel]   (softmax in f32, normalised
+//         after PV; rel: the optional (nh, S, S) f32 shared score bias,
+//         MPNet's relative-position bias, `has_rel` in the reference)
 //   x1  = bf16(LN(ctx·Wo + bo + x))
 //   h   = bf16(GELU_erf(x1·W1 + b1))
 //   y   = bf16(LN(h·W2 + b2 + x1))          LN in f32, eps from the caller
@@ -15,7 +17,8 @@
 // split into five launches per layer, four of them this file's GEMM:
 //   gemm_kernel<EPI_BIAS>  x·Wqkv + b            -> qkv  (M, 3H) bf16
 //   attention              csrc/attention.cu's kernel (dawn_attention), q,
-//                          k and v read as column views of qkv -> ctx
+//                          k and v read as column views of qkv, rel
+//                          passed through -> ctx
 //   gemm_kernel<EPI_LN>    ctx·Wo + bo + x -> LN -> x1 (M, H) bf16
 //   gemm_kernel<EPI_GELU>  x1·W1 + b1 -> GELU    -> h  (M, I) bf16
 //   gemm_kernel<EPI_LN>    h·W2 + b2 + x1 -> LN  -> y  (M, H) bf16

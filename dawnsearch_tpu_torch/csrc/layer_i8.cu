@@ -61,8 +61,9 @@ using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 extern "C" int dawn_attention(const void* q, const void* k, const void* v,
-                              const void* bias, void* out, int B, int nh,
-                              int S, int hd, long long in_b, long long in_h,
+                              const void* bias, const void* rel, void* out,
+                              int B, int nh, int S, int hd, long long in_b,
+                              long long in_h,
                               long long in_r, long long out_b, long long out_h,
                               long long out_r, float scale, int out_f32,
                               void* stream);
@@ -358,6 +359,7 @@ extern "C" {
 //  scratch, with W = max(H, I):
 //          19 aq (B·S, W) i8   20 rf (B·S) f32   21 qkv (B·S, 3H) bf16
 //          22 f (B·S, W) f32 (ctx, then h)       23 x1 (B·S, H) f32
+//  24 rel (nh, S, S) f32 shared score bias (MPNet's rel_bias), or null
 // Needs H = nh·hd with hd <= 128, H % 128 == 0, I % 128 == 0, S % 16 == 0,
 // S <= 512, 16-byte aligned pointers. Returns a cudaError_t.
 int dawn_bert_layer_i8(const void* const* p, int B, int S, int H, int nh,
@@ -383,8 +385,8 @@ int dawn_bert_layer_i8(const void* const* p, int B, int S, int H, int nh,
                                           eps, s)))
     return (int)e;
   const long long S3H = 3LL * S * H, SH = (long long)S * H;
-  int ae = dawn_attention(qkv, qkv + H, qkv + 2 * H, p[1], f, B, nh, S, hd,
-                          S3H, hd, 3 * H, SH, hd, H, scale, 1, stream);
+  int ae = dawn_attention(qkv, qkv + H, qkv + 2 * H, p[1], p[24], f, B, nh,
+                          S, hd, S3H, hd, 3 * H, SH, hd, H, scale, 1, stream);
   if (ae) return ae;
   if ((e = quant_rows<float>(f, aq, rf, M, H, s))) return (int)e;
   if ((e = gemm<32, EPI_LN, bf16, float>(aq, rf, p[5], p[6], p[7], x, p[8],

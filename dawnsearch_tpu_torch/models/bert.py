@@ -1,18 +1,23 @@
 """BERT sentence encoder (all-MiniLM-L6-v2 shape) as a torch module.
 
-Port of dawnsearch_tpu/models/bert.py for the `bert` family: embeddings +
-LayerNorm (bert.py:232-251), the layer stack, mean-pool and L2 normalize
-(bert.py:275-325). A layer runs one of the reference's paths, routed
-condition for condition as `_layer_fwd` does (bert.py:125-126, :139,
-:180-195):
+Port of dawnsearch_tpu/models/bert.py: embeddings + LayerNorm
+(bert.py:232-251), the layer stack, mean-pool and L2 normalize
+(bert.py:275-325). The layer stack is shared with the MPNet family
+(models/mpnet.py), which adds one (nh, S, S) relative-position score bias
+to every layer (`pos_bias`). A layer runs one of the reference's paths,
+routed condition for condition as `_layer_fwd` does (bert.py:125-126,
+:139, :180-195):
 
 - a whole-layer kernel (ops/layer.py) when attn_impl is not "xla" and the
   width fits the packed envelope (128 % head_dim == 0, H % 128 == 0): K1
   for layer_impl="layer", K4 (W8A8 projections) for layer_impl="layer_i8";
+  MPNet's pos_bias rides into either as its `rel_bias` operand;
 - otherwise the per-op path: the QKV projection, attention (packed K5 in
   the envelope, head-major K6 outside it, both ops/attention.py; einsum
-  attention for attn_impl="xla"), the output projection, a residual add in
-  the compute dtype with a LayerNorm, and the fused FFN (ops/ffn.py, K7).
+  attention for attn_impl="xla" and, as in the reference, whenever a
+  pos_bias is set, which K5 and K6 do not take), the output projection, a
+  residual add in the compute dtype with a LayerNorm, and the fused FFN
+  (ops/ffn.py, K7).
 
 The reference's ffn_impl="xla" (two dense calls, bert.py:199-213) is set
 only by its tests and no node setting reaches it, so it is not carried.
@@ -21,8 +26,7 @@ pool_impl="fused" pools and normalizes with K8 (ops/attention.py). The
 reference's parity flags stay: `mask_padding=False` attends over padding
 like the reference model (model.rs:325-347) and `include_padding=True`
 pools over it (embedding_service.rs:126-128). The key mask is an additive
--1e30 bias (bert.py:254-257). MPNet's relative-position bias is not
-ported, so no route here carries one.
+-1e30 bias (bert.py:254-257).
 
 Parameters never require gradients; encode_batch runs under
 torch.inference_mode(). Matrices are stored in the compute dtype, biases,
@@ -61,8 +65,14 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
-    # the vocab's pad id (config.json); the node checks its tokenizer's
+    # "bert" | "mpnet": mpnet (models/mpnet.py) swaps the embedding recipe
+    # (offset position ids, no token types) and adds the shared
+    # relative-position score bias; the layer stack is the same
+    model_type: str = "bert"
+    # the vocab's pad id (config.json; mpnet checkpoints use 1); the node
+    # checks its tokenizer's
     pad_token_id: int = 0
+    relative_attention_num_buckets: int = 32  # mpnet only
     # compute dtype of the projections; softmax and LayerNorm stay f32
     dtype: torch.dtype = torch.float32
     # "fused" = K5 (packed) or K6 attention kernels; "xla" = einsum attention
@@ -116,22 +126,28 @@ def layer_route(cfg: BertConfig) -> str:
 
 
 def _attention(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
-               bias: torch.Tensor | None) -> torch.Tensor:
+               bias: torch.Tensor | None,
+               pos_bias: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-head self-attention (bert.py:106-165) through one fused QKV
-    projection. bias: (B, S) f32 additive key bias or None."""
+    projection. bias: (B, S) f32 additive key bias or None; pos_bias: the
+    (nh, S, S) f32 score bias of every layer (MPNet) or None, which sends
+    attention to the einsum path, as in the reference."""
     B, S, H = x.shape
     nh, hd, dt = cfg.num_heads, cfg.head_dim, cfg.dtype
     qkv = _dense(x, layer.qkv_w, layer.qkv_b, dt)      # (B, S, 3H)
     q, k, v = qkv.split(H, dim=-1)
-    if cfg.attn_impl == "fused" and _packed(cfg):
+    kernel = cfg.attn_impl == "fused" and pos_bias is None
+    if kernel and _packed(cfg):
         ctx = fused_attention_packed(q, k, v, bias, nh=nh)
         return _dense(ctx.to(dt), layer.attn_out_w, layer.attn_out_b, dt)
     q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2) for t in (q, k, v))
-    if cfg.attn_impl == "fused":
+    if kernel:
         ctx = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               bias, nh=nh).to(dt)
     else:
         scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        if pos_bias is not None:
+            scores = scores + pos_bias[None]
         if bias is not None:
             scores = scores + bias.float()[:, None, None, :]
         if dt == torch.bfloat16:
@@ -148,9 +164,10 @@ def _attention(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
 
 
 def _layer_fwd(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
-               bias: torch.Tensor | None) -> torch.Tensor:
+               bias: torch.Tensor | None,
+               pos_bias: torch.Tensor | None = None) -> torch.Tensor:
     """One post-LN layer (bert.py:168-215) on the route the config and
-    width pick."""
+    width pick; pos_bias rides into K1 or K4 as rel_bias."""
     route = layer_route(cfg)
     if route == "layer_i8":
         i8 = layer.i8
@@ -159,15 +176,15 @@ def _layer_fwd(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
             layer.attn_out_b, layer.attn_ln_scale, layer.attn_ln_bias,
             i8("ffn_in_w"), layer.ffn_in_b, i8("ffn_out_w"), layer.ffn_out_b,
             layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
-            eps=cfg.layer_norm_eps)
+            eps=cfg.layer_norm_eps, rel_bias=pos_bias)
     if route == "layer":
         return fused_bert_layer(
             x.to(cfg.dtype), bias, layer.qkv_w, layer.qkv_b, layer.attn_out_w,
             layer.attn_out_b, layer.attn_ln_scale, layer.attn_ln_bias,
             layer.ffn_in_w, layer.ffn_in_b, layer.ffn_out_w, layer.ffn_out_b,
             layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
-            eps=cfg.layer_norm_eps)
-    attn = _attention(x, layer, cfg, bias)
+            eps=cfg.layer_norm_eps, rel_bias=pos_bias)
+    attn = _attention(x, layer, cfg, bias, pos_bias)
     x = _layer_norm(x + attn, layer.attn_ln_scale, layer.attn_ln_bias,
                     cfg.layer_norm_eps)
     B, S, H = x.shape
@@ -209,14 +226,16 @@ class BertLayer(nn.Module):
         """Matrix `name` as K4 takes it: (i8 codes, f32 scales)."""
         return getattr(self, name + "_codes"), getattr(self, name + "_scales")
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-        return _layer_fwd(x, self, self.cfg, bias)
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None,
+                pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+        return _layer_fwd(x, self, self.cfg, bias, pos_bias)
 
 
-class BertModel(nn.Module):
-    """Token ids -> (B, S, H) f32 last hidden state (reference
-    BertModel::forward, model.rs:528-571). `params` is the reference's
-    stacked tree (models/weights.py), each leaf a tensor or array."""
+class EncoderStack(nn.Module):
+    """What the BERT and MPNet families share (bert.py:261-272): word
+    and position embeddings, the embedding LayerNorm and the layer stack.
+    `params` is the reference's stacked tree (models/weights.py), each leaf
+    a tensor or array."""
 
     def __init__(self, cfg: BertConfig, params: Params, *, device):
         super().__init__()
@@ -224,7 +243,6 @@ class BertModel(nn.Module):
         emb = params["embeddings"]
         self.word = _frozen(emb["word"], device)
         self.position = _frozen(emb["position"], device)
-        self.token_type = _frozen(emb["token_type"], device)
         self.emb_ln_scale = _frozen(emb["ln_scale"], device)
         self.emb_ln_bias = _frozen(emb["ln_bias"], device)
         layers = params["layers"]
@@ -236,20 +254,37 @@ class BertModel(nn.Module):
     def device(self) -> torch.device:
         return self.word.device
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor | None = None,
-                mask_padding: bool = True) -> torch.Tensor:
-        S = input_ids.shape[1]
-        pos = torch.arange(S, device=input_ids.device)
-        x = self.word[input_ids] + self.position[pos][None] + self.token_type[0]
+    def encode_embeddings(self, x: torch.Tensor,
+                          attention_mask: torch.Tensor | None,
+                          mask_padding: bool,
+                          pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+        """Summed (B, S, H) f32 embeddings -> LayerNorm -> every layer ->
+        (B, S, H) f32 last hidden state."""
         x = _layer_norm(x, self.emb_ln_scale, self.emb_ln_bias,
                         self.cfg.layer_norm_eps).to(self.cfg.dtype)
         bias = None
         if mask_padding and attention_mask is not None:
             bias = torch.where(attention_mask.bool(), 0.0, -1e30).float()
         for layer in self.layers:
-            x = layer(x, bias)
+            x = layer(x, bias, pos_bias)
         return x.float()
+
+
+class BertModel(EncoderStack):
+    """Token ids -> (B, S, H) f32 last hidden state (reference
+    BertModel::forward, model.rs:528-571)."""
+
+    def __init__(self, cfg: BertConfig, params: Params, *, device):
+        super().__init__(cfg, params, device=device)
+        self.token_type = _frozen(params["embeddings"]["token_type"], device)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor | None = None,
+                mask_padding: bool = True) -> torch.Tensor:
+        S = input_ids.shape[1]
+        pos = torch.arange(S, device=input_ids.device)
+        x = self.word[input_ids] + self.position[pos][None] + self.token_type[0]
+        return self.encode_embeddings(x, attention_mask, mask_padding)
 
 
 def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor | None = None,
@@ -264,13 +299,14 @@ def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor | None = None,
 
 
 @torch.inference_mode()
-def encode_batch(model: BertModel, input_ids: torch.Tensor,
+def encode_batch(model: EncoderStack, input_ids: torch.Tensor,
                  attention_mask: torch.Tensor, mask_padding: bool = True,
                  include_padding: bool = False) -> torch.Tensor:
-    """Sentence embeddings: BERT -> mean-pool -> L2 normalize, (B, H) f32
-    on the model's device (reference calculate_embedding,
-    embedding_service.rs:97-139, minus tokenization). The pool follows
-    the model's pool_impl."""
+    """Sentence embeddings: BERT or MPNet -> mean-pool -> L2 normalize,
+    (B, H) f32 on the model's device (reference calculate_embedding,
+    embedding_service.rs:97-139, minus tokenization). The model's class
+    carries its family (the reference routes on cfg.model_type,
+    bert.py:312-318); the pool follows the model's pool_impl."""
     hidden = model(input_ids, attention_mask, mask_padding=mask_padding)
     if model.cfg.pool_impl == "fused":
         return fused_mean_pool(hidden, attention_mask,

@@ -3,8 +3,10 @@
 Port of dawnsearch_tpu/models/encoder.py (the serving-side replacement
 for the reference's EmbeddingProvider, embedding_service.rs:49-140).
 Sequence lengths and batch sizes are bucketed to the same small grids,
-and padding rows are a bare [CLS][SEP] (encoder.py:129-133), so both
-packages see identical (input_ids, mask) arrays for the same texts.
+and padding rows are a bare [CLS][SEP] (`<s></s>` in an MPNet vocab;
+encoder.py:129-133), so both packages see identical (input_ids, mask)
+arrays for the same texts. The model is the config's family: MPNetModel
+for model_type "mpnet", BertModel otherwise.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from dawnsearch_tpu_torch.models.bert import (
     MINILM_L6, BertConfig, BertModel, Params, encode_batch)
+from dawnsearch_tpu_torch.models.mpnet import MPNetModel
 from dawnsearch_tpu_torch.models.tokenizer import WordPieceTokenizer
 from dawnsearch_tpu_torch.utils.logging import METRICS
 
@@ -34,7 +37,8 @@ class SentenceEncoder:
         *,
         device,
     ):
-        self.model = BertModel(cfg, params, device=device)
+        family = MPNetModel if cfg.model_type == "mpnet" else BertModel
+        self.model = family(cfg, params, device=device)
         self.tokenizer = tokenizer
         self.cfg = cfg
         self.seq_buckets = sorted(seq_buckets)

@@ -1,9 +1,9 @@
 """Encoder parameters: seeded random init, the bridge from the reference's
 parameter tree, and HF checkpoints (safetensors + config.json).
 
-Port of dawnsearch_tpu/models/weights.py for the `bert` family:
-init_params (:26-61), from_hf_tensors / to_hf_tensors (:76-155, :247-297),
-config_from_hf (:169-211), load_params (:214-240) and
+Port of dawnsearch_tpu/models/weights.py for the `bert` and `mpnet`
+families: init_params (:26-61), from_hf_tensors / to_hf_tensors (:76-155,
+:247-297), config_from_hf (:169-211), load_params (:214-240) and
 load_safetensors / save_safetensors (:158-166, :300-310). Both packages
 use one layout, the reference's stacked tree:
 
@@ -11,7 +11,13 @@ use one layout, the reference's stacked tree:
      "layers": {"qkv_w" (L, H, 3H), "qkv_b" (L, 3H), "attn_out_w" (L, H, H),
                 "attn_out_b", "attn_ln_scale", "attn_ln_bias",
                 "ffn_in_w" (L, H, I), "ffn_in_b" (L, I), "ffn_out_w" (L, I, H),
-                "ffn_out_b", "ffn_ln_scale", "ffn_ln_bias"}}
+                "ffn_out_b", "ffn_ln_scale", "ffn_ln_bias"},
+     "rel_bias" (num_buckets, nh)}      # mpnet only, which has no token_type
+
+HF's MPNet names its attention `attention.attn.{q,k,v,o}` and
+`attention.LayerNorm` and keeps the relative-position table at
+`encoder.relative_attention_bias.weight`; the q/k/v linears are fused into
+qkv on import and split again on export, as for BERT.
 
 Matrices are (in, out), so x·W is a plain product and the kernels read
 them row-major without a transpose; HF's torch Linear stores (out, in), so
@@ -47,8 +53,7 @@ _ST_TAGS = {np.dtype(v): k for k, v in ST_DTYPES.items()}
 
 # model families of the reference this port does not serve yet, with the
 # ROADMAP.md Queue 1 item that adds each
-UNPORTED_FAMILIES = {"mpnet": "item 6 (MPNet with K1's rel_bias)",
-                     "roberta": "item 11 (RoBERTa: the BPE tokenizer and "
+UNPORTED_FAMILIES = {"roberta": "item 11 (RoBERTa: the BPE tokenizer and "
                                 "offset position ids)"}
 
 
@@ -69,10 +74,11 @@ def init_params(generator: torch.Generator,
     emb = {
         "word": w(cfg.vocab_size, H),
         "position": w(cfg.max_position_embeddings, H),
-        "token_type": w(cfg.type_vocab_size, H),
         "ln_scale": const(1.0, H),
         "ln_bias": const(0.0, H),
     }
+    if cfg.model_type != "mpnet":  # mpnet has no token types
+        emb["token_type"] = w(cfg.type_vocab_size, H)
     layers = {
         "qkv_w": w(L, H, 3 * H),
         "qkv_b": const(0.0, L, 3 * H),
@@ -87,7 +93,10 @@ def init_params(generator: torch.Generator,
         "ffn_ln_scale": const(1.0, L, H),
         "ffn_ln_bias": const(0.0, L, H),
     }
-    return {"embeddings": emb, "layers": layers}
+    out = {"embeddings": emb, "layers": layers}
+    if cfg.model_type == "mpnet":
+        out["rel_bias"] = w(cfg.relative_attention_num_buckets, cfg.num_heads)
+    return out
 
 
 def params_from_numpy(tree: Mapping[str, Any]) -> Params:
@@ -157,23 +166,35 @@ def write_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
 
 # -- HF tensor names <-> the stacked tree -----------------------------------
 
-_NAMES = dict(q="attention.self.query", k="attention.self.key",
-              v="attention.self.value", o="attention.output.dense",
-              attn_ln="attention.output.LayerNorm")
+# each family's names of a layer's attention tensors
+_NAMES = {"bert": dict(q="attention.self.query", k="attention.self.key",
+                       v="attention.self.value", o="attention.output.dense",
+                       attn_ln="attention.output.LayerNorm"),
+          "mpnet": dict(q="attention.attn.q", k="attention.attn.k",
+                        v="attention.attn.v", o="attention.attn.o",
+                        attn_ln="attention.LayerNorm")}
+_REL_BIAS = "encoder.relative_attention_bias.weight"
 
 
 def _strip_prefix(tensors: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Accept `bert.`-prefixed and bare tensor namings."""
-    return {name[len("bert."):] if name.startswith("bert.") else name: t
-            for name, t in tensors.items()}
+    """Accept `bert.`- or `mpnet.`-prefixed and bare tensor namings."""
+    out = {}
+    for name, t in tensors.items():
+        for pre in ("bert.", "mpnet."):
+            if name.startswith(pre):
+                name = name[len(pre):]
+                break
+        out[name] = t
+    return out
 
 
 def from_hf_tensors(tensors: Mapping[str, np.ndarray],
                     cfg: BertConfig = MINILM_L6) -> Params:
-    """HF BertModel tensor dict (numpy) -> stacked tree of f32 tensors.
-    Tensors it does not use (position_ids, the pooler) are ignored; a
-    checkpoint with more layers than cfg is refused."""
+    """HF BertModel / MPNetModel tensor dict (numpy) -> stacked tree of f32
+    tensors. Tensors it does not use (position_ids, the pooler) are
+    ignored; a checkpoint with more layers than cfg is refused."""
     t = _strip_prefix(tensors)
+    mpnet = cfg.model_type == "mpnet"
 
     def get(name: str) -> np.ndarray:
         if name not in t:
@@ -183,17 +204,18 @@ def from_hf_tensors(tensors: Mapping[str, np.ndarray],
     emb = {
         "word": get("embeddings.word_embeddings.weight"),
         "position": get("embeddings.position_embeddings.weight"),
-        "token_type": get("embeddings.token_type_embeddings.weight"),
         "ln_scale": get("embeddings.LayerNorm.weight"),
         "ln_bias": get("embeddings.LayerNorm.bias"),
     }
+    if not mpnet:
+        emb["token_type"] = get("embeddings.token_type_embeddings.weight")
     per_layer: dict[str, list[np.ndarray]] = {k: [] for k in (
         "qkv_w", "qkv_b", "attn_out_w", "attn_out_b",
         "attn_ln_scale", "attn_ln_bias",
         "ffn_in_w", "ffn_in_b", "ffn_out_w", "ffn_out_b",
         "ffn_ln_scale", "ffn_ln_bias",
     )}
-    n = _NAMES
+    n = _NAMES[cfg.model_type]
     for i in range(cfg.num_layers):
         p = f"encoder.layer.{i}."
         per_layer["qkv_w"].append(np.concatenate(
@@ -219,28 +241,34 @@ def from_hf_tensors(tensors: Mapping[str, np.ndarray],
             f"checkpoint has layers beyond the configured {cfg.num_layers} "
             f"(found {extra}*); put the model's real config.json next to "
             "model.safetensors")
-    return params_from_numpy({"embeddings": emb, "layers": {
-        k: np.stack(v) for k, v in per_layer.items()}})
+    out = {"embeddings": emb,
+           "layers": {k: np.stack(v) for k, v in per_layer.items()}}
+    if mpnet:
+        out["rel_bias"] = get(_REL_BIAS)
+    return params_from_numpy(out)
 
 
 def to_hf_tensors(params: Params, cfg: BertConfig = MINILM_L6
                   ) -> dict[str, np.ndarray]:
-    """Stacked tree -> HF BertModel tensor dict (inverse of
+    """Stacked tree -> HF BertModel / MPNetModel tensor dict (inverse of
     from_hf_tensors): un-stack layers, split the fused QKV, transpose back
     to torch's (out, in)."""
     def np_(x) -> np.ndarray:
         return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x,
                           dtype=np.float32)
 
-    H, n = cfg.hidden_size, _NAMES
+    H, n = cfg.hidden_size, _NAMES[cfg.model_type]
     emb = params["embeddings"]
     out = {
         "embeddings.word_embeddings.weight": np_(emb["word"]),
         "embeddings.position_embeddings.weight": np_(emb["position"]),
-        "embeddings.token_type_embeddings.weight": np_(emb["token_type"]),
         "embeddings.LayerNorm.weight": np_(emb["ln_scale"]),
         "embeddings.LayerNorm.bias": np_(emb["ln_bias"]),
     }
+    if cfg.model_type == "mpnet":
+        out[_REL_BIAS] = np_(params["rel_bias"])
+    else:
+        out["embeddings.token_type_embeddings.weight"] = np_(emb["token_type"])
     L = params["layers"]
     for i in range(cfg.num_layers):
         p = f"encoder.layer.{i}."
@@ -274,9 +302,9 @@ def save_safetensors(params: Params, path: str,
 
 def config_from_hf(model_dir: str) -> BertConfig | None:
     """A BertConfig from model_dir/config.json (None without one), so any
-    BERT-family encoder loads by pointing model_dir at its checkout.
-    Refuses a non-gelu activation (every kernel computes exact erf GELU), a
-    family this port does not serve yet, and an unknown family."""
+    BERT- or MPNet-family encoder loads by pointing model_dir at its
+    checkout. Refuses a non-gelu activation (every kernel computes exact erf
+    GELU), a family this port does not serve yet, and an unknown family."""
     path = os.path.join(model_dir, "config.json")
     if not os.path.exists(path):
         return None
@@ -287,7 +315,7 @@ def config_from_hf(model_dir: str) -> BertConfig | None:
         raise ValueError(f"{path}: model_type={model_type!r} is not ported yet "
                          f"(ROADMAP.md Queue 1 "
                          f"{UNPORTED_FAMILIES[model_type]})")
-    if model_type != "bert":
+    if model_type not in ("bert", "mpnet"):
         raise ValueError(f"{path}: model_type={model_type!r} is not a "
                          "supported encoder family (bert, mpnet, roberta)")
     act = hf.get("hidden_act", "gelu")
@@ -305,7 +333,10 @@ def config_from_hf(model_dir: str) -> BertConfig | None:
         max_position_embeddings=hf.get("max_position_embeddings", 512),
         type_vocab_size=hf.get("type_vocab_size", 2),
         layer_norm_eps=hf.get("layer_norm_eps", 1e-12),
-        pad_token_id=hf.get("pad_token_id", 0),
+        model_type=model_type,
+        pad_token_id=hf.get("pad_token_id", 1 if model_type == "mpnet" else 0),
+        relative_attention_num_buckets=hf.get(
+            "relative_attention_num_buckets", 32),
     )
 
 
@@ -313,8 +344,8 @@ def load_params(model_dir: str | None, cfg: BertConfig | None = None,
                 seed: int = 0) -> tuple[Params, bool, BertConfig]:
     """(params, pretrained, cfg): the checkpoint in model_dir when it has
     one, else seeded random weights. model_dir/config.json owns the shape
-    fields; the caller's cfg keeps its compute-policy fields (dtype and
-    kernel routes)."""
+    fields and the family (model_type); the caller's cfg keeps its
+    compute-policy fields (dtype and kernel routes)."""
     if model_dir:
         hf_cfg = config_from_hf(model_dir)
         if hf_cfg is not None:

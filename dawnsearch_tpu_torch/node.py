@@ -3,12 +3,15 @@
 Port of dawnsearch_tpu/node.py (the reference's main-binary bootstrap,
 the reference's src/bin/dawnsearch.rs:37-154) for what this package
 serves: text search and page insert over HTTP, on one device. The
-encoder is the checkpoint in model_dir (a `bert`-family HF checkpoint:
-config.json, model.safetensors, vocab.txt) or seeded MiniLM-width weights.
-It runs the whole-layer kernel (K1) by default, its W8A8 twin (K4) for
-layer_impl="layer_i8", or the per-op path (layer_impl="ops": attention K5
-or K6 and the fused FFN K7 in every layer; attn_impl="xla": einsum
-attention and K7), and pools with K8 when pool_impl="fused". The
+encoder is the checkpoint in model_dir (a `bert`- or `mpnet`-family HF
+checkpoint: config.json, model.safetensors, vocab.txt) or seeded
+MiniLM-width weights. It runs the whole-layer kernel (K1) by default, its
+W8A8 twin (K4) for layer_impl="layer_i8", or the per-op path
+(layer_impl="ops": attention K5 or K6 and the fused FFN K7 in every layer;
+attn_impl="xla": einsum attention and K7), and pools with K8 when
+pool_impl="fused". An MPNet checkpoint takes the same routes with its
+relative-position bias: K1's or K4's rel_bias operand, or einsum attention
+on the per-op path (K5 and K6 take no such bias, as in the reference). The
 score+select kernels are K2 for an i8 or bf16 index and K3 for the i4
 capacity tier; the index is as wide as the encoder.
 The 10-minute save timer and the save on shutdown are kept.
@@ -80,11 +83,12 @@ def check_config(cfg: Config) -> None:
 
 def make_encoder(cfg: Config):
     """SentenceEncoder on cfg.device, on the layer, attention and pool
-    routes of the config (dawnsearch_tpu/node.py:33-97): the shape from
-    model_dir/config.json, the weights from model.safetensors and the
-    WordPiece vocab from vocab.txt; without model_dir (or without those
-    files) MiniLM width, weights from a seeded generator and a
-    self-contained vocab."""
+    routes of the config (dawnsearch_tpu/node.py:33-97): the family and
+    shape from model_dir/config.json, the weights from model.safetensors
+    and the WordPiece vocab from vocab.txt (BERT's [PAD]/[CLS]/[SEP] or
+    MPNet's <pad>/<s>/</s>); without model_dir (or without those files)
+    MiniLM width, weights from a seeded generator and a self-contained
+    vocab."""
     import torch
 
     from dawnsearch_tpu_torch.models.bert import BertConfig
@@ -117,9 +121,10 @@ def make_encoder(cfg: Config):
         if pretrained:
             log.warning("pretrained weights but no vocab.txt: tokenization "
                         "will not match the checkpoint")
-    log.info("encoder ready (pretrained=%s, device=%s, hidden=%d, layers=%d, "
-             "layer_impl=%s, attn_impl=%s, pool_impl=%s)", pretrained,
-             cfg.device, bert_cfg.hidden_size, bert_cfg.num_layers,
+    log.info("encoder ready (%s, pretrained=%s, device=%s, hidden=%d, "
+             "layers=%d, layer_impl=%s, attn_impl=%s, pool_impl=%s)",
+             bert_cfg.model_type, pretrained, cfg.device,
+             bert_cfg.hidden_size, bert_cfg.num_layers,
              bert_cfg.layer_impl, bert_cfg.attn_impl, bert_cfg.pool_impl)
     return SentenceEncoder(params, tok, cfg=bert_cfg,
                            seq_buckets=tuple(cfg.seq_buckets),

@@ -142,8 +142,8 @@ def lib() -> ctypes.CDLL:
             cdll.dawn_select.argtypes = [i, i, p, p, p, p, ll, p, p, i, ll,
                                          i, p]
             cdll.dawn_select.restype = i
-            cdll.dawn_attention.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll,
-                                            ll, ll, ll, ll, f, i, p]
+            cdll.dawn_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, ll,
+                                            ll, ll, ll, ll, ll, f, i, p]
             cdll.dawn_attention.restype = i
             cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
             cdll.dawn_ffn.restype = i

@@ -170,8 +170,10 @@ def _attention_cuda(name: str, q, k, v, bias, out, B, nh, S, hd, strides,
         bias = torch.zeros((B, S), dtype=torch.float32, device=q.device)
     _cuda.check_tensor(bias, "attention bias", torch.float32, (B, S), q.device)
     lib = _cuda.lib()
+    # no rel operand: the reference bypasses K5 and K6 under MPNet's
+    # position bias (models/bert.py::_attention)
     _cuda.check(lib.dawn_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None,
         out.data_ptr(), B, nh, S, hd, *strides, *out_strides,
         1.0 / math.sqrt(hd), 0, _cuda.stream_handle(q)), name)
     _cuda.count(launches, name)

@@ -6,8 +6,8 @@ with W8A8 projections). K1's math is the reference's, rounding point for
 rounding point (ops/layer.py:115-154):
 
     qkv = bf16(x·Wqkv + b)
-    ctx = bf16(softmax(q·kᵀ/√hd + bias)·v)   p rounded to bf16 before PV,
-                                              1/Σp from the f32 p, after PV
+    ctx = bf16(softmax(q·kᵀ/√hd + bias [+ rel])·v)   p rounded to bf16 before
+                                              PV, 1/Σp from the f32 p, after PV
     x1  = bf16(LN(ctx·Wo + bo + x))
     y   = LN(GELU_erf(x1·W1 + b1)·W2 + b2 + x1)   (h rounded to bf16)
 
@@ -29,6 +29,12 @@ fallback between the two: a CUDA input a kernel does not take raises. On
 the card both take bf16 activations and the reference's envelope: H = nh·hd
 with 128 % hd == 0 and H % 128 == 0, I % 128 == 0, S % 16 == 0, S <= 512.
 
+Both take the reference's optional `rel_bias` (ops/layer.py:247-296,
+`has_rel`): a (nh, S, S) f32 score bias every sequence shares, MPNet's
+relative-position bias (models/mpnet.py). It is added after the key bias,
+`s = ((f32(q·k)·scale) + bias) + rel`, three separately rounded f32 steps
+in the plain twins as in the kernels.
+
 Weights keep the JAX layout: (in, out) matrices, 1-D biases and LN
 parameters; K1's matrices in the compute dtype, the rest f32.
 """
@@ -46,19 +52,21 @@ from dawnsearch_tpu_torch.ops.ffn import erf_poly
 from dawnsearch_tpu_torch.ops.vector import layer_norm
 
 # Layer launches of the CUDA kernels in this process (one per call, each
-# being several CUDA launches), by METRICS name (_cuda.count).
-launches = {"kernel_bert_layer": 0, "kernel_bert_layer_i8": 0}
+# being several CUDA launches), by METRICS name (_cuda.count); a call with
+# rel_bias counts under its own `_rel` name
+launches = {"kernel_bert_layer": 0, "kernel_bert_layer_i8": 0,
+            "kernel_bert_layer_rel": 0, "kernel_bert_layer_i8_rel": 0}
 
 MAX_SEQ = 512
 INV127 = 1.0 / 127.0  # folded to f32(1/127) in f32 products, as the reference
 
 
 def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
-                     w2, b2, fln_s, fln_b, *, nh: int,
-                     eps: float = 1e-12) -> torch.Tensor:
-    """(B, S, H) x + (B, S) f32 additive key bias (or None) -> (B, S, H)
-    in x's dtype. Products are f32 products of compute-dtype operands,
-    rounded where the kernel rounds."""
+                     w2, b2, fln_s, fln_b, *, nh: int, eps: float = 1e-12,
+                     rel_bias=None) -> torch.Tensor:
+    """(B, S, H) x + (B, S) f32 additive key bias (or None) + optional
+    (nh, S, S) f32 rel_bias -> (B, S, H) in x's dtype. Products are f32
+    products of compute-dtype operands, rounded where the kernel rounds."""
     B, S, H = x.shape
     hd = H // nh
     dt = x.dtype
@@ -70,9 +78,7 @@ def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
     qkv = (mm(x2d, qkv_w) + qkv_b.float()).to(dt)
     q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2)
                for t in qkv.split(H, dim=-1))
-    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
-    if bias is not None:
-        s = s + bias.float()[:, None, None, :]
+    s = _biased(q.float() @ k.float().transpose(-1, -2), hd, bias, rel_bias)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     inv = 1.0 / p.sum(dim=-1, keepdim=True)
     ctx = (p.to(dt).float() @ v.float()) * inv
@@ -85,22 +91,34 @@ def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
     return layer_norm(y, fln_s, fln_b, eps).reshape(B, S, H).to(dt)
 
 
+def _biased(dots, hd: int, bias, rel_bias):
+    """(B, nh, S, S) f32 dots -> ((dots·scale) + bias) + rel, each step
+    rounded once (the kernels' order)."""
+    s = dots * (1.0 / math.sqrt(hd))
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    if rel_bias is not None:
+        s = s + rel_bias.float()[None]
+    return s
+
+
 def fused_bert_layer(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
-                     w2, b2, fln_s, fln_b, *, nh: int,
-                     eps: float = 1e-12) -> torch.Tensor:
+                     w2, b2, fln_s, fln_b, *, nh: int, eps: float = 1e-12,
+                     rel_bias=None) -> torch.Tensor:
     """K1: one BERT layer, the CUDA kernels for a CUDA x, the plain
     version for a CPU x (same signature as bert_layer_plain)."""
     if not x.is_cuda:
         return bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s,
                                 aln_b, w1, b1, w2, b2, fln_s, fln_b, nh=nh,
-                                eps=eps)
+                                eps=eps, rel_bias=rel_bias)
     return _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
-                       b1, w2, b2, fln_s, fln_b, nh=nh, eps=eps)
+                       b1, w2, b2, fln_s, fln_b, nh=nh, eps=eps,
+                       rel_bias=rel_bias)
 
 
-def _check_layer(what: str, x, bias, nh: int, I: int):
+def _check_layer(what: str, x, bias, rel_bias, nh: int, I: int):
     """Dtype and envelope of a whole-layer kernel's input; returns the
-    bias to pass (zeros for None)."""
+    bias to pass (zeros for None) and rel_bias's pointer (None for none)."""
     B, S, H = x.shape
     hd = H // nh if nh > 0 else 0
     if x.dtype != torch.bfloat16:
@@ -116,7 +134,11 @@ def _check_layer(what: str, x, bias, nh: int, I: int):
     if bias is None:
         bias = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     check_tensor(bias, f"{what} bias", torch.float32, (B, S), x.device)
-    return bias
+    if rel_bias is None:
+        return bias, None
+    check_tensor(rel_bias, f"{what} rel_bias", torch.float32, (nh, S, S),
+                 x.device)
+    return bias, rel_bias.data_ptr()
 
 
 def _check_vectors(what: str, dev, H: int, I: int, **vectors) -> None:
@@ -126,11 +148,12 @@ def _check_vectors(what: str, dev, H: int, I: int, **vectors) -> None:
 
 
 def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
-                b2, fln_s, fln_b, *, nh: int, eps: float) -> torch.Tensor:
+                b2, fln_s, fln_b, *, nh: int, eps: float,
+                rel_bias) -> torch.Tensor:
     B, S, H = x.shape
     I = w1.shape[1]
     dev = x.device
-    bias = _check_layer("K1", x, bias, nh, I)
+    bias, rel = _check_layer("K1", x, bias, rel_bias, nh, I)
     bf = torch.bfloat16
     for name, t, shape in (("qkv_w", qkv_w, (H, 3 * H)), ("ao_w", ao_w, (H, H)),
                            ("w1", w1, (H, I)), ("w2", w2, (I, H))):
@@ -155,9 +178,10 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
     # the C entry is called directly so K5's launch counter counts K5 only
     q = qkv.data_ptr()
     _cuda.check(lib.dawn_attention(q, q + 2 * H, q + 4 * H, bias.data_ptr(),
-                                   ctx.data_ptr(), B, nh, S, hd, S * 3 * H, hd,
-                                   3 * H, S * H, hd, H, 1.0 / math.sqrt(hd), 0,
-                                   stream), "K1 attention")
+                                   rel, ctx.data_ptr(), B, nh, S, hd,
+                                   S * 3 * H, hd, 3 * H, S * H, hd, H,
+                                   1.0 / math.sqrt(hd), 0, stream),
+                "K1 attention")
     _cuda.check(gemm(ctx.data_ptr(), ao_w.data_ptr(), ao_b.data_ptr(),
                      x.data_ptr(), aln_s.data_ptr(), aln_b.data_ptr(),
                      x1.data_ptr(), M, H, H, 2, eps, stream),
@@ -169,7 +193,7 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                      fln_s.data_ptr(), fln_b.data_ptr(), y.data_ptr(), M, H, I,
                      2, eps, stream),
                 "K1 FFN out + LN")
-    _cuda.count(launches, "kernel_bert_layer")
+    _cuda.count(launches, "kernel_bert_layer" + ("_rel" if rel else ""))
     return y
 
 
@@ -200,7 +224,8 @@ def _mm_i8(a32: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
     return acc * (s * INV127) * ws.float()
 
 
-def attention_f32_plain(qkv, bias, B, S, H, nh) -> torch.Tensor:
+def attention_f32_plain(qkv, bias, B, S, H, nh, rel_bias=None
+                        ) -> torch.Tensor:
     """(M, 3H) bf16 qkv -> (M, H) f32 context with every sum in the order
     of K4's attention step (csrc/attention.cu, out_f32): scores over the
     head dim ascending, the softmax sum and PV over keys ascending, each
@@ -214,9 +239,7 @@ def attention_f32_plain(qkv, bias, B, S, H, nh) -> torch.Tensor:
     s = torch.zeros((B, nh, S, S), dtype=torch.float32, device=qkv.device)
     for d in range(hd):
         s = s + q[..., d:d + 1] * k[..., d].unsqueeze(-2)
-    s = s * (1.0 / math.sqrt(hd))
-    if bias is not None:
-        s = s + bias.float()[:, None, None, :]
+    s = _biased(s, hd, bias, rel_bias)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     pb = p.to(qkv.dtype).float()
     l = torch.zeros((B, nh, S, 1), dtype=torch.float32, device=qkv.device)
@@ -230,15 +253,15 @@ def attention_f32_plain(qkv, bias, B, S, H, nh) -> torch.Tensor:
 
 def bert_layer_i8_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
                         b1, w2, b2, fln_s, fln_b, *, nh: int,
-                        eps: float = 1e-12) -> torch.Tensor:
-    """(B, S, H) x + (B, S) f32 additive key bias (or None) -> (B, S, H) in
-    x's dtype; each of qkv_w, ao_w, w1, w2 is a (codes, scales) pair from
-    quant_cols."""
+                        eps: float = 1e-12, rel_bias=None) -> torch.Tensor:
+    """(B, S, H) x + (B, S) f32 additive key bias (or None) + optional
+    (nh, S, S) f32 rel_bias -> (B, S, H) in x's dtype; each of qkv_w, ao_w,
+    w1, w2 is a (codes, scales) pair from quant_cols."""
     B, S, H = x.shape
     dt = x.dtype
     x32 = x.reshape(B * S, H).float()
     qkv = (_mm_i8(x32, *qkv_w) + qkv_b.float()).to(dt)
-    ctx = attention_f32_plain(qkv, bias, B, S, H, nh)           # f32
+    ctx = attention_f32_plain(qkv, bias, B, S, H, nh, rel_bias)  # f32
     att = _mm_i8(ctx, *ao_w) + ao_b.float() + x32
     x1 = layer_norm(att, aln_s, aln_b, eps)                      # f32
     h = _mm_i8(x1, *w1) + b1.float()
@@ -249,18 +272,18 @@ def bert_layer_i8_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
 
 def fused_bert_layer_i8(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
                         b1, w2, b2, fln_s, fln_b, *, nh: int,
-                        eps: float = 1e-12) -> torch.Tensor:
+                        eps: float = 1e-12, rel_bias=None) -> torch.Tensor:
     """K4: one BERT layer with W8A8 projections, the CUDA kernel for a
     CUDA x, bert_layer_i8_plain for a CPU x (same signature; each matrix
     argument is its (i8 codes, f32 scales) pair)."""
     if not x.is_cuda:
         return bert_layer_i8_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s,
                                    aln_b, w1, b1, w2, b2, fln_s, fln_b, nh=nh,
-                                   eps=eps)
+                                   eps=eps, rel_bias=rel_bias)
     B, S, H = x.shape
     I = w1[0].shape[1]
     dev = x.device
-    bias = _check_layer("K4", x, bias, nh, I)
+    bias, rel = _check_layer("K4", x, bias, rel_bias, nh, I)
     for name, (q, s), (k, n) in (("qkv_w", qkv_w, (H, 3 * H)),
                                  ("ao_w", ao_w, (H, H)), ("w1", w1, (H, I)),
                                  ("w2", w2, (I, H))):
@@ -281,9 +304,9 @@ def fused_bert_layer_i8(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
                          "vectors: their storage must be 16-byte aligned")
     ptrs = [t.data_ptr() for t in (
         x, bias, *qkv_w, qkv_b, *ao_w, ao_b, aln_s, aln_b, *w1, b1, *w2, b2,
-        fln_s, fln_b, y, *scratch)]
+        fln_s, fln_b, y, *scratch)] + [rel]
     _cuda.check(_cuda.lib().dawn_bert_layer_i8(
         (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, H, nh, I, eps,
         _cuda.stream_handle(x)), "K4 layer")
-    _cuda.count(launches, "kernel_bert_layer_i8")
+    _cuda.count(launches, "kernel_bert_layer_i8" + ("_rel" if rel else ""))
     return y

@@ -12,8 +12,12 @@ values and on at least 99% of the window ids; K1 agrees to the bf16 bound
 of the reference's own tests (per-row cosine > 0.999) at every head dim
 of the packed envelope; K4 agrees with bert_layer_i8_plain at per-token
 cosine >= 0.9999 (the same rounding points and exact s32 sums; f32 sums
-of LayerNorm and attention in another order). The per-op
-kernels K5, K6 and K7 agree with their plain twins at per-row cosine
+of LayerNorm and attention in another order). K1 and K4 with MPNet's
+rel_bias agree with their plain twins given the same operand at per-token
+cosine >= 0.9999, a zero rel_bias changes no bit, and a rel_bias of the
+wrong shape, dtype, device or layout raises. The per-op
+kernels K5 and K6 (which pass a null rel_bias through the same C entry)
+and K7 agree with their plain twins at per-row cosine
 > 0.9999 (the same bf16 rounding points, f32 sums in another order); K8,
 all f32, within 1e-5.
 """
@@ -23,7 +27,7 @@ import pytest
 import torch
 
 from dawnsearch_tpu_torch.index.flat import FlatIndex, quantize_rows_i8
-from dawnsearch_tpu_torch.models import bert
+from dawnsearch_tpu_torch.models import bert, mpnet
 from dawnsearch_tpu_torch.models.weights import init_params
 from dawnsearch_tpu_torch.ops import attention, ffn, layer
 from dawnsearch_tpu_torch.ops.layer import quant_cols
@@ -177,6 +181,101 @@ def test_k4_encode_batch_on_cuda_matches_cpu(cuda):
     want = bert.encode_batch(bert.BertModel(cfg, params, device="cpu"),
                              ids, mask)
     assert float((got * want).sum(-1).min()) > 0.999
+
+
+def _rel(rng, S, nh, cuda):
+    """MPNet's (nh, S, S) f32 bias from a seeded (32, nh) table."""
+    table = torch.from_numpy(rng.standard_normal((32, nh), np.float32) * 0.5)
+    return mpnet.position_bias(table.to(cuda), S, nh, 32)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+@pytest.mark.parametrize("B,S", [(3, 128), (1, 512), (2, 16)])
+def test_rel_bias_matches_plain(cuda, kernel, B, S):
+    """all-mpnet-base-v2's width (H=768, 12 heads of 64, I=3072), ragged
+    masks, eps 1e-5; each call counts under the `_rel` name only."""
+    H, nh, I = 768, 12, 3072
+    rng = np.random.default_rng(S + B)
+    if kernel == "k4":
+        x, bias, w, m = _k4_args(rng, B, S, H, I, cuda)
+        fused, plain = layer.fused_bert_layer_i8, layer.bert_layer_i8_plain
+    else:
+        xn, mn, bn, wn = _layer_inputs(rng, B, S, H, I)
+        x = torch.from_numpy(xn).to(cuda, torch.bfloat16)
+        bias, m = torch.from_numpy(bn).to(cuda), torch.from_numpy(mn).to(cuda)
+        w = [torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2
+                                    else None) for a in wn]
+        fused, plain = layer.fused_bert_layer, layer.bert_layer_plain
+    rel = _rel(rng, S, nh, cuda)
+    name = {"k1": "kernel_bert_layer", "k4": "kernel_bert_layer_i8"}[kernel]
+    before = dict(layer.launches)
+    got = fused(x, bias, *w, nh=nh, eps=1e-5, rel_bias=rel).float()
+    assert layer.launches[name + "_rel"] == before[name + "_rel"] + 1
+    assert layer.launches[name] == before[name]
+    want = plain(x, bias, *w, nh=nh, eps=1e-5, rel_bias=rel).float()
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
+    assert float(cos.min()) >= 0.9999
+    # a zero rel_bias adds exact zeros: bit-equal to the call without one
+    assert torch.equal(fused(x, bias, *w, nh=nh, eps=1e-5),
+                       fused(x, bias, *w, nh=nh, eps=1e-5,
+                             rel_bias=torch.zeros_like(rel)))
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+def test_rel_bias_refusals(cuda, kernel):
+    """A rel_bias the kernels do not take raises; nothing falls back to
+    the plain twin."""
+    rng = np.random.default_rng(5)
+    B, S, nh = 2, 32, 12
+    x, bias, w, _ = _k4_args(rng, B, S, 384, 1536, cuda)
+    if kernel == "k4":
+        fused = layer.fused_bert_layer_i8
+    else:
+        fused = layer.fused_bert_layer
+        w = [torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2
+                                    else None)
+             for a in _layer_inputs(rng, B, S, 384, 1536)[3]]
+    rel = _rel(rng, S, nh, cuda)
+    before = dict(layer.launches)
+    for bad in (rel[:, :, :16], rel[:6], rel.bfloat16(), rel.cpu(),
+                rel.transpose(1, 2)):
+        with pytest.raises(ValueError, match="rel_bias"):
+            fused(x, bias, *w, nh=nh, rel_bias=bad)
+    assert layer.launches == before
+
+
+@pytest.mark.parametrize("impl", [dict(layer_impl="layer"),
+                                  dict(layer_impl="layer_i8"),
+                                  dict(layer_impl="ops")])
+def test_mpnet_encode_batch_on_cuda_matches_cpu(cuda, impl):
+    """An MPNet encoder on the card on each route against the same model
+    on the CPU: K1 or K4 with rel_bias in every layer, or (per-op) einsum
+    attention and K7, never K5 or K6."""
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                          num_heads=4, intermediate_size=512,
+                          max_position_embeddings=66, type_vocab_size=0,
+                          layer_norm_eps=1e-5, model_type="mpnet",
+                          pad_token_id=1, dtype=torch.bfloat16, **impl)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    params["rel_bias"] = params["rel_bias"] * 25.0       # std 0.5
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(5, 512, (8, 32)))
+    mask = torch.ones((8, 32), dtype=torch.int32)
+    mask[5, 7:] = 0
+    ids[mask == 0] = 1
+    counters = [attention.launches, ffn.launches, layer.launches]
+    before = [dict(c) for c in counters]
+    got = bert.encode_batch(mpnet.MPNetModel(cfg, params, device=cuda),
+                            ids.to(cuda), mask.to(cuda)).cpu()
+    ran = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c}
+    want = {"layer": {"kernel_bert_layer_rel": 2},
+            "layer_i8": {"kernel_bert_layer_i8_rel": 2},
+            "ops": {"kernel_ffn": 2}}[impl["layer_impl"]]
+    assert {k: n for k, n in ran.items() if n} == want
+    cpu = bert.encode_batch(mpnet.MPNetModel(cfg, params, device="cpu"),
+                            ids, mask)
+    assert float((got * cpu).sum(-1).min()) > 0.999
 
 
 def _rows_and_queries(cuda, B, seed, n=32768):

@@ -10,8 +10,8 @@ reference's loader, the `safetensors` package and HF transformers.
 - every dtype the reference's numpy reader reads round-trips; BF16 is
   refused by the tensor's name;
 - the reference's refusals hold (hidden_act, an unknown model_type, a
-  checkpoint deeper than its config.json), and mpnet / roberta are refused
-  by name with their ROADMAP item;
+  checkpoint deeper than its config.json), and roberta is refused by name
+  with its ROADMAP item (mpnet loads: tests/test_torch_mpnet*.py);
 - HF's BertModel stays the third oracle: the port's make_encoder on a
   synthesized MiniLM-shape model_dir in f32 gives HF's sentence embeddings
   within atol 2e-5 (tests/test_real_checkpoint_layout.py:170).
@@ -196,7 +196,6 @@ def test_bf16_tensor_is_refused_by_name(tmp_path):
 
 @pytest.mark.parametrize("change,match", [
     (dict(hidden_act="gelu_new"), "hidden_act"),
-    (dict(model_type="mpnet"), "not ported yet .ROADMAP.md Queue 1 item 6"),
     (dict(model_type="roberta"), "not ported yet .ROADMAP.md Queue 1 item 11"),
     (dict(model_type="gpt2"), "not a supported encoder family"),
     (dict(num_hidden_layers=1), "layers beyond the configured 1")])
