@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,k1,k4,k2
     python3 chip_smoke.py --phases k3,k2bf16,recall_i4,i4_scale
     python3 chip_smoke.py --phases attn,ffn,pool,ops   # the per-op encoder
+    python3 chip_smoke.py --phases build,k1,k4,attn,ffn,node  # f32 entries
 
 Phases, each printing one progress line; any failure exits non-zero:
   device    card name and power limit (nvidia-smi); fails without CUDA
@@ -20,14 +21,18 @@ Phases, each printing one progress line; any failure exits non-zero:
             (32, nh) table gathered by the port's position_bias) at
             all-mpnet-base-v2's width at (64, 128) and (8, 512), timed
             beside K1 without it and beside the library layer with rel and
-            the key mask as one float src_mask
+            the key mask as one float src_mask; then the same in f32 (K1's
+            f32 instance, compute_dtype = "f32") at MiniLM and BERT-base
+            (64, 128) and with rel_bias at both MPNet shapes, against the
+            twin and the library layer in f32 with TF32 off
   k4        the W8A8 whole-layer kernel vs bert_layer_i8_plain with ragged
             masks at MiniLM and BERT-base widths (64, 128) and BERT-large
             (8, 512), each timed beside K1 on the same weights; K4 with
             rel_bias at all-mpnet-base-v2's width at (64, 128) and
-            (8, 512), timed beside K4 without it; then 12-layer BERT-base
-            and MPNet-base encode_batch on K1 and on K4, device time at
-            B = 1 and 64, S = 128
+            (8, 512), timed beside K4 without it; K4's f32 instance at
+            MiniLM and BERT-base (64, 128) beside K1's; then 12-layer
+            BERT-base and MPNet-base encode_batch on K1 and on K4, device
+            time at B = 1 and 64, S = 128
   k2        i8 score+select vs select_candidates_plain at 1,048,576 x 384
             codes and 1024 queries: values and ids bit-equal; timed
   k3        i4 score+select (K3) at 1,048,576 logical rows (201 MB packed)
@@ -40,11 +45,13 @@ Phases, each printing one progress line; any failure exits non-zero:
             masks: K5 at MiniLM width at (B, S) = (64, 128), (8, 512),
             (64, 16) and at BERT-base width (H=768, hd 64) at (64, 128);
             K6 at the same shapes and at hd 26 (TinyBERT, H=312) at
-            (64, 128) and (8, 512); timed beside torch's
-            scaled_dot_product_attention (the library yardstick)
+            (64, 128) and (8, 512); then each at its first two shapes in
+            f32; timed beside torch's scaled_dot_product_attention in the
+            same dtype (the library yardstick)
   ffn       K7 vs ffn_plain at 8192 rows for MiniLM (384/1536), BERT-base
             (768/3072) and TinyBERT (312/1200) widths, and at 128 rows (one
-            query) at MiniLM width; timed
+            query) at MiniLM width; in f32 at 8192 rows of MiniLM and
+            BERT-base and at 128 rows; timed
   pool      K8 vs mean_pool_plain at (64, 128, 384) and (8, 512, 384),
             masked and include_padding; timed
   recall    FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
@@ -65,11 +72,14 @@ Phases, each printing one progress line; any failure exits non-zero:
             12 heads, I=1200, 4 layers) with layer_impl="layer", which must
             fall back to K6 + K7, and all-mpnet-base-v2's width (2 layers)
             with layer_impl="ops", which must run K7 and never K5 or K6
-            (einsum attention under the position bias); the counters each
-            run raised; encode ms
-            at B=1, 8, 64 (S=128) on the K1 and the per-op paths, as device
-            time (CUDA-graph replays) and as host time over 6 alternating
-            rounds (median [min, max])
+            (einsum attention under the position bias); then in f32 the
+            MiniLM K1 and per-op (K8 pool) routes and the TinyBERT
+            fallback (K6 + K7 f32), within the f32 atol 1e-4 of the CPU;
+            the counters each run raised (every other encoder counter must
+            stay 0); encode ms
+            at B=1, 8, 64 (S=128) on the K1 and the per-op paths, bf16 and
+            f32, as device time (CUDA-graph replays) and as host time over
+            6 alternating rounds (median [min, max])
   node      `python -m dawnsearch_tpu_torch` over a 270,000-page store
             (past the 262,144-row gate of the fused select) as wide as its
             encoder: on the seeded MiniLM weights once each with
@@ -78,12 +88,14 @@ Phases, each printing one progress line; any failure exits non-zero:
             then on a seeded 12-layer BERT-base checkpoint written to a
             DAWNSEARCH_MODEL_DIR, on K1 and on K4, and on a seeded 12-layer
             all-mpnet-base-v2 checkpoint (its config.json, a 30527-line
-            MPNet-layout vocab) on K1 and on K4, both with rel_bias: 32
-            pages through /api/insert, 8 of them queried back through
-            /api/search at rank 1, the encoder's kernel counters (K1, K4,
-            K1 rel, K4 rel, or K5, K7 and K8, the others at 0; K5 and K6 at
-            0 on MPNet) and the tier's select counter read from
-            /api/metrics
+            MPNet-layout vocab) on K1 and on K4, both with rel_bias; then
+            with DAWNSEARCH_COMPUTE_DTYPE=f32 on MiniLM K1 (with
+            DAWNSEARCH_WARMUP=true), K4 and the per-op path and on the
+            MPNet checkpoint's K1: 32 pages through /api/insert, 8 of them
+            queried back through /api/search at rank 1 (the first query's
+            server time printed beside the others'), the route's encoder
+            kernel counters (every other encoder counter at 0) and the
+            tier's select counter read from /api/metrics
 
 The last two lines of a full run are a JSON line of per-kernel results
 and {"ok": true, "device": {...}}. Times are CUDA-event medians of 10
@@ -128,6 +140,10 @@ MINILM_W, BASE_W, LARGE_W = (384, 12, 1536), (768, 12, 3072), (1024, 16, 4096)
 K1_SHAPES = ((MINILM_W, 64, 128), (MINILM_W, 8, 512), (MINILM_W, 64, 16),
              (BASE_W, 64, 128), (LARGE_W, 8, 512))
 K4_SHAPES = ((MINILM_W, 64, 128), (BASE_W, 64, 128), (LARGE_W, 8, 512))
+# the f32 instances (compute_dtype = "f32"), each entry at its route's
+# serving shapes: K1 at MiniLM and BERT-base (64, 128), K4 at the same two
+K1_F32_SHAPES = (K1_SHAPES[0], K1_SHAPES[3])
+K4_F32_SHAPES = K4_SHAPES[:2]
 # K1 and K4 with MPNet's relative-position bias (rel_bias), at
 # all-mpnet-base-v2's width: (B, S), the first the entry's headline shape
 REL_SHAPES = ((64, 128), (8, 512))
@@ -159,9 +175,11 @@ REL_BUCKETS = MPNET_CONFIG["relative_attention_num_buckets"]
 K5_SHAPES = ((384, 12, 64, 128), (384, 12, 8, 512), (384, 12, 64, 16),
              (768, 12, 64, 128))
 K6_SHAPES = ((312, 12, 64, 128), (312, 12, 8, 512), *K5_SHAPES)
+K5_F32_SHAPES, K6_F32_SHAPES = K5_SHAPES[:2], K6_SHAPES[:2]
 # (rows, H, I): a B=64, S=128 batch at three widths, and one B=1 query
 FFN_SHAPES = ((64 * 128, 384, 1536), (64 * 128, 768, 3072),
               (64 * 128, 312, 1200), (128, 384, 1536))
+FFN_F32_SHAPES = (FFN_SHAPES[0], FFN_SHAPES[1], FFN_SHAPES[3])
 POOL_SHAPES = ((64, 128, 384), (8, 512, 384))
 TINYBERT = dict(hidden_size=312, num_heads=12, intermediate_size=1200,
                 num_layers=4)
@@ -176,6 +194,13 @@ COS_MIN = 0.999          # bf16 bound of the reference (test_pallas_kernels.py)
 # K5-K7 vs their plain twins: the same bf16 rounding points, f32 sums in
 # another order; K8 is f32 throughout
 KERNEL_COS_MIN, POOL_ERR_MAX = 0.9999, 1e-5
+# the f32 instances vs their twins run at f32 with TF32 off: f32 sums in
+# another order. K1: max |d| and per-token cosine; K4: per-token cosine at
+# its f32 CPU bound (tests/test_torch_layer_i8.py: one ulp can flip a
+# re-quantized code); K5-K7: max |d| relative to the output's scale and
+# per-row cosine
+F32_ERR_MAX, F32_COS_MIN, K4_F32_COS_MIN = 1e-4, 0.99999, 0.99995
+F32_REL_ERR_MAX = 1e-5
 RAW_RECALL_MIN, RERANK_RECALL_MIN = 0.95, 0.99
 # bf16-query select variants vs their plain twin: f32 sums of the same
 # bf16 products in another order differ by a few ulps of the dot, which
@@ -199,33 +224,49 @@ COUNTER = {"bert_layer": "kernel_bert_layer",
            "select_i4_qbf16": "kernel_select_i4_qbf16",
            "attention_packed": "kernel_attention_packed",
            "attention": "kernel_attention", "ffn": "kernel_ffn",
-           "mean_pool": "kernel_mean_pool"}
-ENCODER_COUNTERS = ("kernel_bert_layer", "kernel_bert_layer_i8",
-                    "kernel_bert_layer_rel", "kernel_bert_layer_i8_rel",
-                    "kernel_attention_packed", "kernel_attention", "kernel_ffn",
-                    "kernel_mean_pool")
+           "mean_pool": "kernel_mean_pool",
+           "bert_layer_f32": "kernel_bert_layer_f32",
+           "bert_layer_rel_f32": "kernel_bert_layer_rel_f32",
+           "bert_layer_i8_f32": "kernel_bert_layer_i8_f32",
+           "attention_packed_f32": "kernel_attention_packed_f32",
+           "attention_f32": "kernel_attention_f32",
+           "ffn_f32": "kernel_ffn_f32"}
+# every encoder kernel's counter (ops/layer.py, ops/attention.py, ops/ffn.py)
+ENCODER_COUNTERS = (
+    *(f"kernel_bert_layer{k}{r}{f}" for k in ("", "_i8") for r in ("", "_rel")
+      for f in ("", "_f32")),
+    "kernel_attention_packed", "kernel_attention",
+    "kernel_attention_packed_f32", "kernel_attention_f32", "kernel_ffn",
+    "kernel_ffn_f32", "kernel_mean_pool")
 # select launch counters (ops/scan_select.VARIANTS) by node tier
 NODE_SELECT = {"i8": "kernel_select", "i4": "kernel_select_i4",
                "bf16": "kernel_select_bf16"}
 PER_OP_ENV = {"DAWNSEARCH_LAYER_IMPL": "ops", "DAWNSEARCH_POOL_IMPL": "fused"}
 K4_ENV = {"DAWNSEARCH_LAYER_IMPL": "layer_i8"}
-K1, K4 = ("kernel_bert_layer",), ("kernel_bert_layer_i8",)
-K1R, K4R = ("kernel_bert_layer_rel",), ("kernel_bert_layer_i8_rel",)
-K5K6 = ("kernel_attention_packed", "kernel_attention")
-# (label, tier, extra environment, encoder counters that must rise,
-# encoder counters that must stay 0, model: None for the node's seeded
+F32_ENV = {"DAWNSEARCH_COMPUTE_DTYPE": "f32"}
+WARMUP_ENV = {"DAWNSEARCH_WARMUP": "true"}
+PER_OP = ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool")
+# (label, tier, extra environment, encoder counters that must rise (every
+# other encoder counter must stay 0), model: None for the node's seeded
 # MiniLM weights, "base" / "mpnet" for the seeded BERT-base /
 # all-mpnet-base-v2 checkpoint)
 NODE_RUNS = (
-    *((t, t, {}, K1, K4 + K1R + K4R, None) for t in NODE_TIERS),
-    ("i8-ops", "i8", PER_OP_ENV,
-     ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"),
-     K1 + K4 + K1R + K4R, None),
-    ("i8-k4", "i8", K4_ENV, K4, K1 + K1R + K4R, None),
-    ("base", "i8", {}, K1, K4 + K1R + K4R, "base"),
-    ("base-k4", "i8", K4_ENV, K4, K1 + K1R + K4R, "base"),
-    ("mpnet", "i8", {}, K1R, K1 + K4 + K4R + K5K6, "mpnet"),
-    ("mpnet-k4", "i8", K4_ENV, K4R, K1 + K4 + K1R + K5K6, "mpnet"))
+    *((t, t, {}, ("kernel_bert_layer",), None) for t in NODE_TIERS),
+    ("i8-ops", "i8", PER_OP_ENV, PER_OP, None),
+    ("i8-k4", "i8", K4_ENV, ("kernel_bert_layer_i8",), None),
+    ("base", "i8", {}, ("kernel_bert_layer",), "base"),
+    ("base-k4", "i8", K4_ENV, ("kernel_bert_layer_i8",), "base"),
+    ("mpnet", "i8", {}, ("kernel_bert_layer_rel",), "mpnet"),
+    ("mpnet-k4", "i8", K4_ENV, ("kernel_bert_layer_i8_rel",), "mpnet"),
+    # compute_dtype = "f32": the f32 instance of each route's kernels; the
+    # first also warms the encoder's bucket grid up before it serves
+    ("f32", "i8", {**F32_ENV, **WARMUP_ENV}, ("kernel_bert_layer_f32",), None),
+    ("f32-k4", "i8", {**F32_ENV, **K4_ENV}, ("kernel_bert_layer_i8_f32",),
+     None),
+    ("f32-ops", "i8", {**F32_ENV, **PER_OP_ENV},
+     ("kernel_attention_packed_f32", "kernel_ffn_f32", "kernel_mean_pool"),
+     None),
+    ("mpnet-f32", "i8", F32_ENV, ("kernel_bert_layer_rel_f32",), "mpnet"))
 
 TEXTS = [
     "the lighthouse keeper climbed the spiral stairs every night to trim the wick and watch the storm roll over the black rocks",
@@ -367,14 +408,15 @@ def _layer_weights(rng: np.random.Generator, H: int, I: int, dev,
             mat(H, I), vec(I), mat(I, H), vec(H), vec(H, 1.0), vec(H)]
 
 
-def library_layer(weights: list, H: int, I: int, nh: int, eps: float = 1e-12):
-    """torch's TransformerEncoderLayer (post-LN, erf GELU) in bf16 with the
-    K1 weights: the one PyTorch call that computes the same layer. It is
-    K1's library yardstick only; the port never calls it."""
+def library_layer(weights: list, H: int, I: int, nh: int, eps: float = 1e-12,
+                  dtype=torch.bfloat16):
+    """torch's TransformerEncoderLayer (post-LN, erf GELU) in `dtype` with
+    the K1 weights: the one PyTorch call that computes the same layer. It
+    is K1's library yardstick only; the port never calls it."""
     wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = weights
     lay = torch.nn.TransformerEncoderLayer(
         H, nh, I, dropout=0.0, activation="gelu", layer_norm_eps=eps,
-        batch_first=True, device=wqkv.device, dtype=torch.bfloat16).eval()
+        batch_first=True, device=wqkv.device, dtype=dtype).eval()
     with torch.no_grad():
         for dst, src in ((lay.self_attn.in_proj_weight, wqkv.T),
                          (lay.self_attn.in_proj_bias, bqkv),
@@ -395,11 +437,24 @@ def layer_flops(B: int, S: int, H: int, I: int) -> tuple[int, int]:
 
 
 def k1_bound(B: int, S: int, H: int, I: int, x, weights, rel=None) -> dict:
-    """Projections and attention at the bf16 peak; bytes: x, y, the
-    weights, the (B, S) key bias and the (nh, S, S) rel_bias if any (its
-    B·nh·S² adds are left out: < 0.1% of the operations)."""
-    return bound(sum(layer_flops(B, S, H, I)), "bf16",
+    """Projections and attention at the peak of x's dtype (bf16 or f32);
+    bytes: x, y, the weights, the (B, S) key bias and the (nh, S, S)
+    rel_bias if any (its B·nh·S² adds are left out: < 0.1% of the
+    operations)."""
+    return bound(sum(layer_flops(B, S, H, I)), _tag(x.dtype),
                  2 * nbytes(x) + nbytes(*weights, rel) + B * S * 4)
+
+
+def _tag(dtype) -> str:
+    """The PEAK_OPS key and shape tag of a compute dtype."""
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def _f32_twins() -> None:
+    """The f32 entries hold each kernel to its twin run in f32: the twin's
+    products must be true f32 products, not TF32."""
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 is on: the f32 twins would not be f32")
 
 
 def _token_check(got, want, mask) -> tuple[float, float, bool]:
@@ -411,27 +466,51 @@ def _token_check(got, want, mask) -> tuple[float, float, bool]:
     return err, float(cos.min()), bool(torch.isfinite(got).all())
 
 
+def _layer_ok(err: float, cos: float, pooled: float, finite: bool,
+              dtype) -> bool:
+    """K1 against its twin: the reference's bf16 cosine bound on tokens
+    and pooled rows, or max |d| <= 1e-4 and token cosine >= 0.99999 in
+    f32."""
+    if dtype == torch.float32:
+        return finite and err <= F32_ERR_MAX and cos >= F32_COS_MIN
+    return finite and cos > COS_MIN and pooled > COS_MIN
+
+
 def phase_k1(results: list) -> None:
-    from dawnsearch_tpu_torch.ops import layer
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    shapes, made = [], {}
-    for (H, nh, I), B, S in K1_SHAPES:
-        if (H, I) not in made:
-            weights = _layer_weights(rng, H, I, dev)
-            made[(H, I)] = weights, library_layer(weights, H, I, nh)
-        weights, lib = made[(H, I)]
+    made: dict = {}
+    results.append(k1_entry(rng, dev, K1_SHAPES, torch.bfloat16, made))
+    phase_k1_rel(results, rng, made[BASE_W[0], BASE_W[2], torch.bfloat16][0])
+    _f32_twins()
+    results.append(k1_entry(rng, dev, K1_F32_SHAPES, torch.float32, made))
+    phase_k1_rel(results, rng, made[BASE_W[0], BASE_W[2], torch.float32][0])
+
+
+def k1_entry(rng: np.random.Generator, dev, k1_shapes, dtype,
+             made: dict) -> dict:
+    """K1 at `dtype` vs bert_layer_plain at each shape, ragged masks, timed
+    beside torch's TransformerEncoderLayer on the same weights (fast
+    path); weights are made once per width and dtype into `made`."""
+    from dawnsearch_tpu_torch.ops import layer
+    shapes = []
+    for (H, nh, I), B, S in k1_shapes:
+        if (H, I, dtype) not in made:
+            weights = _layer_weights(rng, H, I, dev, dtype)
+            made[H, I, dtype] = weights, library_layer(weights, H, I, nh,
+                                                       dtype=dtype)
+        weights, lib = made[H, I, dtype]
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
-                             ).to(dev, torch.bfloat16)
+                             ).to(dev, dtype)
         mask, bias = _ragged(rng, B, S, dev)
         got = layer.fused_bert_layer(x, bias, *weights, nh=nh).float()
         want = layer.bert_layer_plain(x, bias, *weights, nh=nh).float()
         torch.cuda.synchronize()
         err, cos, finite = _token_check(got, want, mask)
         m = mask[..., None].float()
-        pooled = torch.nn.functional.cosine_similarity(
-            (got * m).sum(1), (want * m).sum(1), dim=-1)
-        ok = finite and cos > COS_MIN and float(pooled.min()) > COS_MIN
+        pooled = float(torch.nn.functional.cosine_similarity(
+            (got * m).sum(1), (want * m).sum(1), dim=-1).min())
+        ok = _layer_ok(err, cos, pooled, finite, dtype)
         with torch.inference_mode():
             lib_out = lib(x, src_key_padding_mask=~mask).float()
             lib_cos = float(torch.nn.functional.cosine_similarity(
@@ -441,15 +520,15 @@ def phase_k1(results: list) -> None:
         plain_ms = cuda_ms(lambda: layer.bert_layer_plain(x, bias, *weights,
                                                           nh=nh))
         bd = k1_bound(B, S, H, I, x, weights)
-        shape = f"B={B} S={S} H={H} nh={nh} I={I} bf16"
-        say(f"phase k1 {shape}: max|d|={err:.3e} min token cos={cos:.6f} "
-            f"min pooled cos={float(pooled.min()):.6f} kernel {ms:.3f} ms "
+        shape = f"B={B} S={S} H={H} nh={nh} I={I} {_tag(dtype)}"
+        say(f"phase k1 {shape}: max|d|={err:.3e} min token cos={cos:.7f} "
+            f"min pooled cos={pooled:.7f} kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms (min token "
             f"cos vs plain {lib_cos:.4f}) bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']})")
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"{shape} (cos bound {COS_MIN})")
+                                 f"{shape}")
         if not lib_cos >= 0.99:  # NaN fails too
             raise AssertionError(f"the library layer computes another "
                                  f"function (token cos {lib_cos:.4f})")
@@ -458,11 +537,12 @@ def phase_k1(results: list) -> None:
                        **bd, "library_ms": library_ms})
     # the entry's numbers are the first (serving-batch) shape's; the
     # others ride along
-    results.append({"name": "bert_layer", "route": "cuda",
-                    "source": "dawnsearch_tpu_torch/csrc/layer.cu",
-                    "replaces": "dawnsearch_tpu/ops/layer.py:275",
-                    **shapes[0], "other_shapes": shapes[1:]})
-    phase_k1_rel(results, rng, made[BASE_W[0], BASE_W[2]][0])
+    return {"name": "bert_layer" + ("_f32" if dtype == torch.float32 else ""),
+            "route": "cuda",
+            "source": "dawnsearch_tpu_torch/csrc/layer.cu",
+            "replaces": "dawnsearch_tpu/ops/layer.py:275"
+                        + (" (f32)" if dtype == torch.float32 else ""),
+            **shapes[0], "other_shapes": shapes[1:]}
 
 
 def _rel_bias(rng: np.random.Generator, S: int, nh: int, dev):
@@ -477,20 +557,21 @@ def _rel_bias(rng: np.random.Generator, S: int, nh: int, dev):
 def phase_k1_rel(results: list, rng: np.random.Generator,
                  weights: list) -> None:
     """K1 with MPNet's rel_bias at all-mpnet-base-v2's width, on the
-    BERT-base entry's weights, vs bert_layer_plain with the same operand
-    (per-token cosine >= KERNEL_COS_MIN), timed beside K1 without it. The
+    BERT-base entry's weights (their dtype is the entry's), vs
+    bert_layer_plain with the same operand (bf16: per-token cosine >=
+    KERNEL_COS_MIN; f32: K1's f32 bound), timed beside K1 without it. The
     library yardstick is the same TransformerEncoderLayer with rel_bias
     plus the key mask as one float (B·nh, S, S) src_mask, off torch's MHA
     fast path (which reads a float 3-D mask as a boolean one and returns
     NaN)."""
     from dawnsearch_tpu_torch.ops import layer
     H, nh, I = BASE_W
-    dev = weights[0].device
-    lib = library_layer(weights, H, I, nh, eps=MPNET_EPS)
+    dev, dtype = weights[0].device, weights[0].dtype
+    lib = library_layer(weights, H, I, nh, eps=MPNET_EPS, dtype=dtype)
     shapes = []
     for B, S in REL_SHAPES:
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
-                             ).to(dev, torch.bfloat16)
+                             ).to(dev, dtype)
         mask, bias = _ragged(rng, B, S, dev)
         rel = _rel_bias(rng, S, nh, dev)
 
@@ -504,7 +585,7 @@ def phase_k1_rel(results: list, rng: np.random.Generator,
         torch.cuda.synchronize()
         err, cos, finite = _token_check(got, want, mask)
         moved = _token_check(norel, want, mask)[1]
-        src_mask = (rel[None] + bias[:, None, None, :]).to(torch.bfloat16) \
+        src_mask = (rel[None] + bias[:, None, None, :]).to(dtype) \
             .reshape(B * nh, S, S)
         fastpath = torch.backends.mha.get_fastpath_enabled()
         torch.backends.mha.set_fastpath_enabled(False)
@@ -521,16 +602,17 @@ def phase_k1_rel(results: list, rng: np.random.Generator,
         plain_ms = cuda_ms(lambda: layer.bert_layer_plain(
             x, bias, *weights, nh=nh, eps=MPNET_EPS, rel_bias=rel))
         bd = k1_bound(B, S, H, I, x, weights, rel)
-        shape = f"B={B} S={S} H={H} nh={nh} I={I} bf16 rel_bias"
-        say(f"phase k1 {shape}: max|d|={err:.3e} min token cos={cos:.6f} "
+        shape = f"B={B} S={S} H={H} nh={nh} I={I} {_tag(dtype)} rel_bias"
+        say(f"phase k1 {shape}: max|d|={err:.3e} min token cos={cos:.7f} "
             f"(without rel {moved:.4f}) kernel {ms:.3f} ms, without rel "
             f"{norel_ms:.3f} ms, plain {plain_ms:.3f} ms library "
             f"{library_ms:.3f} ms (min token cos vs plain {lib_cos:.4f}) "
             f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-        if not (finite and cos >= KERNEL_COS_MIN):
+        ok = (_layer_ok(err, cos, 1.0, finite, dtype)
+              if dtype == torch.float32 else finite and cos >= KERNEL_COS_MIN)
+        if not ok:
             raise AssertionError(f"K1 with rel_bias disagrees with its plain "
-                                 f"version at {shape} (cos bound "
-                                 f"{KERNEL_COS_MIN})")
+                                 f"version at {shape}")
         if not lib_cos >= 0.99:  # NaN fails too
             raise AssertionError(f"the library layer computes another "
                                  f"function (token cos {lib_cos:.4f})")
@@ -538,19 +620,23 @@ def phase_k1_rel(results: list, rng: np.random.Generator,
                        "min_token_cos": cos, "min_token_cos_without_rel": moved,
                        "ms": ms, "norel_ms": norel_ms, "plain_ms": plain_ms,
                        **bd, "library_ms": library_ms})
-    results.append({"name": "bert_layer_rel", "route": "cuda",
+    f32 = dtype == torch.float32
+    results.append({"name": "bert_layer_rel" + ("_f32" if f32 else ""),
+                    "route": "cuda",
                     "source": "dawnsearch_tpu_torch/csrc/attention.cu",
-                    "replaces": "dawnsearch_tpu/ops/layer.py:275 (rel_bias)",
+                    "replaces": "dawnsearch_tpu/ops/layer.py:275 (rel_bias"
+                                + (", f32)" if f32 else ")"),
                     **shapes[0], "other_shapes": shapes[1:]})
 
 
 def k4_bound(B: int, S: int, H: int, I: int, x, qweights: list,
              rel=None) -> dict:
-    """The four projections at the int8 peak plus attention at the bf16
-    peak, or the bytes (x, y, i8 weights, scales, biases, key bias, the
-    rel_bias if any) over the HBM bandwidth, whichever is larger."""
+    """The four projections at the int8 peak plus attention at the peak
+    of x's dtype (bf16 or f32), or the bytes (x, y, i8 weights, scales,
+    biases, key bias, the rel_bias if any) over the HBM bandwidth,
+    whichever is larger."""
     proj, attn = layer_flops(B, S, H, I)
-    t_ops = (proj / PEAK_OPS["int8"] + attn / PEAK_OPS["bf16"]) * 1e3
+    t_ops = (proj / PEAK_OPS["int8"] + attn / PEAK_OPS[_tag(x.dtype)]) * 1e3
     t_bytes = (2 * nbytes(x) + nbytes(*qweights, rel) + B * S * 4) \
         / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -559,24 +645,35 @@ def k4_bound(B: int, S: int, H: int, I: int, x, qweights: list,
 
 def phase_k4(results: list) -> None:
     """K4 against bert_layer_i8_plain on ragged masks at MiniLM, BERT-base
-    and BERT-large widths, each timed beside K1 on the same f32 weights
-    (bf16 for K1, i8 codes and scales from quant_cols for K4); then a
+    and BERT-large widths in bf16, and at the first two in f32 (the f32
+    instance), each timed beside K1 on the same f32 weights (K1's in the
+    entry's dtype, i8 codes and scales from quant_cols for K4); then a
     12-layer BERT-base-width encode_batch on K1 and on K4 at B = 1 and 64,
     S = 128, as device time (CUDA-graph replays). No single PyTorch call
     computes a W8A8 layer, so there is no library time."""
-    from dawnsearch_tpu_torch.ops import layer
     rng = np.random.default_rng(14)
     dev = torch.device("cuda")
+    results.append(k4_entry(rng, dev, K4_SHAPES, torch.bfloat16))
+    phase_k4_rel(results, rng, dev)
+    _f32_twins()
+    results.append(k4_entry(rng, dev, K4_F32_SHAPES, torch.float32))
+    for family in ("bert", "mpnet"):
+        encode_base(rng, dev, family)
+
+
+def k4_entry(rng: np.random.Generator, dev, k4_shapes, dtype) -> dict:
+    from dawnsearch_tpu_torch.ops import layer
+    cos_min = K4_F32_COS_MIN if dtype == torch.float32 else KERNEL_COS_MIN
     shapes = []
-    for (H, nh, I), B, S in K4_SHAPES:
+    for (H, nh, I), B, S in k4_shapes:
         f32 = _layer_weights(rng, H, I, dev, dtype=torch.float32)
-        k1w = [t.bfloat16() if t.ndim == 2 else t for t in f32]
+        k1w = [t.to(dtype) if t.ndim == 2 else t for t in f32]
         # quantized on the CPU from the f32 matrices, as the model does at load
         k4w = [tuple(q.to(dev) for q in layer.quant_cols(t.cpu()))
                if t.ndim == 2 else t for t in f32]
         flat = [t for w in k4w for t in (w if isinstance(w, tuple) else (w,))]
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
-                             ).to(dev, torch.bfloat16)
+                             ).to(dev, dtype)
         mask, bias = _ragged(rng, B, S, dev)
         got = layer.fused_bert_layer_i8(x, bias, *k4w, nh=nh)
         want = layer.bert_layer_i8_plain(x, bias, *k4w, nh=nh)
@@ -589,26 +686,25 @@ def phase_k4(results: list) -> None:
         plain_ms = cuda_ms(lambda: layer.bert_layer_i8_plain(x, bias, *k4w,
                                                              nh=nh))
         bd = k4_bound(B, S, H, I, x, flat)
-        shape = f"B={B} S={S} H={H} nh={nh} I={I} bf16 W8A8"
-        say(f"phase k4 {shape}: max|d|={err:.3e} min token cos={cos:.6f} "
+        shape = f"B={B} S={S} H={H} nh={nh} I={I} {_tag(dtype)} W8A8"
+        say(f"phase k4 {shape}: max|d|={err:.3e} min token cos={cos:.7f} "
             f"(vs K1 {k1_cos:.6f}) kernel {ms:.3f} ms K1 {k1_ms:.3f} ms "
             f"(K4/K1 {ms / k1_ms:.3f}) plain {plain_ms:.3f} ms bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-        if not (finite and cos >= KERNEL_COS_MIN):
+        if not (finite and cos >= cos_min):
             raise AssertionError(f"K4 disagrees with its plain version at "
-                                 f"{shape} (cos bound {KERNEL_COS_MIN})")
+                                 f"{shape} (cos bound {cos_min})")
         shapes.append({"shape": shape, "max_abs_err": err,
                        "min_token_cos": cos, "min_token_cos_vs_k1": k1_cos,
                        "ms": ms, "k1_ms": k1_ms, "plain_ms": plain_ms, **bd,
                        "library_ms": None})
         del f32, k1w, k4w, flat
-    results.append({"name": "bert_layer_i8", "route": "cuda",
-                    "source": "dawnsearch_tpu_torch/csrc/layer_i8.cu",
-                    "replaces": "dawnsearch_tpu/ops/layer.py:318",
-                    **shapes[0], "other_shapes": shapes[1:]})
-    phase_k4_rel(results, rng, dev)
-    for family in ("bert", "mpnet"):
-        encode_base(rng, dev, family)
+    f32 = dtype == torch.float32
+    return {"name": "bert_layer_i8" + ("_f32" if f32 else ""), "route": "cuda",
+            "source": "dawnsearch_tpu_torch/csrc/layer_i8.cu",
+            "replaces": "dawnsearch_tpu/ops/layer.py:318"
+                        + (" (f32)" if f32 else ""),
+            **shapes[0], "other_shapes": shapes[1:]}
 
 
 def phase_k4_rel(results: list, rng: np.random.Generator, dev) -> None:
@@ -847,27 +943,41 @@ def _row_cos(got, want, width: int) -> torch.Tensor:
         got.float().reshape(-1, width), want.float().reshape(-1, width), dim=-1)
 
 
+def _per_op_check(got, want, width: int) -> tuple[float, float, bool]:
+    """K5-K7 against their twins: max |d|, min per-row cosine, and the
+    bound of the output's dtype (bf16: cosine >= KERNEL_COS_MIN; f32: max
+    |d| <= F32_REL_ERR_MAX of the output's scale and cosine >=
+    F32_COS_MIN)."""
+    got32, want32 = got.float(), want.float()
+    err = float((got32 - want32).abs().max())
+    cos = float(_row_cos(got32, want32, width).min())
+    ok = bool(torch.isfinite(got32).all())
+    if got.dtype == torch.float32:
+        ok = ok and err <= F32_REL_ERR_MAX * float(want32.abs().max()) \
+            and cos >= F32_COS_MIN
+    else:
+        ok = ok and cos >= KERNEL_COS_MIN
+    return err, cos, ok
+
+
 def _check_attention(tag: str, shape: str, kernel, plain, library, width,
                      flops: float, nbytes_: int) -> dict:
-    """One attention kernel call vs its plain twin (per-row cosine) and
-    vs the library call; all three timed."""
+    """One attention kernel call vs its plain twin (per-row cosine, and
+    max |d| in f32) and vs the library call; all three timed."""
     got, want = kernel(), plain()
     lib_out = library()
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    cos = float(_row_cos(got, want, width).min())
+    err, cos, ok = _per_op_check(got, want, width)
     lib_cos = float(_row_cos(lib_out, want, width).min())
-    ok = bool(torch.isfinite(got.float()).all()) and cos >= KERNEL_COS_MIN
     ms, plain_ms, library_ms = (graph_ms(kernel), graph_ms(plain),
                                 graph_ms(library))
-    bd = bound(flops, "bf16", nbytes_)
+    bd = bound(flops, _tag(got.dtype), nbytes_)
     say(f"phase attn {tag} {shape}: max|d|={err:.3e} min row cos={cos:.7f} "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f}"
         f" ms (min row cos vs plain {lib_cos:.4f}) bound "
         f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     if not ok:
-        raise AssertionError(f"{tag} disagrees with its plain twin at {shape} "
-                             f"(cos bound {KERNEL_COS_MIN})")
+        raise AssertionError(f"{tag} disagrees with its plain twin at {shape}")
     if not lib_cos >= 0.99:  # NaN fails too
         raise AssertionError(f"the library attention computes another "
                              f"function (row cos {lib_cos:.4f})")
@@ -877,20 +987,31 @@ def _check_attention(tag: str, shape: str, kernel, plain, library, width,
 
 def phase_attn(results: list) -> None:
     """K5 reads q, k, v as column slices of one (B, S, 3H) projection
-    output, as the encoder hands them over; K6 takes (B, nh, S, hd). The
-    library yardstick is scaled_dot_product_attention with the same key
-    mask (the port never calls it)."""
+    output, as the encoder hands them over; K6 takes (B, nh, S, hd). Each
+    in bf16 at every shape and in f32 (its f32 instance) at the first two.
+    The library yardstick is scaled_dot_product_attention in the same
+    dtype with the same key mask (the port never calls it)."""
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    attn_entries(results, rng, dev, K5_SHAPES, K6_SHAPES, torch.bfloat16)
+    _f32_twins()
+    attn_entries(results, rng, dev, K5_F32_SHAPES, K6_F32_SHAPES,
+                 torch.float32)
+
+
+def attn_entries(results: list, rng: np.random.Generator, dev, k5_shapes,
+                 k6_shapes, dtype) -> None:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from dawnsearch_tpu_torch.ops import attention as at
-    rng = np.random.default_rng(11)
-    dev = torch.device("cuda")
+    f32 = dtype == torch.float32
+    sfx = "_f32" if f32 else ""
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)
-                                ).to(dev, torch.bfloat16)
+                                ).to(dev, dtype)
     packed = []
-    for H, nh, B, S in K5_SHAPES:
+    for H, nh, B, S in k5_shapes:
         hd = H // nh
         qkv = randn(B, S, 3 * H)
         q, k, v = qkv.split(H, dim=-1)
@@ -898,71 +1019,80 @@ def phase_attn(results: list) -> None:
 
         def heads(t):
             return t.reshape(B, S, nh, hd).transpose(1, 2)
-        out = torch.empty((B, S, H), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((B, S, H), dtype=dtype, device=dev)
         packed.append(_check_attention(
-            "K5", f"B={B} S={S} H={H} hd={hd} bf16",
+            "K5", f"B={B} S={S} H={H} hd={hd} {_tag(dtype)}",
             lambda: at.fused_attention_packed(q, k, v, bias, nh),
             lambda: at.attention_packed_plain(q, k, v, bias, nh),
             lambda: sdpa(heads(q), heads(k), heads(v),
                          attn_mask=mask[:, None, None, :]
                          ).transpose(1, 2).reshape(B, S, H),
             H, 4 * B * S * S * H, nbytes(qkv, bias, out)))
-    results.append({"name": "attention_packed", "route": "cuda",
+    results.append({"name": "attention_packed" + sfx, "route": "cuda",
                     "source": "dawnsearch_tpu_torch/csrc/attention.cu",
-                    "replaces": "dawnsearch_tpu/ops/attention.py:198",
+                    "replaces": "dawnsearch_tpu/ops/attention.py:198"
+                                + (" (f32)" if f32 else ""),
                     **packed[0], "other_shapes": packed[1:]})
     head_major = []
-    for H, nh, B, S in K6_SHAPES:
+    for H, nh, B, S in k6_shapes:
         hd = H // nh
         q, k, v = (randn(B, nh, S, hd) for _ in range(3))
         mask, bias = _ragged(rng, B, S, dev)
         out = torch.empty_like(q)
         head_major.append(_check_attention(
-            "K6", f"B={B} S={S} nh={nh} hd={hd} bf16",
+            "K6", f"B={B} S={S} nh={nh} hd={hd} {_tag(dtype)}",
             lambda: at.fused_attention(q, k, v, bias, nh),
             lambda: at.attention_plain(q, k, v, bias, nh),
             lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :]),
             hd, 4 * B * S * S * H, nbytes(q, k, v, bias, out)))
-    results.append({"name": "attention", "route": "cuda",
+    results.append({"name": "attention" + sfx, "route": "cuda",
                     "source": "dawnsearch_tpu_torch/csrc/attention.cu",
-                    "replaces": "dawnsearch_tpu/ops/attention.py:105",
+                    "replaces": "dawnsearch_tpu/ops/attention.py:105"
+                                + (" (f32)" if f32 else ""),
                     **head_major[0], "other_shapes": head_major[1:]})
 
 
 def phase_ffn(results: list) -> None:
-    """K7 at 64 x 128 rows for three widths and at one query's 128 rows;
-    no single PyTorch call computes the fused FFN + residual + LayerNorm."""
-    from dawnsearch_tpu_torch.ops import ffn
+    """K7 at 64 x 128 rows for three widths and at one query's 128 rows in
+    bf16, and at MiniLM and BERT-base widths and one query in f32 (its f32
+    instance); no single PyTorch call computes the fused FFN + residual +
+    LayerNorm."""
     rng = np.random.default_rng(12)
     dev = torch.device("cuda")
+    results.append(ffn_entry(rng, dev, FFN_SHAPES, torch.bfloat16))
+    _f32_twins()
+    results.append(ffn_entry(rng, dev, FFN_F32_SHAPES, torch.float32))
+
+
+def ffn_entry(rng: np.random.Generator, dev, ffn_shapes, dtype) -> dict:
+    from dawnsearch_tpu_torch.ops import ffn
     shapes = []
-    for M, H, I in FFN_SHAPES:
+    for M, H, I in ffn_shapes:
         x = torch.from_numpy(rng.standard_normal((M, H), np.float32)
-                             ).to(dev, torch.bfloat16)
-        weights = _layer_weights(rng, H, I, dev)[6:]
+                             ).to(dev, dtype)
+        weights = _layer_weights(rng, H, I, dev, dtype)[6:]
         got = ffn.fused_ffn(x, *weights)
         want = ffn.ffn_plain(x, *weights)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        cos = float(_row_cos(got, want, H).min())
-        ok = bool(torch.isfinite(got.float()).all()) and cos >= KERNEL_COS_MIN
+        err, cos, ok = _per_op_check(got, want, H)
         ms = graph_ms(lambda: ffn.fused_ffn(x, *weights))
         plain_ms = graph_ms(lambda: ffn.ffn_plain(x, *weights))
-        bd = bound(4 * M * H * I, "bf16", 2 * nbytes(x) + nbytes(*weights))
-        shape = f"M={M} H={H} I={I} bf16"
+        bd = bound(4 * M * H * I, _tag(x.dtype), 2 * nbytes(x) + nbytes(*weights))
+        shape = f"M={M} H={H} I={I} {_tag(dtype)}"
         say(f"phase ffn {shape}: max|d|={err:.3e} min row cos={cos:.7f} "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         if not ok:
-            raise AssertionError(f"K7 disagrees with ffn_plain at {shape} "
-                                 f"(cos bound {KERNEL_COS_MIN})")
+            raise AssertionError(f"K7 disagrees with ffn_plain at {shape}")
         shapes.append({"shape": shape, "max_abs_err": err, "min_row_cos": cos,
                        "ms": ms, "plain_ms": plain_ms, **bd,
                        "library_ms": None})
-    results.append({"name": "ffn", "route": "cuda",
-                    "source": "dawnsearch_tpu_torch/csrc/ffn.cu",
-                    "replaces": "dawnsearch_tpu/ops/ffn.py:89",
-                    **shapes[0], "other_shapes": shapes[1:]})
+    f32 = dtype == torch.float32
+    return {"name": "ffn" + ("_f32" if f32 else ""), "route": "cuda",
+            "source": "dawnsearch_tpu_torch/csrc/ffn.cu",
+            "replaces": "dawnsearch_tpu/ops/ffn.py:89"
+                        + (" (f32)" if f32 else ""),
+            **shapes[0], "other_shapes": shapes[1:]}
 
 
 def phase_pool(results: list) -> None:
@@ -1289,35 +1419,37 @@ def phase_ops(counts: dict) -> None:
     # all-mpnet-base-v2's width and family at 2 layers
     mpnet = dict(dataclasses.asdict(MPNET_BASE), vocab_size=len(mp_vocab),
                  num_layers=2, dtype=torch.bfloat16)
-    # (label, config, counters that must rise, counters that must stay 0)
+    f32 = dict(dtype=torch.float32)
+    # (label, config, counters that must rise; every other encoder counter
+    # must stay 0)
     k1, k4 = "kernel_bert_layer", "kernel_bert_layer_i8"
-    rel = {"kernel_bert_layer_rel", "kernel_bert_layer_i8_rel"}
     runs = (
-        ("minilm layer", dict(minilm), {k1}, {k4}),
-        ("minilm layer_i8", dict(minilm, layer_impl="layer_i8"), {k4},
-         {k1, "kernel_attention_packed", "kernel_attention", "kernel_ffn"}),
+        ("minilm layer", dict(minilm), {k1}),
+        ("minilm layer_i8", dict(minilm, layer_impl="layer_i8"), {k4}),
         ("minilm ops+fused pool", dict(minilm, layer_impl="ops",
                                        pool_impl="fused"),
-         {"kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"},
-         {k1, k4, "kernel_attention"}),
+         {"kernel_attention_packed", "kernel_ffn", "kernel_mean_pool"}),
         ("minilm ops", dict(minilm, layer_impl="ops"),
-         {"kernel_attention_packed", "kernel_ffn"},
-         {k1, k4, "kernel_attention", "kernel_mean_pool"}),
+         {"kernel_attention_packed", "kernel_ffn"}),
         ("minilm attn_impl=xla", dict(minilm, attn_impl="xla"),
-         {"kernel_ffn"}, {k1, k4, "kernel_attention_packed",
-                          "kernel_attention", "kernel_mean_pool"}),
+         {"kernel_ffn"}),
         ("tinybert layer", dict(tiny, layer_impl="layer"),
-         {"kernel_attention", "kernel_ffn"},
-         {k1, k4, "kernel_attention_packed", "kernel_mean_pool"}),
+         {"kernel_attention", "kernel_ffn"}),
         # under MPNet's position bias the per-op path takes einsum
         # attention, never K5 or K6 (as the reference does), and K7
-        ("mpnet ops", dict(mpnet, layer_impl="ops"), {"kernel_ffn"},
-         {k1, k4, *rel, "kernel_attention_packed", "kernel_attention",
+        ("mpnet ops", dict(mpnet, layer_impl="ops"), {"kernel_ffn"}),
+        # compute_dtype = "f32": the f32 instances of the same routes
+        ("minilm layer f32", dict(minilm, **f32), {k1 + "_f32"}),
+        ("minilm ops+fused pool f32", dict(minilm, layer_impl="ops",
+                                           pool_impl="fused", **f32),
+         {"kernel_attention_packed_f32", "kernel_ffn_f32",
           "kernel_mean_pool"}),
+        ("tinybert layer f32", dict(tiny, layer_impl="layer", **f32),
+         {"kernel_attention_f32", "kernel_ffn_f32"}),
     )
     trees = {}
     embs, encoders = {}, {}
-    for label, kw, up, zero in runs:
+    for label, kw, up in runs:
         cfg = BertConfig(**kw)
         tok = toks[cfg.model_type]
         key = (cfg.model_type, cfg.hidden_size, cfg.num_layers)
@@ -1333,14 +1465,19 @@ def phase_ops(counts: dict) -> None:
         cpu = SentenceEncoder(trees[key], tok, cfg=cfg,
                               device="cpu").encode(TEXTS)
         cos = float(np.min(np.sum(emb * cpu, axis=1)))
+        err = float(np.abs(emb - cpu).max())
         rose = {n: c for n, c in ran.items() if c}
+        # f32: the reference's f32 atol 1e-4 (K4's route is not run at f32
+        # here); bf16: its cosine bound
+        f32_ok = cfg.dtype != torch.float32 or err <= F32_ERR_MAX
         say(f"phase ops {label}: H={cfg.hidden_size} layers={cfg.num_layers}"
-            f", {len(TEXTS)} texts; min cos vs CPU {cos:.6f}; counters that "
-            f"rose {rose}")
-        if not (np.isfinite(emb).all() and cos >= COS_MIN
+            f", {len(TEXTS)} texts; min cos vs CPU {cos:.7f}, max|d| "
+            f"{err:.3e}; counters that rose {rose}")
+        zero = set(ENCODER_COUNTERS) - up
+        if not (np.isfinite(emb).all() and cos >= COS_MIN and f32_ok
                 and all(ran[n] for n in up) and not any(ran[n] for n in zero)):
-            raise AssertionError(f"ops {label}: cos {cos} (bound {COS_MIN}) or "
-                                 f"a wrong route: {ran}")
+            raise AssertionError(f"ops {label}: cos {cos} (bound {COS_MIN}), "
+                                 f"max|d| {err} or a wrong route: {ran}")
         embs[label], encoders[label] = emb, enc
     for label in ("minilm layer_i8", "minilm ops+fused pool", "minilm ops",
                   "minilm attn_impl=xla"):
@@ -1353,7 +1490,8 @@ def phase_ops(counts: dict) -> None:
     # of _encode (host-to-device copy included) in ENCODE_ROUNDS rounds
     # that alternate the paths' order, as median [min, max] of the rounds
     labels = ("minilm layer", "minilm ops+fused pool", "minilm ops",
-              "minilm attn_impl=xla")
+              "minilm attn_impl=xla", "minilm layer f32",
+              "minilm ops+fused pool f32")
     for B in ENCODE_BATCHES:
         texts = [TEXTS[j % len(TEXTS)] for j in range(B)]
         enc = encoders["minilm layer"]
@@ -1365,7 +1503,7 @@ def phase_ops(counts: dict) -> None:
             for label in labels}
         host: dict = {label: [] for label in labels}
         for r in range(ENCODE_ROUNDS):
-            for label in labels[r % 4:] + labels[:r % 4]:
+            for label in labels[r % len(labels):] + labels[:r % len(labels)]:
                 host[label].append(_host_ms(
                     lambda: _encode(encoders[label], ids, mask), reps=10))
         say(f"phase ops encode B={B} S={ids.shape[1]}: " + "; ".join(
@@ -1465,7 +1603,7 @@ def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
     try:
         stores: dict = {}
         total: dict = {}
-        for label, tier, env, up, zero, model in runs:
+        for label, tier, env, up, model in runs:
             env = dict(env)
             dim = 384
             if model is not None:
@@ -1486,8 +1624,7 @@ def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
                     f"{time.perf_counter() - t0:.1f} s")
             data_dir = os.path.join(work, label)
             shutil.copytree(stores[dim], data_dir)
-            for name, n in run_node(data_dir, label, tier, env, up,
-                                    zero).items():
+            for name, n in run_node(data_dir, label, tier, env, up).items():
                 total[name] = total.get(name, 0) + n
             shutil.rmtree(data_dir, ignore_errors=True)
         return total
@@ -1496,12 +1633,14 @@ def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
 
 
 def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
-             up: tuple, zero: tuple, start_timeout: float = 600.0) -> dict:
+             up: tuple, start_timeout: float = 600.0) -> dict:
     """Start the node as a user would on `data_dir` with index_dtype
     `tier` and the extra environment, insert, query, read the kernel
     counters, stop. Returns the counters' increase; fails unless the
-    encoder counters `up` and the tier's select ran and those in `zero`
-    did not."""
+    encoder counters `up` and the tier's select ran and every other
+    encoder counter did not. Prints the server time of the first query
+    beside the median of the others (a node without warmup builds and
+    loads lazily on its first requests)."""
     from dawnsearch_tpu_torch.ops.scan_select import VARIANTS
     work = os.path.dirname(data_dir)
     t0 = time.perf_counter()
@@ -1532,24 +1671,38 @@ def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
             f"{stats['pages_indexed']} pages, capacity {stats['index_capacity']}")
         names = (*ENCODER_COUNTERS, *VARIANTS.values())
         before = _http(base + "/api/metrics")
-        if any(before.get(n, 0) for n in names):
+        # only a warmed-up node has launched kernels, its route's encoder
+        # kernels, before the first request; counts below are increases
+        warm = "DAWNSEARCH_WARMUP" in env_extra
+        started = {n: before[n] for n in names if before.get(n, 0)}
+        if set(started) - (set(up) if warm else set()):
             raise AssertionError(f"kernel counters not zero at start: {before}")
+        if warm:
+            say(f"phase node {label}: warmup launched {started} before the "
+                f"first request")
         pages = [{"url": f"https://pages.example/{j}", "title": "", "text": t}
                  for j, t in enumerate(TEXTS)]
         ins = _http(base + "/api/insert", {"pages": pages})
         if len(ins["inserted"]) != len(TEXTS):
             raise AssertionError(f"insert: {ins}")
+        seconds = []
         for j in QUERIED:
             res = _http(base + "/api/search?q=" + urllib.parse.quote(TEXTS[j]))
             top = res["results"]
             dists = [round(r["distance"], 5) for r in top[:3]]
+            seconds.append(float(res["seconds"]))
             say(f"phase node {label}: query {j} -> {top[0]['url']} top-3 distances "
                 f"{dists} ({res['seconds']} s)")
             if top[0]["url"] != pages[j]["url"]:
                 raise AssertionError(f"page {j} not at rank 1: {top[:3]}")
+        say(f"phase node {label}: first query {seconds[0] * 1e3:.1f} ms, the "
+            f"other {len(seconds) - 1} median {np.median(seconds[1:]) * 1e3:.1f}"
+            f" ms ({'warmup = true' if warm else 'no warmup'})")
         after = _http(base + "/api/metrics")
         counts = {n: after.get(n, 0) - before.get(n, 0) for n in names}
-        say(f"phase node {label}: kernel launches {counts}")
+        say(f"phase node {label}: kernel launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+        zero = set(ENCODER_COUNTERS) - set(up)
         if not (all(counts[n] for n in (*up, NODE_SELECT[tier]))
                 and not any(counts[n] for n in zero)):
             raise AssertionError(f"a kernel of the path never ran, or one "

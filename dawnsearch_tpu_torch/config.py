@@ -54,6 +54,9 @@ class Config:
     # the search itself (+2 bytes/dim, no host round-trip)
     index_rerank: str = "host"
     search_k: int = 20  # results per query (search_provider.rs:214)
+    # run the encoder once on every (seq, batch <= 256) bucket at start, so
+    # the first request pays no kernel build, module load or allocator growth
+    warmup: bool = False
     # --- multi-host tier (not ported yet: node.py refuses it) ---
     dist_coordinator: str = ""
     dist_num_processes: int = 1

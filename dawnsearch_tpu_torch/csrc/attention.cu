@@ -1,4 +1,4 @@
-// K5 + K6: masked multi-head attention on Hopper (sm_90a), bf16 in / out.
+// K5 + K6: masked multi-head attention on Hopper (sm_90a), bf16 or f32.
 //
 // One kernel replaces two TPU kernels of dawnsearch_tpu/ops/attention.py:
 //   K5 fused_attention_packed (body _packed_kernel, pallas_call at :198):
@@ -7,7 +7,8 @@
 //      q, k, v (B, nh, S, hd), any head dim.
 // It is also K1's attention step (csrc/layer.cu's wrapper). A second
 // kernel at the end of this file, with f32 output and every sum in a fixed
-// order, is K4's (csrc/layer_i8.cu).
+// order, is K4's (csrc/layer_i8.cu) and, on f32 inputs, the attention of
+// every f32 variant (K1, K4, K5 and K6 at compute_dtype = "f32").
 // It takes base pointers with (batch, head, row) element strides, so K5
 // reads q, k and v as column slices of the projection's (B·S, 3H) output
 // (row stride 3H, head offset h·hd) with no split copy, and K6 reads
@@ -58,6 +59,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -69,10 +72,6 @@ constexpr int THREADS = 128;
 constexpr int S_LD = KT + 4;    // f32 score rows (a warp's 16 x KT slice)
 constexpr int P_LD = KT + 8;    // bf16 probability rows
 constexpr int MAX_S = 512;
-
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) & ~size_t(127);
-}
 
 struct Strides {
   long long b, h, r;            // elements between batches, heads, rows
@@ -313,7 +312,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 }
 
 // ---------------------------------------------------------------------------
-// K4's attention step: the same contract with an f32 output, as
+// The fixed-order kernel: K4's attention step, and the attention of every
+// f32 variant. The same contract with an f32 output, as
 // dawnsearch_tpu/ops/layer.py::_layer_kernel_i8 keeps its context in f32
 // (:199-201), and with every sum in one fixed order:
 //
@@ -321,13 +321,21 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 //   l_i  = ((p_i0 + p_i1) + ...)               over keys ascending
 //   o_id = ((p̂_i0·v_0d + p̂_i1·v_1d) + ...)     over keys ascending
 //
-// Each bf16 x bf16 product is exact in f32, so every step rounds once, as
-// a plain twin written as the same ascending loops does
-// (ops/layer.py::attention_f32_plain). Why: K4 re-quantizes the context
-// to i8 per row, and one ulp of difference in ctx can flip a code, which
-// the next three quantizations amplify; with WMMA's accumulation order a
-// few tokens in 4096 drift to a cosine of 0.9999 from a plain twin that
-// sums in another order. Fixed-order sums keep K4 and its twin equal.
+// p̂ is p rounded to bf16 for bf16 inputs (K4) and p itself for f32 inputs:
+// the reference rounds p to the compute dtype (ops/layer.py:104,
+// ops/attention.py:73,166). Every step rounds once, as a plain twin
+// written as the same ascending loops does (ops/layer.py::
+// attention_f32_plain): a bf16 x bf16 product is exact in f32, so an FMA
+// rounds as a product-then-add does; an f32 x f32 product is not, so the
+// f32 instance writes each step as __fadd_rn(acc, __fmul_rn(a, b)), which
+// nvcc cannot contract, as eager torch rounds the product and the sum.
+// Why: K4 re-quantizes the context to i8 per row, and one ulp of
+// difference in ctx can flip a code, which the next three quantizations
+// amplify; with WMMA's accumulation order a few tokens in 4096 drift to a
+// cosine of 0.9999 from a plain twin that sums in another order. Fixed-
+// order sums keep K4 and its twin equal. The H100 has no f32 MMA, and one
+// TF32 pass keeps 10 mantissa bits, so the f32 instance runs on the CUDA
+// cores too.
 //
 // Design: CUDA-core FMAs (no tensor cores). One CTA owns 32 query rows of
 // one (sequence, head) and all S of their scores, kept in shared memory
@@ -337,7 +345,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 // A thread computes a 4 x 4 block of scores (queries qb + 8i, keys
 // kb + 16j) and a 4 x DPT block of outputs; 32 threads sum l, one row
 // each. The order of every sum is the loop order above, whatever the
-// thread mapping. It costs 2·B·nh·S²·hd f32 FMAs (QKᵀ and PV once each).
+// thread mapping. It costs 2·B·nh·S²·hd f32 FMAs (QKᵀ and PV once each):
+// at 67 TFLOP/s of f32 FMA that bounds it, far above the bytes it moves.
 // rel, when given, is added to each score after the bias, as in the WMMA
 // kernel; the staged rows past the sequence's end read none (they add 0
 // and are never written out).
@@ -355,21 +364,41 @@ size_t sq_smem_bytes(int hdp, int S) {
                           SQ_QT + (size_t)S);                   // l, bias
 }
 
-// rows x hd tile of a strided bf16 source as f32 (row pitch ld); rows
-// >= valid are zero
-__device__ __forceinline__ void load_f32(float* dst, int ld, const bf16* src,
+// acc + a·b rounded as the plain twin rounds it: one FMA for bf16 inputs
+// (the product is exact), a rounded product then a rounded sum for f32
+template <typename T>
+__device__ __forceinline__ float mac(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+template <>
+__device__ __forceinline__ float mac<float>(float a, float b, float acc) {
+  return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// p̂: p rounded to the input dtype
+template <typename T>
+__device__ __forceinline__ float rounded(float p) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+template <>
+__device__ __forceinline__ float rounded<float>(float p) { return p; }
+
+// rows x hd tile of a strided source as f32 (row pitch ld); rows >= valid
+// are zero
+template <typename T>
+__device__ __forceinline__ void load_f32(float* dst, int ld, const T* src,
                                          long long rstride, int rows,
                                          int valid, int hd) {
   for (int idx = threadIdx.x; idx < rows * hd; idx += SQ_THREADS) {
     const int r = idx / hd, c = idx % hd;
-    dst[r * ld + c] = r < valid ? __bfloat162float(src[r * rstride + c]) : 0.0f;
+    dst[r * ld + c] = r < valid ? to_f32(src[r * rstride + c]) : 0.0f;
   }
 }
 
-template <int HDP>
+template <int HDP, typename T>
 __global__ void __launch_bounds__(SQ_THREADS)
-attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ bias,
+attention_seq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
                      const float* __restrict__ rel, float* __restrict__ out,
                      int S, int hd, Strides in, Strides ot, float scale) {
   constexpr int LD = sq_ld(HDP), PLD = SQ_KT + 1, DPT = HDP / 16;
@@ -378,7 +407,7 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* Qs = sm;
   float* Ts = Qs + SQ_QT * LD;        // the staged K (pass 1) or V (pass 2)
   float* Ss = Ts + SQ_KT * LD;        // every score of the CTA's rows, then p
-  float* Pb = Ss + SQ_QT * SLD;       // bf16-rounded p of one key tile
+  float* Pb = Ss + SQ_QT * SLD;       // p̂ of one key tile
   float* Ls = Pb + SQ_QT * PLD;
   float* Bs = Ls + SQ_QT;
 
@@ -424,7 +453,7 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        for (int j = 0; j < 4; ++j) sc[i][j] = mac<T>(qv[i], kv[j], sc[i][j]);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -467,7 +496,7 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float* sp = Ss + (qb + 8 * i) * SLD + k0 + key;
         const float p = expf(__fsub_rn(*sp, m[i]));
         *sp = p;
-        Pb[(qb + 8 * i) * PLD + key] = __bfloat162float(__float2bfloat16(p));
+        Pb[(qb + 8 * i) * PLD + key] = rounded<T>(p);
       }
     }
     __syncthreads();
@@ -481,7 +510,7 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const float pb = Pb[(qb + 8 * i) * PLD + j];
 #pragma unroll
-        for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(pb, vv[e], acc[i][e]);
+        for (int e = 0; e < DPT; ++e) acc[i][e] = mac<T>(pb, vv[e], acc[i][e]);
       }
     }
   }
@@ -502,20 +531,40 @@ attention_seq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HDP>
-cudaError_t launch_seq(const bf16* q, const bf16* k, const bf16* v,
+template <int HDP, typename T>
+cudaError_t launch_seq(const void* q, const void* k, const void* v,
                        const float* bias, const float* rel, float* out, int B,
                        int nh, int S, int hd, Strides in, Strides ot,
                        float scale, cudaStream_t stream) {
   const size_t smem = sq_smem_bytes(HDP, S);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_seq_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attention_seq_kernel<HDP, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + SQ_QT - 1) / SQ_QT, nh, B);
-  attention_seq_kernel<HDP><<<grid, SQ_THREADS, smem, stream>>>(
-      q, k, v, bias, rel, out, S, hd, in, ot, scale);
+  attention_seq_kernel<HDP, T><<<grid, SQ_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), bias, rel, out, S, hd, in, ot, scale);
   return cudaGetLastError();
+}
+
+// the fixed-order kernel at the padded head dim of hd
+template <typename T>
+cudaError_t launch_seq_hd(const void* q, const void* k, const void* v,
+                          const float* bias, const float* rel, float* out,
+                          int B, int nh, int S, int hd, Strides in, Strides ot,
+                          float scale, cudaStream_t s) {
+  if (hd <= 16)
+    return launch_seq<16, T>(q, k, v, bias, rel, out, B, nh, S, hd, in, ot,
+                             scale, s);
+  if (hd <= 32)
+    return launch_seq<32, T>(q, k, v, bias, rel, out, B, nh, S, hd, in, ot,
+                             scale, s);
+  if (hd <= 64)
+    return launch_seq<64, T>(q, k, v, bias, rel, out, B, nh, S, hd, in, ot,
+                             scale, s);
+  return launch_seq<128, T>(q, k, v, bias, rel, out, B, nh, S, hd, in, ot,
+                            scale, s);
 }
 
 bool aligned16(const void* p) {
@@ -528,21 +577,35 @@ extern "C" {
 
 // Masked attention of every (sequence, head): q, k and v share the
 // element strides (in_b, in_h, in_r) and have unit stride along the head
-// dim; out has (out_b, out_h, out_r), bf16 (the WMMA kernel: K1, K5, K6)
-// or, with out_f32, f32 from the fixed-order kernel (K4). bias is the
-// (B, S) f32 additive key bias; rel, nullable, the contiguous (nh, S, S)
-// f32 score bias shared by every sequence (K1's and K4's rel_bias; K5 and
-// K6 pass none). Needs 1 <= hd <= 128, S % 16 == 0, S <= 512. Returns a
-// cudaError_t.
+// dim; out has (out_b, out_h, out_r). in_f32 = 0: bf16 q, k and v, and a
+// bf16 out from the WMMA kernel (K1, K5, K6) or, with out_f32, an f32 out
+// from the fixed-order kernel (K4). in_f32 = 1: f32 q, k, v and out, the
+// fixed-order kernel with p unrounded (the f32 variants; needs out_f32).
+// bias is the (B, S) f32 additive key bias; rel, nullable, the contiguous
+// (nh, S, S) f32 score bias shared by every sequence (K1's and K4's
+// rel_bias; K5 and K6 pass none). Needs 1 <= hd <= 128, S % 16 == 0,
+// S <= 512. Returns a cudaError_t.
 int dawn_attention(const void* q, const void* k, const void* v,
                    const void* bias, const void* rel, void* out, int B, int nh,
                    int S, int hd, long long in_b, long long in_h,
                    long long in_r, long long out_b, long long out_h,
-                   long long out_r, float scale, int out_f32, void* stream) {
+                   long long out_r, float scale, int out_f32, int in_f32,
+                   void* stream) {
   if (B <= 0 || nh <= 0 || S <= 0 || S % 16 != 0 || S > MAX_S || hd <= 0 ||
-      hd > 128 || B > 65535 || nh > 65535)
+      hd > 128 || B > 65535 || nh > 65535 || (in_f32 && !out_f32))
     return (int)cudaErrorInvalidValue;
   const Strides in{in_b, in_h, in_r}, ot{out_b, out_h, out_r};
+  const float* bp = static_cast<const float*>(bias);
+  const float* rp = static_cast<const float*>(rel);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_f32) {
+    float* of = static_cast<float*>(out);
+    if (in_f32)
+      return (int)launch_seq_hd<float>(q, k, v, bp, rp, of, B, nh, S, hd, in,
+                                       ot, scale, s);
+    return (int)launch_seq_hd<bf16>(q, k, v, bp, rp, of, B, nh, S, hd, in, ot,
+                                    scale, s);
+  }
   const bool vec_in = hd % 8 == 0 && in_b % 8 == 0 && in_h % 8 == 0 &&
                       in_r % 8 == 0 && aligned16(q) && aligned16(k) &&
                       aligned16(v);
@@ -551,24 +614,7 @@ int dawn_attention(const void* q, const void* k, const void* v,
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
-  const float* bp = static_cast<const float*>(bias);
-  const float* rp = static_cast<const float*>(rel);
   bf16* op = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_f32) {
-    float* of = static_cast<float*>(out);
-    if (hd <= 16)
-      return (int)launch_seq<16>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
-                                 scale, s);
-    if (hd <= 32)
-      return (int)launch_seq<32>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
-                                 scale, s);
-    if (hd <= 64)
-      return (int)launch_seq<64>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
-                                 scale, s);
-    return (int)launch_seq<128>(qp, kp, vp, bp, rp, of, B, nh, S, hd, in, ot,
-                                scale, s);
-  }
   // one instance per power-of-two padded head dim: each instance costs
   // seconds of nvcc, and head dims between them are rare
   if (hd <= 16)

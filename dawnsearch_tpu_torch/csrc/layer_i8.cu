@@ -1,5 +1,5 @@
 // K4: one post-LN BERT layer with W8A8 projections on Hopper (sm_90a),
-// bf16 in / bf16 out.
+// bf16 in / bf16 out, or f32 in / f32 out (compute_dtype = "f32").
 //
 // Replaces the TPU kernel dawnsearch_tpu/ops/layer.py::fused_bert_layer_i8
 // (body _layer_kernel_i8 with _mm_i8, pallas_call in _layer_pallas). Same
@@ -9,13 +9,18 @@
 //                        aq  = round_half_even(a32 · (127 / s))      i8
 //                        acc = aq · Wq                  s8·s8 -> s32, exact
 //                        out = (f32(acc) · (s · f32(1/127))) · ws[col]
-//   qkv = bf16(mm_i8(f32(x), Wqkv) + bqkv)
-//   ctx = f32 attention of q, k, v (p rounded to bf16 before PV, 1/Σp from
+//   qkv = dt(mm_i8(f32(x), Wqkv) + bqkv)                dt: x's dtype
+//   ctx = f32 attention of q, k, v (p rounded to dt before PV, 1/Σp from
 //         the f32 p, no rounding of the output; every sum in one fixed
 //         order: csrc/attention.cu's out_f32 kernel)
 //   x1  = LN(mm_i8(ctx, Wo) + bo + f32(x))                         f32
 //   h   = GELU_AS(mm_i8(x1, W1) + b1)                              f32
-//   y   = bf16(LN(mm_i8(h, W2) + b2 + x1))
+//   y   = dt(LN(mm_i8(h, W2) + b2 + x1))
+//
+// At f32 (the reference's BertConfig(dtype=float32), _layer_kernel_i8 on an
+// f32 x) the projections stay W8A8, since mm_i8 quantizes f32 activations
+// anyway: x is read as f32, qkv is kept in f32, the attention takes f32
+// q, k, v with p unrounded, and y is written in f32.
 //
 // Weights Wq are (K, N) row-major i8 codes with per-column f32 scales ws,
 // quantized once from the f32 parameters (ops/layer.py::quant_cols). GELU
@@ -28,8 +33,8 @@
 // Design. The TPU kernel keeps a row block and every intermediate in VMEM;
 // here the layer is nine launches on one stream, issued by one C call
 // (dawn_bert_layer_i8):
-//   quant_rows   x (bf16) -> aq, row factor s·(1/127)        one warp a row
-//   gemm<QKV>    aq·Wqkv -> dequant + b -> qkv (M, 3H) bf16
+//   quant_rows   x (dt) -> aq, row factor s·(1/127)          one warp a row
+//   gemm<QKV>    aq·Wqkv -> dequant + b -> qkv (M, 3H) dt
 //   attention    dawn_attention (csrc/attention.cu, out_f32), q, k, v as
 //                column views of qkv -> ctx (M, H) f32
 //   quant_rows   ctx -> aq;  gemm<LN>  aq·Wo -> dequant + bo + x -> LN -> x1
@@ -57,6 +62,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -66,7 +73,7 @@ extern "C" int dawn_attention(const void* q, const void* k, const void* v,
                               long long in_h,
                               long long in_r, long long out_b, long long out_h,
                               long long out_r, float scale, int out_f32,
-                              void* stream);
+                              int in_f32, void* stream);
 
 namespace {
 
@@ -84,28 +91,11 @@ constexpr int EPI_LN = 2;               // + b + resid -> LayerNorm
 
 constexpr float INV127 = 1.0f / 127.0f;  // f32(1/127), as the reference folds it
 
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) & ~size_t(127);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16(v);
 }
 
 // four consecutive elements (16-byte aligned for f32, 8-byte for bf16)
@@ -118,28 +108,6 @@ __device__ __forceinline__ void load4(const bf16* p, float* v) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-// erf by Abramowitz & Stegun 7.1.26, each operation rounded as the
-// reference writes it (ops/layer.py:53-59)
-__device__ __forceinline__ float erf_as(float x) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
-  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float ax = fabsf(x);
-  const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(p, ax)));
-  float poly = __fadd_rn(__fmul_rn(a5, t), a4);
-  poly = __fadd_rn(__fmul_rn(poly, t), a3);
-  poly = __fadd_rn(__fmul_rn(poly, t), a2);
-  poly = __fadd_rn(__fmul_rn(poly, t), a1);
-  poly = __fmul_rn(poly, t);
-  const float y = __fsub_rn(1.0f, __fmul_rn(poly, expf(-__fmul_rn(ax, ax))));
-  return x > 0.0f ? y : (x < 0.0f ? -y : 0.0f);
-}
-
-// 0.5·h·(1 + erf(h/√2)), in the reference's order
-__device__ __forceinline__ float gelu_as(float h) {
-  const float e = erf_as(__fmul_rn(h, 0.70710678118654752f));
-  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, e));
 }
 
 // (f32(acc) · row factor) · column scale + bias
@@ -343,54 +311,36 @@ cudaError_t gemm(const int8_t* a, const float* rf, const void* wq,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// One BERT layer with W8A8 projections (K4). p holds 25 device pointers:
-//   0 x (B·S, H) bf16        1 bias (B, S) f32 additive key bias
-//   2 qkv_wq (H, 3H) i8      3 qkv_ws (3H) f32   4 qkv_b (3H) f32
-//   5 ao_wq (H, H) i8        6 ao_ws (H)         7 ao_b (H)
-//   8 aln_s (H)              9 aln_b (H)
-//  10 w1q (H, I) i8         11 w1s (I)          12 b1 (I)
-//  13 w2q (I, H) i8         14 w2s (H)          15 b2 (H)
-//  16 fln_s (H)             17 fln_b (H)
-//  18 y (B·S, H) bf16, the output
-//  scratch, with W = max(H, I):
-//          19 aq (B·S, W) i8   20 rf (B·S) f32   21 qkv (B·S, 3H) bf16
-//          22 f (B·S, W) f32 (ctx, then h)       23 x1 (B·S, H) f32
-//  24 rel (nh, S, S) f32 shared score bias (MPNet's rel_bias), or null
-// Needs H = nh·hd with hd <= 128, H % 128 == 0, I % 128 == 0, S % 16 == 0,
-// S <= 512, 16-byte aligned pointers. Returns a cudaError_t.
-int dawn_bert_layer_i8(const void* const* p, int B, int S, int H, int nh,
-                       int I, float eps, void* stream) {
-  const int hd = nh > 0 ? H / nh : 0;
-  if (B <= 0 || nh <= 0 || hd * nh != H || hd > 128 || H % 128 != 0 ||
-      I % 128 != 0 || S <= 0 || S % 16 != 0 || S > 512)
-    return (int)cudaErrorInvalidValue;
+// dawn_bert_layer_i8's nine launches with activations of type T (x, qkv, y)
+template <typename T>
+int layer_i8(const void* const* p, int B, int S, int H, int nh, int I,
+             float eps, void* stream) {
+  const int hd = H / nh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * S;
-  const bf16* x = static_cast<const bf16*>(p[0]);
+  const T* x = static_cast<const T*>(p[0]);
   int8_t* aq = static_cast<int8_t*>(const_cast<void*>(p[19]));
   float* rf = static_cast<float*>(const_cast<void*>(p[20]));
-  bf16* qkv = static_cast<bf16*>(const_cast<void*>(p[21]));
+  T* qkv = static_cast<T*>(const_cast<void*>(p[21]));
   float* f = static_cast<float*>(const_cast<void*>(p[22]));
   float* x1 = static_cast<float*>(const_cast<void*>(p[23]));
-  bf16* y = static_cast<bf16*>(const_cast<void*>(p[18]));
+  T* y = static_cast<T*>(const_cast<void*>(p[18]));
   const float scale = (float)(1.0 / sqrt((double)hd));
+  const int in_f32 = sizeof(T) == sizeof(float);
   cudaError_t e;
   if ((e = quant_rows(x, aq, rf, M, H, s))) return (int)e;
-  if ((e = gemm<64, EPI_QKV, float, bf16>(aq, rf, p[2], p[3], p[4], nullptr,
-                                          nullptr, nullptr, qkv, M, 3 * H, H,
-                                          eps, s)))
+  if ((e = gemm<64, EPI_QKV, float, T>(aq, rf, p[2], p[3], p[4], nullptr,
+                                       nullptr, nullptr, qkv, M, 3 * H, H, eps,
+                                       s)))
     return (int)e;
   const long long S3H = 3LL * S * H, SH = (long long)S * H;
   int ae = dawn_attention(qkv, qkv + H, qkv + 2 * H, p[1], p[24], f, B, nh,
-                          S, hd, S3H, hd, 3 * H, SH, hd, H, scale, 1, stream);
+                          S, hd, S3H, hd, 3 * H, SH, hd, H, scale, 1, in_f32,
+                          stream);
   if (ae) return ae;
   if ((e = quant_rows<float>(f, aq, rf, M, H, s))) return (int)e;
-  if ((e = gemm<32, EPI_LN, bf16, float>(aq, rf, p[5], p[6], p[7], x, p[8],
-                                         p[9], x1, M, H, H, eps, s)))
+  if ((e = gemm<32, EPI_LN, T, float>(aq, rf, p[5], p[6], p[7], x, p[8],
+                                      p[9], x1, M, H, H, eps, s)))
     return (int)e;
   if ((e = quant_rows<float>(x1, aq, rf, M, H, s))) return (int)e;
   if ((e = gemm<64, EPI_GELU, float, float>(aq, rf, p[10], p[11], p[12],
@@ -398,8 +348,38 @@ int dawn_bert_layer_i8(const void* const* p, int B, int S, int H, int nh,
                                             H, eps, s)))
     return (int)e;
   if ((e = quant_rows<float>(f, aq, rf, M, I, s))) return (int)e;
-  return (int)gemm<32, EPI_LN, float, bf16>(aq, rf, p[13], p[14], p[15], x1,
-                                            p[16], p[17], y, M, H, I, eps, s);
+  return (int)gemm<32, EPI_LN, float, T>(aq, rf, p[13], p[14], p[15], x1,
+                                         p[16], p[17], y, M, H, I, eps, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// One BERT layer with W8A8 projections (K4). p holds 25 device pointers:
+//   0 x (B·S, H) dt          1 bias (B, S) f32 additive key bias
+//   2 qkv_wq (H, 3H) i8      3 qkv_ws (3H) f32   4 qkv_b (3H) f32
+//   5 ao_wq (H, H) i8        6 ao_ws (H)         7 ao_b (H)
+//   8 aln_s (H)              9 aln_b (H)
+//  10 w1q (H, I) i8         11 w1s (I)          12 b1 (I)
+//  13 w2q (I, H) i8         14 w2s (H)          15 b2 (H)
+//  16 fln_s (H)             17 fln_b (H)
+//  18 y (B·S, H) dt, the output
+//  scratch, with W = max(H, I):
+//          19 aq (B·S, W) i8   20 rf (B·S) f32   21 qkv (B·S, 3H) dt
+//          22 f (B·S, W) f32 (ctx, then h)       23 x1 (B·S, H) f32
+//  24 rel (nh, S, S) f32 shared score bias (MPNet's rel_bias), or null
+// dt is bf16, or f32 when f32 != 0. Needs H = nh·hd with hd <= 128,
+// H % 128 == 0, I % 128 == 0, S % 16 == 0, S <= 512, 16-byte aligned
+// pointers. Returns a cudaError_t.
+int dawn_bert_layer_i8(const void* const* p, int B, int S, int H, int nh,
+                       int I, float eps, int f32, void* stream) {
+  const int hd = nh > 0 ? H / nh : 0;
+  if (B <= 0 || nh <= 0 || hd * nh != H || hd > 128 || H % 128 != 0 ||
+      I % 128 != 0 || S <= 0 || S % 16 != 0 || S > 512)
+    return (int)cudaErrorInvalidValue;
+  return f32 ? layer_i8<float>(p, B, S, H, nh, I, eps, stream)
+             : layer_i8<bf16>(p, B, S, H, nh, I, eps, stream);
 }
 
 }  // extern "C"

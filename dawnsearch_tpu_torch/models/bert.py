@@ -102,7 +102,10 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
     """x·w + b rounded once to `dtype` (bert.py:101-103): an f32 product of
     compute-dtype operands plus the f32 bias. On the card the product
-    is a bf16 tensor-core GEMM with f32 output."""
+    is a bf16 tensor-core GEMM with f32 output, or at f32 torch's f32
+    GEMM, which takes true f32 products while
+    torch.backends.cuda.matmul.allow_tf32 keeps its default, False (the
+    port never sets it)."""
     x2d = x.reshape(-1, x.shape[-1]).to(dtype)
     if x2d.is_cuda and dtype != torch.float32:
         y = torch.mm(x2d, w.to(dtype), out_dtype=torch.float32)

@@ -21,7 +21,9 @@ from dawnsearch_tpu_torch.models.bert import (
     MINILM_L6, BertConfig, BertModel, Params, encode_batch)
 from dawnsearch_tpu_torch.models.mpnet import MPNetModel
 from dawnsearch_tpu_torch.models.tokenizer import WordPieceTokenizer
-from dawnsearch_tpu_torch.utils.logging import METRICS
+from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
+
+log = service_logger("Encoder")
 
 
 class SentenceEncoder:
@@ -122,7 +124,31 @@ class SentenceEncoder:
 
     def dispatch_chunk(self, ids_list: list[list[int]]) -> torch.Tensor:
         """Pad to buckets and enqueue one forward; -> (bsz, H) on device."""
-        input_ids, mask = self.to_device(*self.pad_batch(ids_list))
-        return encode_batch(self.model, input_ids, mask,
+        return self._forward(*self.pad_batch(ids_list))
+
+    def _forward(self, input_ids: np.ndarray, mask: np.ndarray
+                 ) -> torch.Tensor:
+        return encode_batch(self.model, *self.to_device(input_ids, mask),
                             mask_padding=self.mask_padding,
                             include_padding=self.include_padding_in_pool)
+
+    def warmup(self, max_batch: int = 256) -> int:
+        """Run one forward on every (seq bucket, batch bucket <= max_batch)
+        of bare [CLS][SEP] rows (dawnsearch_tpu/models/encoder.py:146-163),
+        then synchronize once. On a card this builds and loads the kernels
+        and grows the caching allocator before the first request. Buckets
+        past max_batch (bulk-ingest sizes) are left cold. Returns the
+        number of shapes run."""
+        shapes = [(bsz, seq) for seq in self.seq_buckets
+                  for bsz in self.batch_buckets if bsz <= max_batch]
+        for bsz, seq in shapes:
+            ids = np.full((bsz, seq), self.tokenizer.pad_id, np.int32)
+            ids[:, 0] = self.tokenizer.cls_id
+            ids[:, 1] = self.tokenizer.sep_id
+            mask = np.zeros((bsz, seq), np.int32)
+            mask[:, :2] = 1
+            self._forward(ids, mask)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        log.info("encoder warmup complete (%d shapes)", len(shapes))
+        return len(shapes)

@@ -5,8 +5,10 @@ the reference's src/bin/dawnsearch.rs:37-154) for what this package
 serves: text search and page insert over HTTP, on one device. The
 encoder is the checkpoint in model_dir (a `bert`- or `mpnet`-family HF
 checkpoint: config.json, model.safetensors, vocab.txt) or seeded
-MiniLM-width weights. It runs the whole-layer kernel (K1) by default, its
-W8A8 twin (K4) for layer_impl="layer_i8", or the per-op path
+MiniLM-width weights, in bf16 or, for compute_dtype="f32", in f32 (the
+f32 instance of every encoder kernel). It runs the whole-layer kernel
+(K1) by default, its W8A8 twin (K4) for layer_impl="layer_i8", or the
+per-op path
 (layer_impl="ops": attention K5 or K6 and the fused FFN K7 in every layer;
 attn_impl="xla": einsum attention and K7), and pools with K8 when
 pool_impl="fused". An MPNet checkpoint takes the same routes with its
@@ -14,7 +16,8 @@ relative-position bias: K1's or K4's rel_bias operand, or einsum attention
 on the per-op path (K5 and K6 take no such bias, as in the reference). The
 score+select kernels are K2 for an i8 or bf16 index and K3 for the i4
 capacity tier; the index is as wide as the encoder.
-The 10-minute save timer and the save on shutdown are kept.
+With warmup = true the encoder runs its bucket grid once before the front
+end opens. The 10-minute save timer and the save on shutdown are kept.
 
 The node never serves something other than what its config asked for:
 a setting this port does not cover yet makes the constructor raise with
@@ -54,8 +57,6 @@ def unported_settings(cfg: Config) -> list[str]:
          "sharding and multihost"),
         (cfg.dist_num_processes > 1 or bool(cfg.dist_coordinator),
          "dist_* (multihost)", "sharding and multihost"),
-        (cfg.compute_dtype != "bf16", f"compute_dtype={cfg.compute_dtype!r}",
-         "the f32 variants of K1, K4 and K5-K7"),
     ]
     return [f"{what} is not ported yet (ROADMAP.md Queue 1: {item})"
             for bad, what, item in checks if bad]
@@ -66,6 +67,7 @@ def check_config(cfg: Config) -> None:
     for a CUDA device with no GPU."""
     problems = unported_settings(cfg)
     for name, allowed in (("index_dtype", ("f32", "bf16", "i8", "i4")),
+                          ("compute_dtype", ("bf16", "f32")),
                           ("attn_impl", ("fused", "xla")),
                           ("layer_impl", ("layer", "layer_i8", "ops")),
                           ("pool_impl", ("xla", "fused")),
@@ -186,6 +188,9 @@ class DawnNode:
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> "DawnNode":
+        if self.cfg.warmup:
+            # before the front end opens, as dawnsearch_tpu/node.py:261-262
+            self.encoder.warmup()
         if self.cfg.web:
             from dawnsearch_tpu_torch.serving.http_service import \
                 start_http_service

@@ -2,9 +2,10 @@
 
 One shared library with a plain C interface, compiled by nvcc for
 sm_90a at first use and loaded with ctypes. The build is keyed on a hash
-of the sources and flags, so a fresh checkout builds once and every later
-process (a node, a test, chip_smoke.py) loads the cached library. The
-library lands in the package's `_build/` directory, which git ignores.
+of the sources, the headers they include (csrc/*.cuh) and the flags, so
+a fresh checkout builds once and every later process (a node, a test,
+chip_smoke.py) loads the cached library. The library lands in the
+package's `_build/` directory, which git ignores.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine need not have nvcc.
@@ -53,7 +54,8 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    # the headers the sources include are part of the key
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -134,20 +136,21 @@ def lib() -> ctypes.CDLL:
             cdll = ctypes.CDLL(build())
             p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
-            cdll.dawn_bert_gemm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
+            cdll.dawn_bert_gemm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f,
+                                            i, p]
             cdll.dawn_bert_gemm.restype = i
             cdll.dawn_bert_layer_i8.argtypes = [ctypes.POINTER(p), i, i, i, i,
-                                                i, f, p]
+                                                i, f, i, p]
             cdll.dawn_bert_layer_i8.restype = i
             cdll.dawn_select.argtypes = [i, i, p, p, p, p, ll, p, p, i, ll,
                                          i, p]
             cdll.dawn_select.restype = i
             cdll.dawn_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, ll,
-                                            ll, ll, ll, ll, ll, f, i, p]
+                                            ll, ll, ll, ll, ll, f, i, i, p]
             cdll.dawn_attention.restype = i
-            cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
+            cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
             cdll.dawn_ffn.restype = i
-            cdll.dawn_ffn_block_rows.argtypes = [i, i]
+            cdll.dawn_ffn_block_rows.argtypes = [i, i, i]
             cdll.dawn_ffn_block_rows.restype = i
             cdll.dawn_mean_pool.argtypes = [p, p, p, i, i, i, i, p]
             cdll.dawn_mean_pool.restype = i

@@ -12,16 +12,18 @@ Counterparts of dawnsearch_tpu/ops/attention.py:
 K5 and K6 compute softmax(q·kᵀ/√hd + bias)·v with the reference's
 rounding points (attention.py:63-77, :157-174): scores and softmax in f32,
 p rounded to the compute dtype before PV, 1/Σp from the f32 p applied
-after PV, one rounding to the output dtype. Both launch the one kernel of
-csrc/attention.cu: K5 reads q, k and v where they lie, as column slices of
-the projection's (B, S, 3H) output, with no split copy.
+after PV, one rounding to the output dtype. Both launch csrc/attention.cu:
+K5 reads q, k and v where they lie, as column slices of the projection's
+(B, S, 3H) output, with no split copy. bf16 inputs run the WMMA kernel;
+f32 inputs (compute_dtype = "f32": p unrounded, f32 out) run the
+fixed-order CUDA-core kernel, and count under their own `_f32` names.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain twin
 (`attention_packed_plain`, `attention_plain`, `mean_pool_plain`) for a
 CPU tensor. There is no fallback between the two: a CUDA input the kernel
-does not take raises. On CUDA, K5 and K6 take bf16 (the f32 variant is
-ROADMAP Queue 2), S % 16 == 0 and S <= 512 (the encoder's buckets); K8
-takes f32 hidden states, as the encoder returns them.
+does not take raises. On CUDA, K5 and K6 take bf16 or f32, S % 16 == 0
+and S <= 512 (the encoder's buckets); K8 takes f32 hidden states, as the
+encoder returns them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from dawnsearch_tpu_torch.ops import _cuda
 
 # CUDA launches in this process, by METRICS name (_cuda.count).
 launches = {"kernel_attention_packed": 0, "kernel_attention": 0,
+            "kernel_attention_packed_f32": 0, "kernel_attention_f32": 0,
             "kernel_mean_pool": 0}
 
 MAX_SEQ = 512
@@ -148,10 +151,8 @@ def fused_mean_pool(hidden, mask, include_padding: bool = False
 
 
 def _check_qkv(what: str, q, k, v, shape, S: int) -> None:
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{what} takes bf16 on CUDA, got {q.dtype} (the f32 "
-                         "variant is ROADMAP Queue 2; f32 runs only in the "
-                         "plain twin)")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} takes bf16 or f32 on CUDA, got {q.dtype}")
     if S % 16 or S > MAX_SEQ:
         raise ValueError(f"{what} needs S % 16 == 0 and S <= {MAX_SEQ}; "
                          f"got S={S}")
@@ -166,14 +167,17 @@ def _check_qkv(what: str, q, k, v, shape, S: int) -> None:
 
 def _attention_cuda(name: str, q, k, v, bias, out, B, nh, S, hd, strides,
                     out_strides) -> None:
+    """Launch dawn_attention: the WMMA kernel for bf16, the fixed-order
+    kernel (f32 in and out) for f32; count under `name` or `name`_f32."""
     if bias is None:
         bias = torch.zeros((B, S), dtype=torch.float32, device=q.device)
     _cuda.check_tensor(bias, "attention bias", torch.float32, (B, S), q.device)
+    f32 = int(q.dtype == torch.float32)
     lib = _cuda.lib()
     # no rel operand: the reference bypasses K5 and K6 under MPNet's
     # position bias (models/bert.py::_attention)
     _cuda.check(lib.dawn_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None,
         out.data_ptr(), B, nh, S, hd, *strides, *out_strides,
-        1.0 / math.sqrt(hd), 0, _cuda.stream_handle(q)), name)
-    _cuda.count(launches, name)
+        1.0 / math.sqrt(hd), f32, f32, _cuda.stream_handle(q)), name)
+    _cuda.count(launches, name + ("_f32" if f32 else ""))

@@ -11,8 +11,10 @@ rounding point for rounding point (ffn.py:51-66):
 keeps each row block's (rows, I) intermediate in shared memory) for a
 CUDA tensor and runs `ffn_plain` for a CPU tensor. There is no fallback
 between the two: a CUDA input the kernel does not take raises. On CUDA it
-takes bf16 activations and matrices (the f32 variant is ROADMAP Queue 2),
-H and I multiples of 8, and a width whose 16-row block fits the SM.
+takes bf16 activations and matrices (WMMA), or f32 ones (compute_dtype =
+"f32": CUDA-core FMAs, h unrounded; counted as `kernel_ffn_f32`), H and I
+multiples of 8, and a width whose smallest row block (16 rows bf16, 8
+f32) fits the SM.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from dawnsearch_tpu_torch.ops._cuda import check_tensor
 from dawnsearch_tpu_torch.ops.vector import layer_norm
 
 # CUDA launches in this process, by METRICS name (_cuda.count).
-launches = {"kernel_ffn": 0}
+launches = {"kernel_ffn": 0, "kernel_ffn_f32": 0}
 
 
 def erf_poly(x: torch.Tensor) -> torch.Tensor:
@@ -58,15 +60,12 @@ def fused_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float = 1e-12
         return ffn_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, eps)
     M, H = x.shape
     I = w1.shape[1]
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"K7 takes bf16 activations on CUDA, got {x.dtype} "
-                         "(the f32 variant is ROADMAP Queue 2; f32 runs only "
-                         "in ffn_plain)")
-    dev = x.device
-    bf, f32 = torch.bfloat16, torch.float32
-    check_tensor(x, "K7 x", bf, (M, H), dev)
-    check_tensor(w1, "K7 w1", bf, (H, I), dev)
-    check_tensor(w2, "K7 w2", bf, (I, H), dev)
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    if dt not in (torch.bfloat16, f32):
+        raise ValueError(f"K7 takes bf16 or f32 activations on CUDA, got {dt}")
+    check_tensor(x, "K7 x", dt, (M, H), dev)
+    check_tensor(w1, "K7 w1", dt, (H, I), dev)
+    check_tensor(w2, "K7 w2", dt, (I, H), dev)
     for name, t, n in (("b1", b1, I), ("b2", b2, H), ("ln_scale", ln_scale, H),
                        ("ln_bias", ln_bias, H)):
         check_tensor(t, f"K7 {name}", f32, (n,), dev)
@@ -74,14 +73,16 @@ def fused_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float = 1e-12
         raise ValueError("K7 reads x, w1 and w2 in 16-byte vectors: their "
                          "storage must be 16-byte aligned")
     lib = _cuda.lib()
-    if lib.dawn_ffn_block_rows(H, I) == 0:
-        raise ValueError(f"K7 needs H and I multiples of 8 and a 16-row "
-                         f"block of x, h and y within the SM's shared memory; "
-                         f"got H={H} I={I}")
-    out = torch.empty((M, H), dtype=bf, device=dev)
+    is_f32 = int(dt == f32)
+    if lib.dawn_ffn_block_rows(H, I, is_f32) == 0:
+        raise ValueError(f"K7 needs H and I multiples of 8 and a "
+                         f"{8 if is_f32 else 16}-row block of x, h and y in "
+                         f"{dt} within the SM's shared memory; got H={H} "
+                         f"I={I}")
+    out = torch.empty((M, H), dtype=dt, device=dev)
     _cuda.check(lib.dawn_ffn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                              w2.data_ptr(), b2.data_ptr(), ln_scale.data_ptr(),
                              ln_bias.data_ptr(), out.data_ptr(), M, H, I, eps,
-                             _cuda.stream_handle(x)), "K7 FFN")
-    _cuda.count(launches, "kernel_ffn")
+                             is_f32, _cuda.stream_handle(x)), "K7 FFN")
+    _cuda.count(launches, "kernel_ffn_f32" if is_f32 else "kernel_ffn")
     return out

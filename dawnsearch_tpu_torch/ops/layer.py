@@ -3,13 +3,14 @@
 Counterparts of dawnsearch_tpu/ops/layer.py::fused_bert_layer (K1, the
 whole-layer Pallas kernel) and ::fused_bert_layer_i8 (K4, the same layer
 with W8A8 projections). K1's math is the reference's, rounding point for
-rounding point (ops/layer.py:115-154):
+rounding point (ops/layer.py:115-154), with dt the compute dtype (x's):
 
-    qkv = bf16(x·Wqkv + b)
-    ctx = bf16(softmax(q·kᵀ/√hd + bias [+ rel])·v)   p rounded to bf16 before
-                                              PV, 1/Σp from the f32 p, after PV
-    x1  = bf16(LN(ctx·Wo + bo + x))
-    y   = LN(GELU_erf(x1·W1 + b1)·W2 + b2 + x1)   (h rounded to bf16)
+    qkv = dt(x·Wqkv + b)
+    ctx = dt(softmax(q·kᵀ/√hd + bias [+ rel])·v)   p rounded to dt before PV,
+                                              1/Σp from the f32 p, after PV
+    x1  = dt(LN(ctx·Wo + bo + x))
+    y   = LN(GELU(x1·W1 + b1)·W2 + b2 + x1)   (h rounded to dt; GELU with
+                                              the A&S 7.1.26 erf polynomial)
 
 K4's (ops/layer.py:157-211) quantizes each projection's input per row
 (`s = max(rowabsmax, 1e-6)`, codes `round(a·(127/s))`), multiplies the i8
@@ -26,8 +27,10 @@ attention (five launches), `fused_bert_layer_i8` csrc/layer_i8.cu (nine
 launches from one C call), for a CUDA tensor; each runs its plain twin
 (`bert_layer_plain`, `bert_layer_i8_plain`) for a CPU tensor. There is no
 fallback between the two: a CUDA input a kernel does not take raises. On
-the card both take bf16 activations and the reference's envelope: H = nh·hd
-with 128 % hd == 0 and H % 128 == 0, I % 128 == 0, S % 16 == 0, S <= 512.
+the card both take bf16 or f32 activations (f32: the kernels' f32
+instances, CUDA-core FMAs, counted under `_f32` names; K1's matrices in
+x's dtype, a mix is refused) and the reference's envelope: H = nh·hd with
+128 % hd == 0 and H % 128 == 0, I % 128 == 0, S % 16 == 0, S <= 512.
 
 Both take the reference's optional `rel_bias` (ops/layer.py:247-296,
 `has_rel`): a (nh, S, S) f32 score bias every sequence shares, MPNet's
@@ -54,8 +57,8 @@ from dawnsearch_tpu_torch.ops.vector import layer_norm
 # Layer launches of the CUDA kernels in this process (one per call, each
 # being several CUDA launches), by METRICS name (_cuda.count); a call with
 # rel_bias counts under its own `_rel` name
-launches = {"kernel_bert_layer": 0, "kernel_bert_layer_i8": 0,
-            "kernel_bert_layer_rel": 0, "kernel_bert_layer_i8_rel": 0}
+launches = {f"kernel_bert_layer{k}{r}{f}": 0 for k in ("", "_i8")
+            for r in ("", "_rel") for f in ("", "_f32")}
 
 MAX_SEQ = 512
 INV127 = 1.0 / 127.0  # folded to f32(1/127) in f32 products, as the reference
@@ -86,7 +89,7 @@ def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
     att = mm(ctx, ao_w) + ao_b.float() + x2d.float()
     x1 = layer_norm(att, aln_s, aln_b, eps).to(dt)
     h = mm(x1, w1) + b1.float()
-    h = (0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))).to(dt)
+    h = (0.5 * h * (1.0 + erf_poly(h * 2.0 ** -0.5))).to(dt)
     y = mm(h, w2) + b2.float() + x1.float()
     return layer_norm(y, fln_s, fln_b, eps).reshape(B, S, H).to(dt)
 
@@ -121,16 +124,15 @@ def _check_layer(what: str, x, bias, rel_bias, nh: int, I: int):
     bias to pass (zeros for None) and rel_bias's pointer (None for none)."""
     B, S, H = x.shape
     hd = H // nh if nh > 0 else 0
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{what} takes bf16 activations on CUDA, got "
-                         f"{x.dtype} (f32 compute runs only in the plain twin; "
-                         "the f32 variant is ROADMAP Queue 2)")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} takes bf16 or f32 activations on CUDA, got "
+                         f"{x.dtype}")
     if (hd == 0 or H != nh * hd or 128 % hd or H % 128 or I % 128 or S % 16
             or S > MAX_SEQ):
         raise ValueError(f"{what} needs H = nh·hd with 128 % hd == 0, "
                          f"H % 128 == 0, I % 128 == 0, S % 16 == 0 and "
                          f"S <= {MAX_SEQ}; got H={H} nh={nh} I={I} S={S}")
-    check_tensor(x, f"{what} x", torch.bfloat16, (B, S, H), x.device)
+    check_tensor(x, f"{what} x", x.dtype, (B, S, H), x.device)
     if bias is None:
         bias = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     check_tensor(bias, f"{what} bias", torch.float32, (B, S), x.device)
@@ -147,6 +149,13 @@ def _check_vectors(what: str, dev, H: int, I: int, **vectors) -> None:
         check_tensor(t, f"{what} {name}", torch.float32, (n,), dev)
 
 
+def _counter(base: str, rel, x) -> str:
+    """The METRICS name of one layer launch: `_rel` with a rel_bias,
+    `_f32` for the f32 instance."""
+    return (base + ("_rel" if rel else "")
+            + ("_f32" if x.dtype == torch.float32 else ""))
+
+
 def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                 b2, fln_s, fln_b, *, nh: int, eps: float,
                 rel_bias) -> torch.Tensor:
@@ -154,46 +163,52 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
     I = w1.shape[1]
     dev = x.device
     bias, rel = _check_layer("K1", x, bias, rel_bias, nh, I)
-    bf = torch.bfloat16
+    dt = x.dtype
     for name, t, shape in (("qkv_w", qkv_w, (H, 3 * H)), ("ao_w", ao_w, (H, H)),
                            ("w1", w1, (H, I)), ("w2", w2, (I, H))):
-        check_tensor(t, f"K1 {name}", bf, shape, dev)
+        check_tensor(t, f"K1 {name}", dt, shape, dev)
     _check_vectors("K1", dev, H, I, qkv_b=qkv_b, ao_b=ao_b, aln_s=aln_s,
                    aln_b=aln_b, b1=b1, b2=b2, fln_s=fln_s, fln_b=fln_b)
+    if any(t.data_ptr() % 16 for t in (x, qkv_w, ao_w, w1, w2)):
+        raise ValueError("K1 reads x and the weights in 16-byte vectors: "
+                         "their storage must be 16-byte aligned")
 
     M, hd = B * S, H // nh
+    f32 = int(dt == torch.float32)
     lib = _cuda.lib()
     stream = _cuda.stream_handle(x)
-    qkv = torch.empty((M, 3 * H), dtype=bf, device=dev)
-    ctx = torch.empty((M, H), dtype=bf, device=dev)
-    x1 = torch.empty((M, H), dtype=bf, device=dev)
-    h = torch.empty((M, I), dtype=bf, device=dev)
-    y = torch.empty((B, S, H), dtype=bf, device=dev)
+    qkv = torch.empty((M, 3 * H), dtype=dt, device=dev)
+    ctx = torch.empty((M, H), dtype=dt, device=dev)
+    x1 = torch.empty((M, H), dtype=dt, device=dev)
+    h = torch.empty((M, I), dtype=dt, device=dev)
+    y = torch.empty((B, S, H), dtype=dt, device=dev)
     null = None
     gemm = lib.dawn_bert_gemm
     _cuda.check(gemm(x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), null,
-                     null, null, qkv.data_ptr(), M, 3 * H, H, 0, eps, stream),
+                     null, null, qkv.data_ptr(), M, 3 * H, H, 0, eps, f32,
+                     stream),
                 "K1 qkv projection")
     # q, k and v are column views of qkv (row stride 3H), as K5 reads them;
-    # the C entry is called directly so K5's launch counter counts K5 only
-    q = qkv.data_ptr()
-    _cuda.check(lib.dawn_attention(q, q + 2 * H, q + 4 * H, bias.data_ptr(),
-                                   rel, ctx.data_ptr(), B, nh, S, hd,
-                                   S * 3 * H, hd, 3 * H, S * H, hd, H,
-                                   1.0 / math.sqrt(hd), 0, stream),
+    # the C entry is called directly so K5's launch counter counts K5 only.
+    # f32: the fixed-order kernel, f32 in and out, p unrounded
+    q, es = qkv.data_ptr(), qkv.element_size()
+    _cuda.check(lib.dawn_attention(q, q + H * es, q + 2 * H * es,
+                                   bias.data_ptr(), rel, ctx.data_ptr(), B,
+                                   nh, S, hd, S * 3 * H, hd, 3 * H, S * H, hd,
+                                   H, 1.0 / math.sqrt(hd), f32, f32, stream),
                 "K1 attention")
     _cuda.check(gemm(ctx.data_ptr(), ao_w.data_ptr(), ao_b.data_ptr(),
                      x.data_ptr(), aln_s.data_ptr(), aln_b.data_ptr(),
-                     x1.data_ptr(), M, H, H, 2, eps, stream),
+                     x1.data_ptr(), M, H, H, 2, eps, f32, stream),
                 "K1 attention out + LN")
     _cuda.check(gemm(x1.data_ptr(), w1.data_ptr(), b1.data_ptr(), null, null,
-                     null, h.data_ptr(), M, I, H, 1, eps, stream),
+                     null, h.data_ptr(), M, I, H, 1, eps, f32, stream),
                 "K1 FFN in + GELU")
     _cuda.check(gemm(h.data_ptr(), w2.data_ptr(), b2.data_ptr(), x1.data_ptr(),
                      fln_s.data_ptr(), fln_b.data_ptr(), y.data_ptr(), M, H, I,
-                     2, eps, stream),
+                     2, eps, f32, stream),
                 "K1 FFN out + LN")
-    _cuda.count(launches, "kernel_bert_layer" + ("_rel" if rel else ""))
+    _cuda.count(launches, _counter("kernel_bert_layer", rel, x))
     return y
 
 
@@ -226,13 +241,16 @@ def _mm_i8(a32: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
 
 def attention_f32_plain(qkv, bias, B, S, H, nh, rel_bias=None
                         ) -> torch.Tensor:
-    """(M, 3H) bf16 qkv -> (M, H) f32 context with every sum in the order
-    of K4's attention step (csrc/attention.cu, out_f32): scores over the
-    head dim ascending, the softmax sum and PV over keys ascending, each
-    step rounded once (bf16 x bf16 products are exact in f32). The
-    contract of bert_layer_plain's attention, unrounded; the fixed order
-    is what keeps K4 and this twin equal through K4's next quantization
-    (the kernel's note says why)."""
+    """(M, 3H) bf16 or f32 qkv -> (M, H) f32 context with every sum in the
+    order of K4's attention step (csrc/attention.cu's fixed-order kernel):
+    scores over the head dim ascending, the softmax sum and PV over keys
+    ascending, p rounded to qkv's dtype before PV. Each product and each
+    sum rounds once, on its own (eager torch fuses nothing): a bf16 x bf16
+    product is exact in f32; an f32 x f32 one is rounded, as the kernel's
+    f32 instance rounds it (`__fmul_rn`, then `__fadd_rn`). The contract of
+    bert_layer_plain's attention, unrounded; the fixed order is what keeps
+    K4 and this twin equal through K4's next quantization (the kernel's
+    note says why)."""
     hd = H // nh
     q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2).float()
                for t in qkv.split(H, dim=-1))
@@ -292,11 +310,11 @@ def fused_bert_layer_i8(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
     _check_vectors("K4", dev, H, I, qkv_b=qkv_b, ao_b=ao_b, aln_s=aln_s,
                    aln_b=aln_b, b1=b1, b2=b2, fln_s=fln_s, fln_b=fln_b)
 
-    M, W = B * S, max(H, I)
-    y = torch.empty((B, S, H), dtype=torch.bfloat16, device=dev)
+    M, W, dt = B * S, max(H, I), x.dtype
+    y = torch.empty((B, S, H), dtype=dt, device=dev)
     scratch = (torch.empty((M, W), dtype=torch.int8, device=dev),
                torch.empty((M,), dtype=torch.float32, device=dev),
-               torch.empty((M, 3 * H), dtype=torch.bfloat16, device=dev),
+               torch.empty((M, 3 * H), dtype=dt, device=dev),
                torch.empty((M, W), dtype=torch.float32, device=dev),
                torch.empty((M, H), dtype=torch.float32, device=dev))
     if any(t.data_ptr() % 16 for t in (x, qkv_w[0], ao_w[0], w1[0], w2[0])):
@@ -307,6 +325,6 @@ def fused_bert_layer_i8(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
         fln_s, fln_b, y, *scratch)] + [rel]
     _cuda.check(_cuda.lib().dawn_bert_layer_i8(
         (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, H, nh, I, eps,
-        _cuda.stream_handle(x)), "K4 layer")
-    _cuda.count(launches, "kernel_bert_layer_i8" + ("_rel" if rel else ""))
+        int(dt == torch.float32), _cuda.stream_handle(x)), "K4 layer")
+    _cuda.count(launches, _counter("kernel_bert_layer_i8", rel, x))
     return y

@@ -6,8 +6,14 @@ package, so it also runs on a machine that has only torch:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
-K2 (i8 queries) and K3 (i8 queries) must be bit-equal to their plain
-twin; the bf16-query variants agree within two key steps (3.1e-5) on the
+Every encoder kernel runs at bf16 and at f32 (compute_dtype = "f32": the
+kernels' f32 instances, CUDA-core FMAs, counted under `_f32` names). At
+f32, against the twin run at f32 with TF32 off: K1 within max |d| 1e-4 and
+per-token cosine 0.99999, K4 at per-token cosine 0.99995 (its f32 CPU
+bound), K5, K6 and K7 within 1e-5 of the output's scale and per-row cosine
+0.99999; an f32 input never reaches a plain twin, and a dtype mix is
+refused. K2 (i8 queries) and K3 (i8 queries) must be bit-equal to their
+plain twin; the bf16-query variants agree within two key steps (3.1e-5) on the
 values and on at least 99% of the window ids; K1 agrees to the bf16 bound
 of the reference's own tests (per-row cosine > 0.999) at every head dim
 of the packed envelope; K4 agrees with bert_layer_i8_plain at per-token
@@ -42,7 +48,24 @@ torch.set_num_threads(2)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    # the f32 twins' products must be true f32 products, not TF32
+    assert torch.backends.cuda.matmul.allow_tf32 is False
     return torch.device("cuda")
+
+
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _layer_bound(got, want, m, dtype):
+    """K1's bound at its dtype: per-token cosine > 0.999 in bf16 (the
+    reference's), max |d| <= 1e-4 and cosine >= 0.99999 in f32."""
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
+    if dtype == torch.bfloat16:
+        assert float(cos.min()) > 0.999
+    else:
+        assert float((got - want)[m].abs().max()) <= 1e-4
+        assert float(cos.min()) >= 0.99999
 
 
 def _layer_inputs(rng, B, S, H=384, I=1536):
@@ -62,34 +85,48 @@ def _layer_inputs(rng, B, S, H=384, I=1536):
     return x, mask, bias, weights
 
 
-@pytest.mark.parametrize("B,S", [(3, 16), (4, 32), (2, 128), (1, 512)])
-def test_k1_matches_plain(cuda, B, S):
-    x, mask, bias, weights = _layer_inputs(np.random.default_rng(S), B, S)
-    w = [torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2 else None)
+def _k1_args(rng, B, S, cuda, dtype, H=384, I=1536):
+    x, mask, bias, weights = _layer_inputs(rng, B, S, H, I)
+    w = [torch.from_numpy(a).to(cuda, dtype if a.ndim == 2 else None)
          for a in weights]
-    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
-    bt = torch.from_numpy(bias).to(cuda)
-    before = layer.launches["kernel_bert_layer"]
-    got = layer.fused_bert_layer(xt, bt, *w, nh=12).float()
-    assert layer.launches["kernel_bert_layer"] == before + 1
-    want = layer.bert_layer_plain(xt, bt, *w, nh=12).float()
-    m = torch.from_numpy(mask).to(cuda)
-    assert torch.isfinite(got).all()
-    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
-    assert float(cos.min()) > 0.999
+    return (torch.from_numpy(x).to(cuda, dtype),
+            torch.from_numpy(bias).to(cuda), w,
+            torch.from_numpy(mask).to(cuda))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S", [(3, 16), (4, 32), (2, 128), (1, 512)])
+def test_k1_matches_plain(cuda, B, S, dtype):
+    dt = DTYPES[dtype]
+    xt, bt, w, m = _k1_args(np.random.default_rng(S), B, S, cuda, dt)
+    name = "kernel_bert_layer" + ("_f32" if dtype == "f32" else "")
+    before = dict(layer.launches)
+    got = layer.fused_bert_layer(xt, bt, *w, nh=12)
+    assert got.dtype == dt
+    assert layer.launches == {**before, name: before[name] + 1}
+    want = layer.bert_layer_plain(xt, bt, *w, nh=12)
+    _layer_bound(got.float(), want.float(), m, dt)
 
 
 def test_k1_refuses_what_it_does_not_take(cuda):
-    """f32 activations are plain-only; a head dim of 64 (nh = 6 at
-    H = 384), once refused, now runs and agrees with the plain twin; a
-    width outside the envelope is refused."""
+    """A dtype mix (bf16 x with f32 matrices, or the reverse) and f16 are
+    refused; a head dim of 64 (nh = 6 at H = 384), once refused, now runs
+    and agrees with the plain twin; a width outside the envelope is
+    refused."""
     x, mask, bias, weights = _layer_inputs(np.random.default_rng(0), 2, 16)
     w = [torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2 else None)
          for a in weights]
+    w32 = [t.float() for t in w]
     xt = torch.from_numpy(x).to(cuda)
     bt = torch.from_numpy(bias).to(cuda)
-    with pytest.raises(ValueError, match="bf16"):
-        layer.fused_bert_layer(xt, bt, *w, nh=12)          # f32 is plain-only
+    before = dict(layer.launches)
+    with pytest.raises(ValueError, match="K1 qkv_w"):
+        layer.fused_bert_layer(xt, bt, *w, nh=12)           # f32 x, bf16 W
+    with pytest.raises(ValueError, match="K1 qkv_w"):
+        layer.fused_bert_layer(xt.bfloat16(), bt, *w32, nh=12)  # the reverse
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        layer.fused_bert_layer(xt.half(), bt, *w, nh=12)
+    assert layer.launches == before
     got = layer.fused_bert_layer(xt.bfloat16(), bt, *w, nh=6).float()
     want = layer.bert_layer_plain(xt.bfloat16(), bt, *w, nh=6).float()
     m = torch.from_numpy(mask).to(cuda)
@@ -130,27 +167,36 @@ def _k4_args(rng, B, S, H, I, cuda):
             torch.from_numpy(mask).to(cuda))
 
 
+# K4 vs its twin, per-token cosine: bf16 (f32 sums of LayerNorm in
+# another order) and f32 (its CPU bound, tests/test_torch_layer_i8.py)
+K4_COS = {torch.bfloat16: 0.9999, torch.float32: 0.99995}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,S,H,nh,I", [(3, 128, 384, 12, 1536),
                                         (2, 64, 768, 12, 3072),
                                         (1, 512, 1024, 16, 4096)])
-def test_k4_matches_plain(cuda, B, S, H, nh, I):
+def test_k4_matches_plain(cuda, B, S, H, nh, I, dtype):
     """MiniLM, BERT-base and BERT-large widths, ragged masks."""
+    dt = DTYPES[dtype]
     x, bias, w, m = _k4_args(np.random.default_rng(H), B, S, H, I, cuda)
+    x = x.to(dt)
+    name = "kernel_bert_layer_i8" + ("_f32" if dtype == "f32" else "")
     before = dict(layer.launches)
-    got = layer.fused_bert_layer_i8(x, bias, *w, nh=nh).float()
-    assert layer.launches["kernel_bert_layer_i8"] == \
-        before["kernel_bert_layer_i8"] + 1
-    assert layer.launches["kernel_bert_layer"] == before["kernel_bert_layer"]
+    got = layer.fused_bert_layer_i8(x, bias, *w, nh=nh)
+    assert got.dtype == dt
+    assert layer.launches == {**before, name: before[name] + 1}
     want = layer.bert_layer_i8_plain(x, bias, *w, nh=nh).float()
+    got = got.float()
     assert torch.isfinite(got).all()
     cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
-    assert float(cos.min()) >= 0.9999
+    assert float(cos.min()) >= K4_COS[dt]
 
 
 def test_k4_refuses_what_it_does_not_take(cuda):
     x, bias, w, _ = _k4_args(np.random.default_rng(1), 2, 16, 384, 1536, cuda)
-    with pytest.raises(ValueError, match="bf16"):
-        layer.fused_bert_layer_i8(x.float(), bias, *w, nh=12)  # plain-only
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        layer.fused_bert_layer_i8(x.half(), bias, *w, nh=12)
     with pytest.raises(ValueError, match="128 % hd == 0"):
         layer.fused_bert_layer_i8(x, bias, *w, nh=16)          # hd 24
     with pytest.raises(ValueError, match="S % 16 == 0"):
@@ -189,33 +235,36 @@ def _rel(rng, S, nh, cuda):
     return mpnet.position_bias(table.to(cuda), S, nh, 32)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kernel", ["k1", "k4"])
 @pytest.mark.parametrize("B,S", [(3, 128), (1, 512), (2, 16)])
-def test_rel_bias_matches_plain(cuda, kernel, B, S):
+def test_rel_bias_matches_plain(cuda, kernel, B, S, dtype):
     """all-mpnet-base-v2's width (H=768, 12 heads of 64, I=3072), ragged
-    masks, eps 1e-5; each call counts under the `_rel` name only."""
+    masks, eps 1e-5; each call counts under the `_rel` name only (`_rel_f32`
+    at f32)."""
     H, nh, I = 768, 12, 3072
+    dt = DTYPES[dtype]
     rng = np.random.default_rng(S + B)
     if kernel == "k4":
         x, bias, w, m = _k4_args(rng, B, S, H, I, cuda)
+        x = x.to(dt)
         fused, plain = layer.fused_bert_layer_i8, layer.bert_layer_i8_plain
     else:
-        xn, mn, bn, wn = _layer_inputs(rng, B, S, H, I)
-        x = torch.from_numpy(xn).to(cuda, torch.bfloat16)
-        bias, m = torch.from_numpy(bn).to(cuda), torch.from_numpy(mn).to(cuda)
-        w = [torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2
-                                    else None) for a in wn]
+        x, bias, w, m = _k1_args(rng, B, S, cuda, dt, H, I)
         fused, plain = layer.fused_bert_layer, layer.bert_layer_plain
     rel = _rel(rng, S, nh, cuda)
     name = {"k1": "kernel_bert_layer", "k4": "kernel_bert_layer_i8"}[kernel]
+    name += "_rel" + ("_f32" if dtype == "f32" else "")
     before = dict(layer.launches)
     got = fused(x, bias, *w, nh=nh, eps=1e-5, rel_bias=rel).float()
-    assert layer.launches[name + "_rel"] == before[name + "_rel"] + 1
-    assert layer.launches[name] == before[name]
+    assert layer.launches == {**before, name: before[name] + 1}
     want = plain(x, bias, *w, nh=nh, eps=1e-5, rel_bias=rel).float()
-    assert torch.isfinite(got).all()
-    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
-    assert float(cos.min()) >= 0.9999
+    if kernel == "k1":
+        _layer_bound(got, want, m, dt)
+    else:
+        assert torch.isfinite(got).all()
+        cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
+        assert float(cos.min()) >= K4_COS[dt]
     # a zero rel_bias adds exact zeros: bit-equal to the call without one
     assert torch.equal(fused(x, bias, *w, nh=nh, eps=1e-5),
                        fused(x, bias, *w, nh=nh, eps=1e-5,
@@ -396,60 +445,84 @@ def _bias(rng, B, S, cuda):
     return torch.from_numpy(np.where(mask, 0.0, -1e30).astype(np.float32)).to(cuda)
 
 
+def _per_op_bound(got, want, width, dtype):
+    """K5-K7 vs their twins: per-row cosine > 0.9999 in bf16 (the same
+    rounding points, f32 sums in another order); in f32 max |d| <= 1e-5
+    of the output's scale and cosine >= 0.99999."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    cos = float(_row_cos(got, want, width).min())
+    if dtype == torch.bfloat16:
+        assert cos > 0.9999
+    else:
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+        assert cos >= 0.99999
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,S,H", [(3, 16, 384), (2, 128, 384), (1, 512, 384),
                                    (2, 64, 768)])
-def test_k5_matches_plain(cuda, B, S, H):
+def test_k5_matches_plain(cuda, B, S, H, dtype):
     """q, k, v as column slices of one (B, S, 3H) projection output."""
+    dt = DTYPES[dtype]
     rng = np.random.default_rng(S + H)
     qkv = torch.from_numpy(rng.standard_normal((B, S, 3 * H), np.float32)
-                           ).to(cuda, torch.bfloat16)
+                           ).to(cuda, dt)
     q, k, v = qkv.split(H, dim=-1)
     bias = _bias(rng, B, S, cuda)
-    before = attention.launches["kernel_attention_packed"]
+    name = "kernel_attention_packed" + ("_f32" if dtype == "f32" else "")
+    before = dict(attention.launches)
     got = attention.fused_attention_packed(q, k, v, bias, 12)
-    assert attention.launches["kernel_attention_packed"] == before + 1
+    assert got.dtype == dt
+    assert attention.launches == {**before, name: before[name] + 1}
     want = attention.attention_packed_plain(q, k, v, bias, 12)
-    assert torch.isfinite(got.float()).all()
-    assert float(_row_cos(got, want, H).min()) > 0.9999
+    _per_op_bound(got, want, H, dt)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,S,hd", [(2, 128, 26), (1, 512, 26), (3, 16, 26),
                                     (2, 128, 32), (2, 64, 64)])
-def test_k6_matches_plain(cuda, B, S, hd):
+def test_k6_matches_plain(cuda, B, S, hd, dtype):
+    dt = DTYPES[dtype]
     rng = np.random.default_rng(S + hd)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, 12, S, hd), np.float32)
-                                ).to(cuda, torch.bfloat16) for _ in range(3))
+                                ).to(cuda, dt) for _ in range(3))
     bias = _bias(rng, B, S, cuda)
-    before = attention.launches["kernel_attention"]
+    name = "kernel_attention" + ("_f32" if dtype == "f32" else "")
+    before = dict(attention.launches)
     got = attention.fused_attention(q, k, v, bias, 12)
-    assert attention.launches["kernel_attention"] == before + 1
+    assert got.dtype == dt
+    assert attention.launches == {**before, name: before[name] + 1}
     want = attention.attention_plain(q, k, v, bias, 12)
-    assert torch.isfinite(got.float()).all()
-    assert float(_row_cos(got, want, hd).min()) > 0.9999
+    _per_op_bound(got, want, hd, dt)
     # no bias is a zero bias
     assert torch.equal(attention.fused_attention(q, k, v, None, 12),
                        attention.fused_attention(q, k, v, torch.zeros_like(bias),
                                                  12))
 
 
-def _ffn_args(rng, M, H, I, cuda):
+def _ffn_args(rng, M, H, I, cuda, dtype=torch.bfloat16):
     x, _, _, weights = _layer_inputs(rng, 1, M, H, I)
     w1, b1, w2, b2, g, be = weights[6:]
-    return [torch.from_numpy(x[0]).to(cuda, torch.bfloat16),
-            *[torch.from_numpy(a).to(cuda, torch.bfloat16 if a.ndim == 2 else None)
+    return [torch.from_numpy(x[0]).to(cuda, dtype),
+            *[torch.from_numpy(a).to(cuda, dtype if a.ndim == 2 else None)
               for a in (w1, b1, w2, b2, g, be)]]
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("M,H,I", [(100, 384, 1536), (64, 312, 1200),
                                    (40, 768, 3072), (16, 128, 256)])
-def test_k7_matches_plain(cuda, M, H, I):
-    args = _ffn_args(np.random.default_rng(H), M, H, I, cuda)
-    before = ffn.launches["kernel_ffn"]
+def test_k7_matches_plain(cuda, M, H, I, dtype):
+    dt = DTYPES[dtype]
+    args = _ffn_args(np.random.default_rng(H), M, H, I, cuda, dt)
+    name = "kernel_ffn" + ("_f32" if dtype == "f32" else "")
+    before = dict(ffn.launches)
     got = ffn.fused_ffn(*args)
-    assert ffn.launches["kernel_ffn"] == before + 1
+    assert got.dtype == dt
+    assert ffn.launches == {**before, name: before[name] + 1}
     want = ffn.ffn_plain(*args)
-    assert torch.isfinite(got.float()).all()
-    assert float(_row_cos(got, want, H).min()) > 0.9999
+    _per_op_bound(got, want, H, dt)
 
 
 @pytest.mark.parametrize("include_padding", [False, True])
@@ -471,8 +544,12 @@ def test_per_op_kernels_refuse_what_they_do_not_take(cuda):
     qkv = torch.from_numpy(rng.standard_normal((2, 32, 3 * 384), np.float32)
                            ).to(cuda)
     q, k, v = qkv.bfloat16().split(384, dim=-1)
-    with pytest.raises(ValueError, match="bf16"):          # f32 is plain-only
-        attention.fused_attention_packed(*qkv.split(384, dim=-1), None, 12)
+    q32, k32, v32 = qkv.split(384, dim=-1)
+    with pytest.raises(ValueError, match="k must match q"):     # a dtype mix
+        attention.fused_attention_packed(q32, k, v32, None, 12)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        attention.fused_attention_packed(*qkv.half().split(384, dim=-1),
+                                         None, 12)
     with pytest.raises(ValueError, match="128 % head_dim"):
         attention.fused_attention_packed(q, k, v, None, 16)  # hd 24
     with pytest.raises(ValueError, match="S % 16"):
@@ -484,9 +561,11 @@ def test_per_op_kernels_refuse_what_they_do_not_take(cuda):
     heads = q.reshape(2, 32, 12, 32).transpose(1, 2)          # a strided view
     with pytest.raises(ValueError, match="contiguous"):
         attention.fused_attention(heads, heads, heads, None, 12)
-    with pytest.raises(ValueError, match="bf16"):
-        h32 = heads.float().contiguous()
-        attention.fused_attention(h32, h32, h32, None, 12)
+    h16, h32 = heads.contiguous(), heads.float().contiguous()
+    with pytest.raises(ValueError, match="v must match q"):     # a dtype mix
+        attention.fused_attention(h32, h32, h16, None, 12)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        attention.fused_attention(h16.half(), h16.half(), h16.half(), None, 12)
     big = torch.zeros((1, 2, 16, 160), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="hd <= 128"):
         attention.fused_attention(big, big, big, None, 2)
@@ -495,8 +574,13 @@ def test_per_op_kernels_refuse_what_they_do_not_take(cuda):
         attention.fused_attention(long, long, long, None, 1)
 
     args = _ffn_args(rng, 32, 384, 1536, cuda)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="K7 w1"):              # a dtype mix
         ffn.fused_ffn(args[0].float(), *args[1:])
+    args32 = _ffn_args(rng, 32, 384, 1536, cuda, torch.float32)
+    with pytest.raises(ValueError, match="K7 w1"):              # the reverse
+        ffn.fused_ffn(args[0], *args32[1:])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ffn.fused_ffn(args[0].half(), *args[1:])
     with pytest.raises(ValueError, match="non-contiguous"):
         xt = args[0].t().contiguous().t()
         ffn.fused_ffn(xt, *args[1:])
@@ -543,3 +627,84 @@ def test_per_op_encode_batch_on_cuda_matches_cpu(cuda, impl):
                              ids, mask)
     cos = (got * want).sum(-1)
     assert float(cos.min()) > 0.999
+
+
+F32_ROUTES = {
+    "layer": (dict(layer_impl="layer"), {"kernel_bert_layer_f32": 2}),
+    "layer_i8": (dict(layer_impl="layer_i8"), {"kernel_bert_layer_i8_f32": 2}),
+    "ops+fused pool": (dict(layer_impl="ops", pool_impl="fused"),
+                       {"kernel_attention_packed_f32": 2, "kernel_ffn_f32": 2,
+                        "kernel_mean_pool": 1}),
+    "tinybert width": (dict(hidden_size=312, num_heads=12,
+                            intermediate_size=1200),
+                       {"kernel_attention_f32": 2, "kernel_ffn_f32": 2}),
+    "mpnet layer": (dict(model_type="mpnet", type_vocab_size=0,
+                         pad_token_id=1, layer_norm_eps=1e-5),
+                    {"kernel_bert_layer_rel_f32": 2}),
+    "mpnet layer_i8": (dict(model_type="mpnet", type_vocab_size=0,
+                            pad_token_id=1, layer_norm_eps=1e-5,
+                            layer_impl="layer_i8"),
+                       {"kernel_bert_layer_i8_rel_f32": 2}),
+}
+
+
+@pytest.mark.parametrize("route", sorted(F32_ROUTES))
+def test_f32_encode_batch_on_cuda_matches_cpu(cuda, route):
+    """compute_dtype = "f32" on the card, each route against the same model
+    on the CPU: only the route's f32 kernels run (each bf16 counter stays
+    0); embeddings within the reference's f32 atol 1e-4 (K4's routes:
+    per-row cosine >= 0.99995)."""
+    impl, want_ran = F32_ROUTES[route]
+    shape = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+                 intermediate_size=256, max_position_embeddings=66,
+                 dtype=torch.float32)
+    cfg = bert.BertConfig(**{**shape, **impl})
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    family = mpnet.MPNetModel if cfg.model_type == "mpnet" else bert.BertModel
+    if cfg.model_type == "mpnet":
+        params["rel_bias"] = params["rel_bias"] * 25.0       # std 0.5
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(5, 512, (8, 32)))
+    mask = torch.ones((8, 32), dtype=torch.int32)
+    mask[3, 9:] = 0
+    ids[mask == 0] = cfg.pad_token_id
+    counters = [attention.launches, ffn.launches, layer.launches]
+    before = [dict(c) for c in counters]
+    got = bert.encode_batch(family(cfg, params, device=cuda), ids.to(cuda),
+                            mask.to(cuda)).cpu()
+    ran = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c}
+    assert {k: n for k, n in ran.items() if n} == want_ran
+    want = bert.encode_batch(family(cfg, params, device="cpu"), ids, mask)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    if cfg.layer_impl == "layer_i8":
+        assert float((got * want).sum(-1).min()) >= 0.99995
+    else:
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_f32_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
+    """Every wrapper given f32 CUDA tensors launches its f32 kernel: with
+    each plain twin replaced by one that fails, all of them still run."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain twin ran on CUDA tensors")
+    for mod, name in ((layer, "bert_layer_plain"),
+                      (layer, "bert_layer_i8_plain"),
+                      (layer, "attention_f32_plain"),
+                      (attention, "attention_plain"),
+                      (attention, "attention_packed_plain"),
+                      (ffn, "ffn_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    f32 = torch.float32
+    rng = np.random.default_rng(9)
+    x, bias, w, _ = _k1_args(rng, 2, 32, cuda, f32)
+    assert layer.fused_bert_layer(x, bias, *w, nh=12).dtype == f32
+    _, _, w8, _ = _k4_args(rng, 2, 32, 384, 1536, cuda)
+    assert layer.fused_bert_layer_i8(x, bias, *w8, nh=12).dtype == f32
+    qkv = torch.from_numpy(rng.standard_normal((2, 32, 3 * 384), np.float32)
+                           ).to(cuda)
+    q, k, v = qkv.split(384, dim=-1)
+    assert attention.fused_attention_packed(q, k, v, bias, 12).dtype == f32
+    heads = q.reshape(2, 32, 12, 32).transpose(1, 2).contiguous()
+    assert attention.fused_attention(heads, heads, heads, bias, 12).dtype == f32
+    args = _ffn_args(rng, 64, 384, 1536, cuda, f32)
+    assert ffn.fused_ffn(*args).dtype == f32

@@ -159,9 +159,11 @@ SETTINGS = [("model_dir", "/models/minilm"), ("udp", True), ("index_cc", True),
             ("layer_impl", "layer_i8"), ("layer_impl", "ops"),
             ("attn_impl", "xla"), ("pool_impl", "fused"),
             ("compute_dtype", "f32")]
-# served now: the per-op encoder path (K5-K8), HF checkpoints and K4
+# served now: the per-op encoder path (K5-K8), HF checkpoints, K4 and the
+# f32 instances of the encoder kernels
 PORTED = {("layer_impl", "ops"), ("attn_impl", "xla"), ("pool_impl", "fused"),
-          ("model_dir", "/models/minilm"), ("layer_impl", "layer_i8")}
+          ("model_dir", "/models/minilm"), ("layer_impl", "layer_i8"),
+          ("compute_dtype", "f32")}
 
 
 @pytest.mark.parametrize("field,value", SETTINGS)
