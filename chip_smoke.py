@@ -17,9 +17,12 @@ Phases, each printing one progress line; any failure exits non-zero:
             I=3072) at (64, 128) and BERT-large width (H=1024, 16 heads of
             64, I=4096) at (8, 512); timed, beside torch's
             TransformerEncoderLayer fast path on the same weights (the
-            library yardstick); then K1 with MPNet's rel_bias (a seeded
-            (32, nh) table gathered by the port's position_bias) at
-            all-mpnet-base-v2's width at (64, 128) and (8, 512), timed
+            library yardstick); each of its four GEMMs alone at each of
+            those shapes and at M = 128 of each width, against the f32
+            product, timed beside torch.addmm; then K1 with MPNet's
+            rel_bias (a seeded (32, nh) table gathered by the port's
+            position_bias) at all-mpnet-base-v2's width at (64, 128) and
+            (8, 512), timed
             beside K1 without it and beside the library layer with rel and
             the key mask as one float src_mask; then the same in f32 (K1's
             f32 instance, compute_dtype = "f32") at MiniLM and BERT-base
@@ -481,6 +484,7 @@ def phase_k1(results: list) -> None:
     dev = torch.device("cuda")
     made: dict = {}
     results.append(k1_entry(rng, dev, K1_SHAPES, torch.bfloat16, made))
+    results[-1]["gemms"] = k1_gemms(rng, dev, made)
     phase_k1_rel(results, rng, made[BASE_W[0], BASE_W[2], torch.bfloat16][0])
     _f32_twins()
     results.append(k1_entry(rng, dev, K1_F32_SHAPES, torch.float32, made))
@@ -543,6 +547,66 @@ def k1_entry(rng: np.random.Generator, dev, k1_shapes, dtype,
             "replaces": "dawnsearch_tpu/ops/layer.py:275"
                         + (" (f32)" if dtype == torch.float32 else ""),
             **shapes[0], "other_shapes": shapes[1:]}
+
+
+def k1_gemms(rng: np.random.Generator, dev, made: dict) -> list:
+    """Each of K1's four bf16 projections alone (ops/layer.py::_gemm, the
+    TMA + wgmma GEMM) on the bf16 entry's weights, at every K1_SHAPES
+    shape and at M = 128 (one B=1 query) of each width, against the f32
+    product of the same bf16 operands with its epilogue in f32, rounded
+    once: per-row cosine >= KERNEL_COS_MIN (the same rounding point, f32
+    sums in another order). Device time (graph_ms) beside torch.addmm of
+    the same product and bias in bf16, the yardstick (the port never calls
+    it; it has no GELU or LayerNorm), and the bound of the projection."""
+    from dawnsearch_tpu_torch.ops import layer
+    from dawnsearch_tpu_torch.ops.ffn import erf_poly
+    from dawnsearch_tpu_torch.ops.vector import layer_norm
+    shapes = [(w, B * S) for w, B, S in K1_SHAPES]
+    shapes += [(w, 128) for w in (MINILM_W, BASE_W, LARGE_W)]
+    rows = []
+    for (H, nh, I), M in shapes:
+        (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2) = \
+            made[H, I, torch.bfloat16][0]
+
+        def act(n):
+            return torch.from_numpy(rng.standard_normal((M, n), np.float32)
+                                    ).to(dev, torch.bfloat16)
+        x, ctx, x1, h = act(H), act(H), act(H), act(I)
+        for name, a, w, b, epi, resid, ln_s, ln_b in (
+                ("qkv + bias", x, wqkv, bqkv, 0, None, None, None),
+                ("attention out + LN", ctx, wo, bo, 2, x, g1, be1),
+                ("FFN in + GELU", x1, w1, b1, 1, None, None, None),
+                ("FFN out + LN", h, w2, b2, 2, x1, g2, be2)):
+            def gemm():
+                return layer._gemm(a, w, b, epi, resid, ln_s, ln_b)
+            got = gemm().float()
+            want = a.float() @ w.float() + b
+            if epi == 1:
+                want = 0.5 * want * (1.0 + erf_poly(want * 2.0 ** -0.5))
+            elif epi == 2:
+                want = layer_norm(want + resid.float(), ln_s, ln_b, 1e-12)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            cos = float(_row_cos(got, want, w.shape[1]).min())
+            b16 = b.to(torch.bfloat16)
+            ms = graph_ms(gemm)
+            addmm_ms = graph_ms(lambda: torch.addmm(b16, a, w))
+            K, N = w.shape
+            flops = 2 * M * N * K
+            bd = bound(flops, "bf16", nbytes(a, w, b, resid, ln_s, ln_b)
+                       + M * N * 2)
+            shape = f"{name} M={M} K={K} N={N}"
+            say(f"phase k1 gemm {shape}: max|d|={err:.3e} min row cos="
+                f"{cos:.7f} kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} "
+                f"TFLOP/s) addmm {addmm_ms:.4f} ms bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            if not (cos >= KERNEL_COS_MIN and np.isfinite(err)):
+                raise AssertionError(f"K1's GEMM disagrees with the f32 "
+                                     f"product at {shape}")
+            rows.append({"shape": shape, "max_abs_err": err,
+                         "min_row_cos": cos, "ms": ms, **bd,
+                         "library_ms": addmm_ms})
+    return rows
 
 
 def _rel_bias(rng: np.random.Generator, S: int, nh: int, dev):

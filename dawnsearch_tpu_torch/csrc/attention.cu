@@ -22,46 +22,58 @@
 // rel is the optional (nh, S, S) f32 score bias every sequence shares:
 // MPNet's relative-position bias, K1's and K4's `rel_bias` operand
 // (dawnsearch_tpu/ops/layer.py:70-112, `has_rel`). Each of the three terms
-// rounds once, in the reference's order (scale, then bias, then rel). It is
-// read from global memory, where it stays L2-resident across the batch
-// (12.6 MB at nh = 12, S = 512, in the card's 50 MB L2): a shared-memory
-// tile of it would take shared memory from the scores.
+// rounds once, in the reference's order (scale, then bias, then rel). The
+// bf16 kernel reads it from global memory in the score accumulator's
+// layout (a quad of lanes reads 32 contiguous bytes of a row), issued
+// before the tile's QKᵀ; it stays L2-resident across the batch (12.6 MB
+// at nh = 12, S = 512, in the card's 50 MB L2).
 //
-// Design. The TPU kernels hold every (S, S) score tile of a batch row in
-// VMEM. A Hopper SM has 227 KB of shared memory, and K and V of one
-// (sequence, head) at S = 512, hd = 128 alone take 278 KB, so the keys are
-// walked in tiles of 64, twice: pass 1 finds each row's max, pass 2
-// recomputes the scores, forms p against that final max, sums l and
-// accumulates bf16(p)·V. An online-softmax rescale would move the point
-// where p is rounded; computing QKᵀ twice costs about a quarter more
-// attention FLOPs (QKᵀ and PV are half each) for the exact contract. One
-// CTA owns 64 query rows of one (sequence, head), 16 per warp; each warp's
-// Q fragments stay in registers for both passes and its O accumulators
-// across all key tiles. QKᵀ and PV run on bf16 WMMA (16x16x16, f32
-// accumulate); the head dim is zero-padded in shared memory to the next of
-// 16, 32, 64 or 128 (hd = 26 runs as 32). Softmax runs on the CUDA cores,
-// two lanes per row. Scale and bias are applied with __fmul_rn /
-// __fadd_rn so nvcc cannot contract them into an FMA the reference does
-// not do. With rel, a warp first rewrites its 16 x KT raw dots in shared
-// memory into finished scores (coalesced rel reads along the key axis), in
-// both passes: pass 1's row max and pass 2's p then see the same values.
+// Design (the bf16 kernel). The TPU kernels hold every (S, S) score tile
+// of a batch row in VMEM. A Hopper SM has 227 KB of shared memory, and K
+// and V of one (sequence, head) at S = 512, hd = 128 alone take 278 KB, so
+// the keys are walked in tiles of 64, twice: pass 1 finds each row's
+// exact max, pass 2 recomputes the scores, forms p against that final max,
+// sums l and accumulates bf16(p)·V. An online-softmax rescale would move
+// the point where p is rounded; computing QKᵀ twice costs about a quarter
+// more attention FLOPs (QKᵀ and PV are half each) for the exact contract.
+// One CTA owns 64 query rows of one (sequence, head), 16 per warp. QKᵀ and
+// PV run on mma.sync m16n8k16 (bf16 in, f32 accumulate) with fragments
+// read by ldmatrix (.trans for V) from rows padded to an odd number of 16
+// bytes (no bank conflicts); the head dim is zero-padded to the next of
+// 16, 32, 64 or 128 (hd = 26 runs as 32). Each warp's Q fragments stay in
+// registers for both passes and its O accumulators across all key tiles.
+// The scores never leave registers: scale, bias and rel are applied in the
+// accumulator's layout with __fmul_rn / __fadd_rn (nvcc cannot contract
+// them into an FMA the reference does not do), the row max and l are
+// reduced by shuffles within the quad of lanes that shares a row, and in
+// pass 2 the f32 p is rounded to bf16 in registers and used as PV's A
+// fragment directly (the m16n8 accumulator layout of two key blocks is the
+// A layout of m16n8k16). Both passes compute each score by the same
+// instructions from the same operands, so they see bit-identical scores.
+// K (pass 1) and K and V (pass 2) are staged through a ring of two
+// buffers by 16-byte cp.async: tile j + 1, and the first tile of pass 2,
+// are in flight while tile j computes. Rows of a head dim that is not a
+// multiple of 8 (hd = 26: 52 bytes), or not 16-byte aligned, are staged
+// element by element into the same ring. Each padded head dim has an
+// instance with rel and one without: K5 and K6 pass none, and the
+// registers of a rel tile would cost them occupancy.
 //
 // What bounds it. Attention is ~1% of a MiniLM layer's FLOPs: at B = 64,
 // S = 128, H = 384 it does 1.6 GFLOP and must move 25 MB (q, k, v, out),
-// so the byte bound (7.5 µs at 3.35 TB/s) is the larger one. This first
-// version stages tiles synchronously (no cp.async / TMA ring) and re-reads
-// K and V once per 64-query tile and per pass from L2; it is bound by load
-// latency and WMMA dispatch, not by HBM. Rows of a head dim that is not a
-// multiple of 8 (hd = 26: 52 bytes) are staged element by element.
+// so the byte bound (7.5 µs at 3.35 TB/s) is the larger one. K and V are
+// re-read once per 64-query tile and per pass, from L2, and a warp's work
+// between two barriers is one 16 x 64 score tile: at S = 512 the kernel
+// is bound by that per-tile latency, the second QKᵀ and the softmax's
+// exact expf, and reads about 1.4x SDPA (PERF.md §6), which computes QKᵀ
+// once under an online softmax.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -69,53 +81,45 @@ namespace {
 constexpr int QT = 64;          // query rows per CTA: 16 per warp
 constexpr int KT = 64;          // keys per staged tile
 constexpr int THREADS = 128;
-constexpr int S_LD = KT + 4;    // f32 score rows (a warp's 16 x KT slice)
-constexpr int P_LD = KT + 8;    // bf16 probability rows
 constexpr int MAX_S = 512;
 
 struct Strides {
   long long b, h, r;            // elements between batches, heads, rows
 };
 
-// Shared memory of the HDP (padded head dim) instance, in bytes:
-//   Q (QT rows), K and V (KT rows each) as bf16 rows of HDP + 8;
-//   f32 scores (QT x S_LD); bf16 p (QT x P_LD); 1/l per row; bias (S).
-// The f32 output tile (QT x HDP + 4) reuses the K and V region after the
-// last key tile: 2·KT·(HDP + 8)·2 >= QT·(HDP + 4)·4 for QT == KT.
+// Shared memory of the HDP (padded head dim) instance, in bytes: Q (QT
+// rows), the ring of two K and two V tiles (KT rows each), as bf16 rows of
+// HDP + 8 (16-byte aligned, an odd number of 16 bytes apart); the key bias
+// row (S).
 template <int HDP>
 struct Smem {
   static constexpr int LD = HDP + 8;
-  static constexpr int O_LD = HDP + 4;
+  static constexpr size_t tile = align128((size_t)KT * LD * sizeof(bf16));
   static constexpr size_t q = 0;
   static constexpr size_t k = q + align128((size_t)QT * LD * sizeof(bf16));
-  static constexpr size_t v = k + align128((size_t)KT * LD * sizeof(bf16));
-  static constexpr size_t s = v + align128((size_t)KT * LD * sizeof(bf16));
-  static constexpr size_t p = s + align128((size_t)QT * S_LD * sizeof(float));
-  static constexpr size_t inv = p + align128((size_t)QT * P_LD * sizeof(bf16));
-  static constexpr size_t bias = inv + align128((size_t)QT * sizeof(float));
+  static constexpr size_t v = k + 2 * tile;
+  static constexpr size_t bias = v + 2 * tile;
   static constexpr size_t bytes(int S) {
     return bias + align128((size_t)S * sizeof(float));
   }
-  static_assert((size_t)QT * O_LD * sizeof(float) <= s - k,
-                "output tile must fit the K and V region");
 };
 
 // rows x HDP tile of a strided source into shared memory (row pitch
-// HDP + 8): rows >= valid and columns >= hd are zero. vec: hd, the row
-// stride and the base are multiples of 8 elements (16-byte loads).
+// HDP + 8): rows >= valid and columns >= hd are zero. vec (hd, the row
+// stride and the base are multiples of 8 elements): 16-byte cp.async, in
+// flight until the caller's cp_async_wait; else element by element.
 template <int HDP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long rstride, int rows,
-                                          int valid, int hd, bool vec) {
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
+                                      long long rstride, int rows, int valid,
+                                      int hd, bool vec) {
   constexpr int LD = HDP + 8;
   if (vec) {
     constexpr int CPR = HDP / 8;
     for (int idx = threadIdx.x; idx < rows * CPR; idx += THREADS) {
       const int r = idx / CPR, c = (idx % CPR) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < valid && c < hd)
-        val = *reinterpret_cast<const uint4*>(src + r * rstride + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+      const bool ok = r < valid && c < hd;
+      sm90::cp_async16(dst + r * LD + c, ok ? src + r * rstride + c : src,
+                       ok ? 16 : 0);
     }
   } else {
     const bf16 zero = __float2bfloat16(0.0f);
@@ -128,8 +132,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 
 // grid (ceil(S / QT), nh, B): query rows [blockIdx.x·QT, +QT) of head
 // blockIdx.y of sequence blockIdx.z. S % 16 == 0, so a warp's 16 rows are
-// all valid or all past the end.
-template <int HDP>
+// all valid or all past the end, and a key tile holds a multiple of 16
+// keys. A lane holds the scores and outputs of rows g = lane / 4 and g + 8
+// of its warp's 16, at columns 8·n + 2·(lane % 4) + {0, 1} of each 8-wide
+// block n (element e of a block: row g + 8·(e / 2), column + e % 2).
+template <int HDP, bool REL>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -137,159 +144,175 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int hd, Strides in, Strides ot, float scale, int vec_in,
                  int vec_out) {
   using L = Smem<HDP>;
-  constexpr int LD = L::LD, NF = HDP / 16;
+  constexpr int LD = L::LD;
+  constexpr int NK = HDP / 16;   // k16 steps of QKᵀ
+  constexpr int NO = HDP / 8;    // 8-wide output blocks
+  constexpr int NS = KT / 8;     // 8-wide score blocks of a key tile
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* Inv = reinterpret_cast<float*>(smem + L::inv);
   float* Bs = reinterpret_cast<float*>(smem + L::bias);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const long long in_off = (long long)b * in.b + (long long)h * in.h;
-  const bf16* qb = q + in_off;
   const bf16* kb = k + in_off;
   const bf16* vb = v + in_off;
   const bool active = q0 + warp * 16 < S;   // warp-uniform
-  float* Sw = Ss + warp * 16 * S_LD;
-  bf16* Pw = Ps + warp * 16 * P_LD;
-  const int row = lane >> 1, half = lane & 1;   // softmax: 2 lanes a row
-  const int q_valid = min(QT, S - q0);
+  const int tiles = (S + KT - 1) / KT;
+  // step j < tiles: pass 1 over key tile j (K); step tiles + j: pass 2
+  // over tile j (K and V); step s uses ring buffer s & 1
+  auto issue = [&](int step) {
+    const int k0 = (step < tiles ? step : step - tiles) * KT;
+    const int kn = min(KT, S - k0);
+    bf16* kd = reinterpret_cast<bf16*>(smem + L::k + (step & 1) * L::tile);
+    stage<HDP>(kd, kb + (long long)k0 * in.r, in.r, KT, kn, hd, vec_in);
+    if (step >= tiles) {
+      bf16* vd = reinterpret_cast<bf16*>(smem + L::v + (step & 1) * L::tile);
+      stage<HDP>(vd, vb + (long long)k0 * in.r, in.r, KT, kn, hd, vec_in);
+    }
+  };
 
-  load_tile<HDP>(Qs, qb + (long long)q0 * in.r, in.r, QT, q_valid, hd,
-                 vec_in);
+  stage<HDP>(Qs, q + in_off + (long long)q0 * in.r, in.r, QT,
+             min(QT, S - q0), hd, vec_in);
+  issue(0);
+  sm90::cp_async_commit();
   for (int j = threadIdx.x; j < S; j += THREADS)
     Bs[j] = bias[(long long)b * S + j];
-  __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[NF];
-  if (active) {
+  uint32_t qf[NK][4];
+  float o[NO][4];
 #pragma unroll
-    for (int i = 0; i < NF; ++i)
-      wmma::load_matrix_sync(qf[i], Qs + warp * 16 * LD + i * 16, LD);
-  }
-
-  // Sw[0:16, 0:kn] = this warp's Q rows · K tileᵀ (raw f32 dots)
-  auto scores = [&](int kn) {
-    for (int fn = 0; fn < kn / 16; ++fn) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int i = 0; i < NF; ++i) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + fn * 16 * LD + i * 16, LD);
-        wmma::mma_sync(acc, qf[i], kf, acc);
-      }
-      wmma::store_matrix_sync(Sw + fn * 16, acc, S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-
-  // with rel: Sw[r, c] = ((dot·scale) + bias) + rel[h, row r, key k0 + c];
-  // a lane owns keys c and c + 32 and walks the 16 rows, so its 16 loads
-  // of a column are independent and in flight together
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   const float* relw =
-      rel ? rel + ((long long)h * S + q0 + warp * 16) * S : nullptr;
-  auto add_rel = [&](int k0, int kn) {
-    for (int c = lane; c < kn; c += 32) {
-      const float b = Bs[k0 + c];
-      float rv[16];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) rv[r] = relw[(long long)r * S + k0 + c];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        float* sp = Sw + r * S_LD + c;
-        *sp = __fadd_rn(__fadd_rn(__fmul_rn(*sp, scale), b), rv[r]);
-      }
-    }
-    __syncwarp();
-  };
-  // row `row`'s score of key k0 + j
-  auto score = [&](int k0, int j) {
-    const float raw = Sw[row * S_LD + j];
-    return rel ? raw : __fadd_rn(__fmul_rn(raw, scale), Bs[k0 + j]);
-  };
+      REL ? rel + ((long long)h * S + q0 + warp * 16 + g) * S : nullptr;
 
-  // pass 1: each row's max of s
-  float m = -INFINITY;
-  for (int k0 = 0; k0 < S; k0 += KT) {
-    const int kn = min(KT, S - k0);
-    __syncthreads();                      // the previous tile is consumed
-    load_tile<HDP>(Ks, kb + (long long)k0 * in.r, in.r, kn, kn, hd, vec_in);
+  for (int step = 0; step < 2 * tiles; ++step) {
+    if (step + 1 < 2 * tiles) issue(step + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();               // this step's tiles have landed
     __syncthreads();
+    const bool pass2 = step >= tiles;
+    const int k0 = (pass2 ? step - tiles : step) * KT;
+    const int kn = min(KT, S - k0);
+    const bf16* Kt =
+        reinterpret_cast<const bf16*>(smem + L::k + (step & 1) * L::tile);
+    const bf16* Vt =
+        reinterpret_cast<const bf16*>(smem + L::v + (step & 1) * L::tile);
     if (active) {
-      scores(kn);
-      if (rel) add_rel(k0, kn);
-      for (int j = half; j < kn; j += 2) m = fmaxf(m, score(k0, j));
-    }
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  // pass 2: p = exp(s - m), l = Σp, O += bf16(p)·V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[NF];
+      if (step == 0) {
 #pragma unroll
-  for (int i = 0; i < NF; ++i) wmma::fill_fragment(of[i], 0.0f);
-  float l = 0.0f;
-  for (int k0 = 0; k0 < S; k0 += KT) {
-    const int kn = min(KT, S - k0);
-    __syncthreads();
-    load_tile<HDP>(Ks, kb + (long long)k0 * in.r, in.r, kn, kn, hd, vec_in);
-    load_tile<HDP>(Vs, vb + (long long)k0 * in.r, in.r, kn, kn, hd, vec_in);
-    __syncthreads();
-    if (active) {
-      scores(kn);
-      if (rel) add_rel(k0, kn);
-      for (int j = half; j < kn; j += 2) {
-        const float p = expf(__fsub_rn(score(k0, j), m));
-        l += p;
-        Pw[row * P_LD + j] = __float2bfloat16(p);
+        for (int kc = 0; kc < NK; ++kc)
+          sm90::ldmatrix_x4(qf[kc], Qs + (warp * 16 + lane % 8 +
+                                          ((lane / 8) % 2) * 8) * LD +
+                                             kc * 16 + (lane / 16) * 8);
       }
-      __syncwarp();
-      for (int kk = 0; kk < kn; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::load_matrix_sync(pf, Pw + kk, P_LD);
+      float rv[NS][4];
+      if (REL) {
 #pragma unroll
-        for (int i = 0; i < NF; ++i) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, Vs + kk * LD + i * 16, LD);
-          wmma::mma_sync(of[i], pf, vf, of[i]);
+        for (int n = 0; n < NS; ++n)
+          if (n * 8 < kn) {
+            const int c = k0 + n * 8 + 2 * t4;
+            rv[n][0] = relw[c];
+            rv[n][1] = relw[c + 1];
+            rv[n][2] = relw[8LL * S + c];
+            rv[n][3] = relw[8LL * S + c + 1];
+          }
+      }
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np)
+        if (np * 16 < kn) {
+#pragma unroll
+          for (int kc = 0; kc < NK; ++kc) {
+            uint32_t kf[4];
+            sm90::ldmatrix_x4(kf, Kt + ((2 * np + lane / 16) * 8 + lane % 8) *
+                                           LD + kc * 16 + ((lane / 8) % 2) * 8);
+            sm90::mma_bf16_16816(s[2 * np], qf[kc], kf[0], kf[1]);
+            sm90::mma_bf16_16816(s[2 * np + 1], qf[kc], kf[2], kf[3]);
+          }
+        }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        if (n * 8 < kn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float sc = __fadd_rn(__fmul_rn(s[n][e], scale),
+                                 Bs[k0 + n * 8 + 2 * t4 + (e & 1)]);
+            if (REL) sc = __fadd_rn(sc, rv[n][e]);
+            if (!pass2) {
+              m[e / 2] = fmaxf(m[e / 2], sc);
+            } else {
+              const float p = expf(__fsub_rn(sc, m[e / 2]));
+              l[e / 2] += p;
+              s[n][e] = p;
+            }
+          }
+        }
+      if (pass2) {
+#pragma unroll
+        for (int kc = 0; kc < KT / 16; ++kc)
+          if (kc * 16 < kn) {
+            const uint32_t pa[4] = {
+                sm90::pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                sm90::pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                sm90::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                sm90::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+            for (int op = 0; op < NO / 2; ++op) {
+              uint32_t vf[4];
+              sm90::ldmatrix_x4_trans(
+                  vf, Vt + (kc * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                          (2 * op + lane / 16) * 8);
+              sm90::mma_bf16_16816(o[2 * op], pa, vf[0], vf[1]);
+              sm90::mma_bf16_16816(o[2 * op + 1], pa, vf[2], vf[3]);
+            }
+          }
+      } else if (step == tiles - 1) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
         }
       }
     }
+    __syncthreads();                        // the buffer is refilled next
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  if (half == 0) Inv[warp * 16 + row] = 1.0f / l;
-  __syncthreads();                        // every warp is done with K and V
 
-  // o = out_dtype(O · (1/l)), staged in f32 over the K and V region
+  // o = out_dtype(O · (1/l)), straight from the accumulators
   if (active) {
-    float* Ow = reinterpret_cast<float*>(smem + L::k) + warp * 16 * L::O_LD;
+    float inv[2];
 #pragma unroll
-    for (int i = 0; i < NF; ++i)
-      wmma::store_matrix_sync(Ow + i * 16, of[i], L::O_LD, wmma::mem_row_major);
-    __syncwarp();
-    const float* inv = Inv + warp * 16;
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = 1.0f / l[i];
+    }
     bf16* ob = out + (long long)b * ot.b + (long long)h * ot.h +
-               (long long)(q0 + warp * 16) * ot.r;
-    if (vec_out) {
-      const int cpr = hd / 8;
-      for (int idx = lane; idx < 16 * cpr; idx += 32) {
-        const int r = idx / cpr, c = (idx % cpr) * 8;
-        __align__(16) bf16 o8[8];
+               (long long)(q0 + warp * 16 + g) * ot.r;
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o8[e] = __float2bfloat16(__fmul_rn(Ow[r * L::O_LD + c + e], inv[r]));
-        *reinterpret_cast<uint4*>(ob + r * ot.r + c) =
-            *reinterpret_cast<const uint4*>(o8);
-      }
-    } else {
-      for (int idx = lane; idx < 16 * hd; idx += 32) {
-        const int r = idx / hd, c = idx % hd;
-        ob[r * ot.r + c] = __float2bfloat16(__fmul_rn(Ow[r * L::O_LD + c],
-                                                      inv[r]));
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        bf16* row = ob + i * 8 * ot.r;
+        const float y0 = __fmul_rn(o[n][2 * i], inv[i]);
+        const float y1 = __fmul_rn(o[n][2 * i + 1], inv[i]);
+        if (vec_out) {
+          if (c < hd)
+            *reinterpret_cast<__nv_bfloat162*>(row + c) =
+                __floats2bfloat162_rn(y0, y1);
+        } else {
+          if (c < hd) row[c] = __float2bfloat16(y0);
+          if (c + 1 < hd) row[c + 1] = __float2bfloat16(y1);
+        }
       }
     }
   }
@@ -300,14 +323,15 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                    const float* bias, const float* rel, bf16* out, int B,
                    int nh, int S, int hd, Strides in, Strides ot, float scale,
                    bool vec_in, bool vec_out, cudaStream_t stream) {
+  // an instance without rel spares the registers of its tile
+  auto kernel = rel ? attention_kernel<HDP, true> : attention_kernel<HDP, false>;
   const size_t smem = Smem<HDP>::bytes(S);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + QT - 1) / QT, nh, B);
-  attention_kernel<HDP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, bias, rel, out, S, hd, in, ot, scale, vec_in, vec_out);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, bias, rel, out, S, hd, in,
+                                          ot, scale, vec_in, vec_out);
   return cudaGetLastError();
 }
 
@@ -331,7 +355,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 // nvcc cannot contract, as eager torch rounds the product and the sum.
 // Why: K4 re-quantizes the context to i8 per row, and one ulp of
 // difference in ctx can flip a code, which the next three quantizations
-// amplify; with WMMA's accumulation order a few tokens in 4096 drift to a
+// amplify; with the tensor cores' accumulation order a few tokens in 4096 drift to a
 // cosine of 0.9999 from a plain twin that sums in another order. Fixed-
 // order sums keep K4 and its twin equal. The H100 has no f32 MMA, and one
 // TF32 pass keeps 10 mantissa bits, so the f32 instance runs on the CUDA
@@ -347,7 +371,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 // each. The order of every sum is the loop order above, whatever the
 // thread mapping. It costs 2·B·nh·S²·hd f32 FMAs (QKᵀ and PV once each):
 // at 67 TFLOP/s of f32 FMA that bounds it, far above the bytes it moves.
-// rel, when given, is added to each score after the bias, as in the WMMA
+// rel, when given, is added to each score after the bias, as in the bf16
 // kernel; the staged rows past the sequence's end read none (they add 0
 // and are never written out).
 constexpr int SQ_QT = 32;
@@ -578,7 +602,7 @@ extern "C" {
 // Masked attention of every (sequence, head): q, k and v share the
 // element strides (in_b, in_h, in_r) and have unit stride along the head
 // dim; out has (out_b, out_h, out_r). in_f32 = 0: bf16 q, k and v, and a
-// bf16 out from the WMMA kernel (K1, K5, K6) or, with out_f32, an f32 out
+// bf16 out from the mma.sync kernel (K1, K5, K6) or, with out_f32, an f32 out
 // from the fixed-order kernel (K4). in_f32 = 1: f32 q, k, v and out, the
 // fixed-order kernel with p unrounded (the f32 variants; needs out_f32).
 // bias is the (B, S) f32 additive key bias; rel, nullable, the contiguous

@@ -23,24 +23,63 @@
 //   gemm_kernel<EPI_LN>    ctx·Wo + bo + x -> LN -> x1 (M, H) bf16
 //   gemm_kernel<EPI_GELU>  x1·W1 + b1 -> GELU    -> h  (M, I) bf16
 //   gemm_kernel<EPI_LN>    h·W2 + b2 + x1 -> LN  -> y  (M, H) bf16
-// The GEMM is bf16 x bf16 -> f32 on the tensor cores (WMMA 16x16x16),
-// 64x128 output tiles staged through shared memory for the epilogue. For
-// the LayerNorm epilogue one CTA owns 32 whole rows: it walks every
-// 128-column chunk of N, keeps the f32 row block in shared memory and
-// normalises it there, so the residual add and LN never touch HBM in f32
-// (at H = 1024 the row block is 129 KB). The attention kernel pads the
-// head dim to 16, 32, 64 or 128, so every width of the reference's
-// envelope (128 % hd == 0, H % 128 == 0) runs; the wrapper
-// (ops/layer.py::_layer_cuda) makes the five launches.
+// The bf16 GEMM is a TMA + wgmma kernel. A CTA owns a BM x 128 output tile
+// (BM = 64 or 128: one or two consumer warpgroups of 64 rows each) and one
+// producer warp. The producer keeps a ring of 64-deep k stages (4 at BM =
+// 64, 3 at BM = 128: 96 KB, so two CTAs share an SM and one's epilogue
+// overlaps the other's mainloop) filled by TMA loads under the 128-byte
+// swizzle, each stage completing on an mbarrier; the consumers issue
+// wgmma.m64n128k16 with both operands in shared memory and free a stage
+// (a second mbarrier) once the wgmma group that read it has retired. A
+// (the activations) is K-major. W keeps the reference's (in, out) layout,
+// which is MN-major for the product: wgmma reads it with its transpose bit
+// set, two 64-column TMA boxes per stage. Rows past M read zeros (TMA's
+// out-of-bounds fill) and are masked on the store. Tensor maps are encoded
+// on the host at every call (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint: no -lcuda) and passed as __grid_constant__
+// parameters, so a CUDA graph that captured a launch keeps valid maps.
+// BM = 128 where 128-row tiles give the card a full wave (>= 132 CTAs),
+// else 64, which doubles the CTAs at small M (a B = 1 query is M = 128);
+// 256-row tiles (four consumer warpgroups) moved a layer by 1-2.5% and
+// are not instantiated.
+// Not persistent: at these K (384 to 4096) a tile's mainloop is 6 to 64
+// stages, and the second CTA per SM hides the prologue and epilogue. K is
+// not split at small M: a B = 1 query's LayerNorm GEMMs read 10-15 µs on
+// the card (PERF.md §6), under the 20 µs at which a second cluster
+// dimension over K would pay for its extra f32 reduction.
+//
+// The LayerNorm epilogue needs whole rows. A thread-block cluster of N/128
+// CTAs spans one BM-row block (3 at MiniLM, 6 at BERT-base, 8 at
+// BERT-large, up to 13 at H = 1664 as a non-portable cluster): each CTA
+// forms v = (acc + b) + resid in registers, writes per-row partial sums
+// of its 128 columns to shared memory, reads every CTA's partials through
+// distributed shared memory in cluster-rank order after a cluster
+// barrier (so every CTA gets the same mean), then does the same for
+// Σ(v − mean)², the twin's two-pass LayerNorm, and normalises its own
+// columns. No f32 row block is kept in shared memory; the envelope is
+// every H % 128 == 0 up to 16 CTAs (H = 2048). The cluster shape is
+// checked with cudaOccupancyMaxActiveClusters and refused, never shrunk.
+// The sums' order (within a CTA: each thread's 32 columns, then the quad
+// of lanes sharing a row; across CTAs: rank order) differs from the
+// twin's, an f32 rounding difference only.
 //
 // What bounds it. At MiniLM width (H=384, I=1536) the four projections are
-// ~96% of the layer's FLOPs, and at B·S >= 8192 rows they are compute bound
-// (about 3.5 MB of bf16 weights against GFLOPs of work). This first version
-// loads tiles synchronously (no cp.async / TMA pipeline, no wgmma), so it is
-// bound by tensor-core issue stalls on shared-memory loads; the fast shape
-// (TMA ring + wgmma, persistent CTAs) is later work. Intermediates qkv, ctx,
-// x1 and h do make one HBM round trip each (the TPU kernel kept them in
-// VMEM): ~2·M·(3H+H+H+I)·2 bytes per layer.
+// ~96% of the layer's FLOPs, and at B·S >= 8192 rows they are compute
+// bound (about 3.5 MB of bf16 weights against GFLOPs of work): 989
+// TFLOP/s of bf16 wgmma. At a B = 1 query (M = 128) each projection moves
+// about 1-4 MB and is bound by bytes (about 1 µs), in practice by the
+// latency of a K chain of 6-24 stages on 6-24 CTAs. This version runs at
+// 150-420 TFLOP/s at M >= 4096 on the bias and GELU GEMMs and 90-380 on
+// the LayerNorm ones (PERF.md §6): a 128 x 128 tile streams
+// 32 KB from L2 per 64-deep stage (about 6 TB/s across the card on the
+// qkv GEMM), and at MiniLM and BERT-base K is only 6-12 stages deep, so
+// L2-to-shared bandwidth and each tile's pipeline fill and epilogue bound
+// it. Sharing A and W by TMA multicast within 2-6-CTA clusters was tried
+// and was slower: the cluster-wide stage barriers it needs cost more than
+// the L2 reads it saved. A LayerNorm tile costs about twice a bias tile
+// (three cluster barriers and two DSMEM gathers in its epilogue).
+// Intermediates qkv, ctx, x1 and h make one HBM round trip each (the TPU
+// kernel kept them in VMEM): ~2·M·(3H+H+H+I)·2 bytes per layer.
 //
 // The f32 instance (the reference's BertConfig(dtype=float32): f32
 // operands into every projection, no rounding of qkv, ctx, x1, h or p, f32
@@ -59,23 +98,19 @@
 //  - heads are computed one at a time: the 128-lane block-diagonal packing
 //    of ops/layer.py:70-112 is a TPU lane trick.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BK = 32;                 // GEMM depth per smem stage
-constexpr int BN = 128;                // GEMM output columns per tile
-constexpr int GEMM_THREADS = 256;      // 8 warps laid out 2 (M) x 4 (N)
-constexpr int A_LD = BK + 8;           // padded smem rows (bf16 elements)
-constexpr int B_LD = BN + 8;
+constexpr int BN = 128;                // GEMM output columns per CTA
 
 constexpr int EPI_BIAS = 0;
 constexpr int EPI_GELU = 1;
@@ -115,105 +150,314 @@ __device__ __forceinline__ void ln_rows(float* Cs, int ldc, int bm, int m0,
   }
 }
 
-size_t gemm_smem_bytes(int bm, int epi, int N) {
-  const int ldc = (epi == EPI_LN ? N : BN) + 4;
-  return align128((size_t)bm * A_LD * sizeof(bf16)) +
-         align128((size_t)BK * B_LD * sizeof(bf16)) +
-         (size_t)bm * ldc * sizeof(float);
+// ---------------------------------------------------------------------------
+// The bf16 GEMM: out = epilogue(A (M,K) · W (K,N) + bias), TMA + wgmma.
+constexpr int BK = 64;                 // bf16 per 128-byte swizzled row
+constexpr int W_BOX = BK * 64 * 2;     // one 64 x 64 TMA box of W: 8 KB
+constexpr int MAX_CLUSTER = 16;        // non-portable cluster limit
+
+// Shared memory of a BM-row CTA: the stage ring (A: BM rows of 128 bytes;
+// W: two 64-column boxes), its full / empty mbarriers, and the LayerNorm
+// epilogue's per-row partial sums (two passes). 1 KB of slack aligns the
+// ring to the swizzle's 1024-byte atom.
+template <int BM>
+struct Tile {
+  static constexpr int NC = BM / 64;               // consumer warpgroups
+  static constexpr int THREADS = NC * 128 + 32;    // + the producer warp
+  static constexpr int STAGES = BM == 128 ? 3 : 4;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int STAGE = A_BYTES + 2 * W_BOX;
+  static constexpr size_t bars = (size_t)STAGES * STAGE;
+  static constexpr size_t red = bars + 2 * STAGES * sizeof(uint64_t);
+  static constexpr size_t bytes = red + 2 * BM * sizeof(float) + 1024;
+};
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// out = epilogue(A (M,K) · W (K,N) + bias). Row-major everywhere.
-// EPI_LN: grid.x == 1 and the CTA covers all N columns of its BM rows.
+// Σ over the n CTAs of the cluster, in rank order, of the f32 at p's
+// offset and at p + 8 (a thread's two rows); the loads go four ranks at a
+// time
+__device__ __forceinline__ float2 cluster_rows(const float* p, int n) {
+  float2 tot = make_float2(0.0f, 0.0f);
+  for (int q0 = 0; q0 < n; q0 += 4) {
+    float v[2][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q0 + q < n) {
+        v[0][q] = sm90::ld_dsmem(p, q0 + q);
+        v[1][q] = sm90::ld_dsmem(p + 8, q0 + q);
+      }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q0 + q < n) {
+        tot.x += v[0][q];
+        tot.y += v[1][q];
+      }
+  }
+  return tot;
+}
+
+// grid (N / 128, ceil(M / BM)); EPI_LN: clusters of (N / 128, 1, 1), so
+// a cluster is one row block and blockIdx.x its rank (cx CTAs). A
+// consumer thread holds acc[4j + 2h + e] = C[row0 + 8h, n0 + 8j +
+// 2(lane % 4) + e], row0 = m0 + 64·wg + 16·(warp % 4) + lane / 4
+// (wgmma's accumulator layout).
 template <int BM, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+__global__ void __launch_bounds__(Tile<BM>::THREADS)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ CUtensorMap map_w,
             const float* __restrict__ bias, const bf16* __restrict__ resid,
             const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-            bf16* __restrict__ out, int M, int N, int K, float eps) {
-  constexpr int FM = BM / 32;          // 16-row fragments per warp
-  constexpr int FN = 2;                // warp tile is (BM/2) x 32
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(
-      smem + align128((size_t)BM * A_LD * sizeof(bf16)));
-  float* Cs = reinterpret_cast<float*>(
-      smem + align128((size_t)BM * A_LD * sizeof(bf16)) +
-      align128((size_t)BK * B_LD * sizeof(bf16)));
-  const int ldc = (EPI == EPI_LN ? N : BN) + 4;
+            bf16* __restrict__ out, int M, int N, int K, float eps,
+            int cx) {
+  using T = Tile<BM>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
+  uint64_t* empty = full + T::STAGES;
+  float* red = reinterpret_cast<float*>(smem + T::red);   // [2][BM]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool consumer = warp < T::NC * 4;                 // warp-uniform
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int kt = (K + BK - 1) / BK;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM;
-  const int n_begin = (EPI == EPI_LN) ? 0 : blockIdx.x * BN;
-  const int n_end = (EPI == EPI_LN) ? N : n_begin + BN;
-
-  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      for (int idx = tid; idx < BM * (BK / 8); idx += GEMM_THREADS) {
-        const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M)
-          v = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + c);
-        *reinterpret_cast<uint4*>(As + r * A_LD + c) = v;
-      }
-      for (int idx = tid; idx < BK * (BN / 8); idx += GEMM_THREADS) {
-        const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * B_LD + c) =
-            *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N + n0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(af[i], As + (wm * FM * 16 + i * 16) * A_LD + kk,
-                                 A_LD);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(bfr[j], Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j)
-            wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-      }
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], T::NC * 4);  // lane 0 of each consumer warp
     }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
 
-    const int cbase = (EPI == EPI_LN) ? n0 : 0;
+  float acc[64];
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(
-            Cs + (wm * FM * 16 + i * 16) * ldc + cbase + wn * 32 + j * 16,
-            acc[i][j], ldc, wmma::mem_row_major);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
-    if (EPI != EPI_LN) {
-      __syncthreads();
-      for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-        const int r = idx / BN, c = idx % BN;
-        if (m0 + r >= M) continue;
-        float h = Cs[r * ldc + c] + bias[n0 + c];
-        if (EPI == EPI_GELU) h = gelu_as(h);
-        out[(size_t)(m0 + r) * N + n0 + c] = __float2bfloat16(h);
+  if (!consumer) {
+    if (lane == 0) {
+      sm90::prefetch_tensormap(&map_a);
+      sm90::prefetch_tensormap(&map_w);
+      for (int t = 0; t < kt; ++t) {
+        const int s = t % T::STAGES;
+        if (t >= T::STAGES)
+          sm90::mbar_wait(&empty[s], ((t / T::STAGES) - 1) & 1);
+        unsigned char* st = smem + s * T::STAGE;
+        sm90::mbar_expect_tx(&full[s], T::STAGE);
+        sm90::tma_load_2d(st, &map_a, &full[s], t * BK, m0);
+        sm90::tma_load_2d(st + T::A_BYTES, &map_w, &full[s], n0, t * BK);
+        sm90::tma_load_2d(st + T::A_BYTES + W_BOX, &map_w, &full[s], n0 + 64,
+                          t * BK);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int wg = warp / 4;
+    for (int t = 0; t < kt; ++t) {
+      const int s = t % T::STAGES;
+      sm90::mbar_wait(&full[s], (t / T::STAGES) & 1);
+      const unsigned char* a = smem + s * T::STAGE + wg * 64 * 128;
+      const unsigned char* w = smem + s * T::STAGE + T::A_BYTES;
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::wgmma_m64n128k16_tb(acc, sm90::wgmma_desc(a + kk * 32, 16, 1024),
+                                  sm90::wgmma_desc(w + kk * 2048, W_BOX, 1024));
+      sm90::wgmma_commit();
+      sm90::fence_regs(acc);
+      // the group of stage t - 1 has retired: its buffers are free
+      sm90::wgmma_wait<1>();
+      if (t > 0 && lane == 0) sm90::mbar_arrive(&empty[(t - 1) % T::STAGES]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+  }
+
+  const int rl = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;  // local row
+  const int c0 = n0 + (lane % 4) * 2;
+  if (EPI != EPI_LN) {
+    if (!consumer) return;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + j * 8;
+      const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + rl + 8 * h;
+        float v0 = acc[4 * j + 2 * h] + b0;
+        float v1 = acc[4 * j + 2 * h + 1] + b1;
+        if (EPI == EPI_GELU) {
+          v0 = gelu_as(v0);
+          v1 = gelu_as(v1);
+        }
+        if (r < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * N + c) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    return;
+  }
+
+  // LayerNorm across the cluster: pass 1 the mean, pass 2 the variance of
+  // the deviations; every thread (the producer warp too) meets the three
+  // cluster barriers
+  float part[2] = {0.0f, 0.0f};
+  if (consumer) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + j * 8;
+      const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + rl + 8 * h;
+        float x0 = 0.0f, x1 = 0.0f;
+        if (r < M) {
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(resid + (size_t)r * N + c);
+          x0 = __low2float(xv);
+          x1 = __high2float(xv);
+        }
+        float& v0 = acc[4 * j + 2 * h];
+        float& v1 = acc[4 * j + 2 * h + 1];
+        v0 = (v0 + b0) + x0;
+        v1 = (v1 + b1) + x1;
+        part[h] += v0;
+        part[h] += v1;
       }
     }
   }
-
-  if (EPI == EPI_LN) {
-    __syncthreads();
-    ln_rows(Cs, ldc, BM, m0, M, N, bias, resid, ln_s, ln_b, out, eps);
+  part[0] = quad_sum(part[0]);
+  part[1] = quad_sum(part[1]);
+  if (consumer && lane % 4 == 0) {
+    red[rl] = part[0];
+    red[rl + 8] = part[1];
   }
+  __syncwarp();
+  sm90::cluster_sync();
+  float mean[2] = {0.0f, 0.0f};
+  part[0] = part[1] = 0.0f;
+  if (consumer) {
+    const float2 tot = cluster_rows(red + rl, cx);
+    mean[0] = tot.x / N;
+    mean[1] = tot.y / N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = acc[4 * j + e] - mean[e / 2];
+        part[e / 2] += d * d;
+      }
+  }
+  part[0] = quad_sum(part[0]);
+  part[1] = quad_sum(part[1]);
+  if (consumer && lane % 4 == 0) {
+    red[BM + rl] = part[0];
+    red[BM + rl + 8] = part[1];
+  }
+  __syncwarp();
+  sm90::cluster_sync();
+  float rstd[2] = {0.0f, 0.0f};
+  if (consumer) {
+    const float2 tot = cluster_rows(red + BM + rl, cx);
+    rstd[0] = rsqrtf(tot.x / N + eps);
+    rstd[1] = rsqrtf(tot.y / N + eps);
+  }
+  // this CTA has read its peers' partials: it arrives now and waits only
+  // before it leaves, so no CTA frees shared memory a peer still reads
+  __syncwarp();
+  sm90::cluster_arrive();
+  if (consumer) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + j * 8;
+      const float s0 = ln_s[c], s1 = ln_s[c + 1];
+      const float b0 = ln_b[c], b1 = ln_b[c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + rl + 8 * h;
+        const float y0 = (acc[4 * j + 2 * h] - mean[h]) * rstd[h] * s0 + b0;
+        const float y1 = (acc[4 * j + 2 * h + 1] - mean[h]) * rstd[h] * s1 + b1;
+        if (r < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * N + c) =
+              __floats2bfloat162_rn(y0, y1);
+      }
+    }
+  }
+  __syncwarp();
+  sm90::cluster_wait();
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (CUDA 12.5 added the versioned lookup and deprecated the other).
+cudaError_t encode_tiled(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A row-major (rows, cols) bf16 matrix as a 2-D tensor map of (box_rows,
+// box_cols) boxes under the 128-byte swizzle; out-of-bounds reads are 0.
+// Needs a 16-byte aligned base and cols % 8 == 0.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
+                       int box_rows, int box_cols) {
+  EncodeTiledFn encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Whether clusters of cx CTAs of gemm_kernel<BM, EPI> fit the card
+// (cached: the answer depends only on the kernel and cx). A refusal is an
+// error, never a smaller cluster.
+template <int BM, int EPI>
+cudaError_t cluster_fits(const cudaLaunchConfig_t& cfg, int cx) {
+  static signed char fits[MAX_CLUSTER + 1] = {};
+  signed char& f = fits[cx];
+  if (f == 0) {
+    int n = 0;
+    auto kernel = gemm_kernel<BM, EPI>;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(
+        &n, reinterpret_cast<const void*>(kernel), &cfg);
+    if (err != cudaSuccess) return err;
+    f = n > 0 ? 1 : -1;
+  }
+  return f > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 template <int BM, int EPI>
@@ -221,18 +465,61 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* bias,
                         const void* resid, const void* ln_s, const void* ln_b,
                         void* out, int M, int N, int K, float eps,
                         cudaStream_t stream) {
-  const size_t smem = gemm_smem_bytes(BM, EPI, N);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<BM, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  using T = Tile<BM>;
+  CUtensorMap map_a, map_w;
+  cudaError_t err = tensor_map(&map_a, a, M, K, BM, BK);
   if (err != cudaSuccess) return err;
-  dim3 grid(EPI == EPI_LN ? 1 : N / BN, (M + BM - 1) / BM);
-  gemm_kernel<BM, EPI><<<grid, GEMM_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const bf16*>(resid),
-      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<bf16*>(out), M, N, K, eps);
+  err = tensor_map(&map_w, w, K, N, BK, 64);
+  if (err != cudaSuccess) return err;
+  auto kernel = gemm_kernel<BM, EPI>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)T::bytes);
+  if (err == cudaSuccess && EPI == EPI_LN)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  // LN: one row block a cluster
+  int cx = EPI == EPI_LN ? N / BN : 1;
+  if (cx > MAX_CLUSTER) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / BN, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (cx > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cx;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cluster_fits<BM, EPI>(cfg, cx);
+    if (err != cudaSuccess) return err;
+  }
+  const float* bias_p = static_cast<const float*>(bias);
+  const bf16* resid_p = static_cast<const bf16*>(resid);
+  const float* ln_s_p = static_cast<const float*>(ln_s);
+  const float* ln_b_p = static_cast<const float*>(ln_b);
+  bf16* out_p = static_cast<bf16*>(out);
+  void* args[] = {&map_a, &map_w, &bias_p, &resid_p, &ln_s_p, &ln_b_p,
+                  &out_p, &M, &N, &K, &eps, &cx};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// BM = 128 where its tiles fill a wave of the card's 132 SMs, else 64
+template <int EPI>
+cudaError_t launch_gemm_bm(const void* a, const void* w, const void* bias,
+                           const void* resid, const void* ln_s,
+                           const void* ln_b, void* out, int M, int N, int K,
+                           float eps, cudaStream_t s) {
+  if ((long long)((M + 127) / 128) * (N / BN) >= 132)
+    return launch_gemm<128, EPI>(a, w, bias, resid, ln_s, ln_b, out, M, N, K,
+                                 eps, s);
+  return launch_gemm<64, EPI>(a, w, bias, resid, ln_s, ln_b, out, M, N, K,
+                              eps, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -243,6 +530,7 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* bias,
 // (k-major) so a k-step reads TM row values and two float4s of W.
 // EPI_LN: grid.x == 1 and the CTA covers all N columns of its BM rows,
 // keeping them in an f32 row block for ln_rows.
+constexpr int SG_THREADS = 256;         // f32 GEMM: 16 x 16 threads
 constexpr int SBK = 16;                 // f32 GEMM depth per smem stage
 constexpr int SA_LD = 4;                // A slab pitch: BM + SA_LD
 
@@ -253,7 +541,7 @@ size_t sgemm_smem_bytes(int bm, int epi, int N) {
 }
 
 template <int BM, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
+__global__ void __launch_bounds__(SG_THREADS)
 sgemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
              const float* __restrict__ bias, const float* __restrict__ resid,
              const float* __restrict__ ln_s, const float* __restrict__ ln_b,
@@ -382,7 +670,7 @@ cudaError_t launch_sgemm(const void* a, const void* w, const void* bias,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(EPI == EPI_LN ? 1 : N / BN, (M + BM - 1) / BM);
-  sgemm_kernel<BM, EPI><<<grid, GEMM_THREADS, smem, stream>>>(
+  sgemm_kernel<BM, EPI><<<grid, SG_THREADS, smem, stream>>>(
       static_cast<const float*>(a), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(resid),
       static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
@@ -390,20 +678,24 @@ cudaError_t launch_sgemm(const void* a, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
+
 }  // namespace
 
 extern "C" {
 
 // One of the layer's four projections. epi: 0 = +bias, 1 = +bias -> GELU,
 // 2 = +bias +resid -> LayerNorm(ln_s, ln_b, eps). f32 = 0: a, w, resid and
-// out bf16 (WMMA); f32 = 1: all f32 (CUDA-core FMAs). Needs N % 128 == 0
-// and K % 32 == 0 (bf16) or K % 16 == 0 (f32), and for f32 16-byte aligned
-// a, w and out; resid/ln_* are read only for epi 2. Returns a cudaError_t.
+// out bf16 (TMA + wgmma; the LayerNorm as a cluster of N / 128 CTAs);
+// f32 = 1: all f32 (CUDA-core FMAs). Needs N % 128 == 0 (bf16 LayerNorm:
+// N <= 2048) and K % 8 == 0 with 16-byte aligned a and w (bf16) or K % 16
+// == 0 with 16-byte aligned a, w and out (f32); resid/ln_* are read only
+// for epi 2. Returns a cudaError_t: a tensor map, shared-memory size or
+// cluster shape the card refuses is an error, never a smaller launch.
 int dawn_bert_gemm(const void* a, const void* w, const void* bias,
                    const void* resid, const void* ln_s, const void* ln_b,
                    void* out, int M, int N, int K, int epi, float eps, int f32,
                    void* stream) {
-  if (M <= 0 || N % BN != 0 || K <= 0 || K % (f32 ? SBK : BK) != 0)
+  if (M <= 0 || N % BN != 0 || K <= 0 || K % (f32 ? SBK : 8) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32) {
@@ -422,16 +714,14 @@ int dawn_bert_gemm(const void* a, const void* w, const void* bias,
   }
   switch (epi) {
     case EPI_BIAS:
-      return (int)launch_gemm<64, EPI_BIAS>(a, w, bias, resid, ln_s, ln_b, out,
-                                            M, N, K, eps, s);
+      return (int)launch_gemm_bm<EPI_BIAS>(a, w, bias, resid, ln_s, ln_b, out,
+                                           M, N, K, eps, s);
     case EPI_GELU:
-      return (int)launch_gemm<64, EPI_GELU>(a, w, bias, resid, ln_s, ln_b, out,
-                                            M, N, K, eps, s);
+      return (int)launch_gemm_bm<EPI_GELU>(a, w, bias, resid, ln_s, ln_b, out,
+                                           M, N, K, eps, s);
     case EPI_LN:
-      if (gemm_smem_bytes(32, EPI_LN, N) > 227 * 1024)
-        return (int)cudaErrorInvalidValue;
-      return (int)launch_gemm<32, EPI_LN>(a, w, bias, resid, ln_s, ln_b, out,
-                                          M, N, K, eps, s);
+      return (int)launch_gemm_bm<EPI_LN>(a, w, bias, resid, ln_s, ln_b, out,
+                                         M, N, K, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,7 +14,7 @@ rounding points (attention.py:63-77, :157-174): scores and softmax in f32,
 p rounded to the compute dtype before PV, 1/Σp from the f32 p applied
 after PV, one rounding to the output dtype. Both launch csrc/attention.cu:
 K5 reads q, k and v where they lie, as column slices of the projection's
-(B, S, 3H) output, with no split copy. bf16 inputs run the WMMA kernel;
+(B, S, 3H) output, with no split copy. bf16 inputs run the mma.sync kernel;
 f32 inputs (compute_dtype = "f32": p unrounded, f32 out) run the
 fixed-order CUDA-core kernel, and count under their own `_f32` names.
 
@@ -167,7 +167,7 @@ def _check_qkv(what: str, q, k, v, shape, S: int) -> None:
 
 def _attention_cuda(name: str, q, k, v, bias, out, B, nh, S, hd, strides,
                     out_strides) -> None:
-    """Launch dawn_attention: the WMMA kernel for bf16, the fixed-order
+    """Launch dawn_attention: the mma.sync kernel for bf16, the fixed-order
     kernel (f32 in and out) for f32; count under `name` or `name`_f32."""
     if bias is None:
         bias = torch.zeros((B, S), dtype=torch.float32, device=q.device)

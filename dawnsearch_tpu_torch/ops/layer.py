@@ -175,41 +175,46 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
 
     M, hd = B * S, H // nh
     f32 = int(dt == torch.float32)
-    lib = _cuda.lib()
-    stream = _cuda.stream_handle(x)
-    qkv = torch.empty((M, 3 * H), dtype=dt, device=dev)
-    ctx = torch.empty((M, H), dtype=dt, device=dev)
-    x1 = torch.empty((M, H), dtype=dt, device=dev)
-    h = torch.empty((M, I), dtype=dt, device=dev)
-    y = torch.empty((B, S, H), dtype=dt, device=dev)
-    null = None
-    gemm = lib.dawn_bert_gemm
-    _cuda.check(gemm(x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), null,
-                     null, null, qkv.data_ptr(), M, 3 * H, H, 0, eps, f32,
-                     stream),
-                "K1 qkv projection")
+    x2d = x.view(M, H)
+    qkv = _gemm(x2d, qkv_w, qkv_b, 0)
     # q, k and v are column views of qkv (row stride 3H), as K5 reads them;
     # the C entry is called directly so K5's launch counter counts K5 only.
     # f32: the fixed-order kernel, f32 in and out, p unrounded
+    ctx = torch.empty((M, H), dtype=dt, device=dev)
     q, es = qkv.data_ptr(), qkv.element_size()
-    _cuda.check(lib.dawn_attention(q, q + H * es, q + 2 * H * es,
-                                   bias.data_ptr(), rel, ctx.data_ptr(), B,
-                                   nh, S, hd, S * 3 * H, hd, 3 * H, S * H, hd,
-                                   H, 1.0 / math.sqrt(hd), f32, f32, stream),
-                "K1 attention")
-    _cuda.check(gemm(ctx.data_ptr(), ao_w.data_ptr(), ao_b.data_ptr(),
-                     x.data_ptr(), aln_s.data_ptr(), aln_b.data_ptr(),
-                     x1.data_ptr(), M, H, H, 2, eps, f32, stream),
-                "K1 attention out + LN")
-    _cuda.check(gemm(x1.data_ptr(), w1.data_ptr(), b1.data_ptr(), null, null,
-                     null, h.data_ptr(), M, I, H, 1, eps, f32, stream),
-                "K1 FFN in + GELU")
-    _cuda.check(gemm(h.data_ptr(), w2.data_ptr(), b2.data_ptr(), x1.data_ptr(),
-                     fln_s.data_ptr(), fln_b.data_ptr(), y.data_ptr(), M, H, I,
-                     2, eps, f32, stream),
-                "K1 FFN out + LN")
+    _cuda.check(_cuda.lib().dawn_attention(
+        q, q + H * es, q + 2 * H * es, bias.data_ptr(), rel, ctx.data_ptr(),
+        B, nh, S, hd, S * 3 * H, hd, 3 * H, S * H, hd, H,
+        1.0 / math.sqrt(hd), f32, f32, _cuda.stream_handle(x)), "K1 attention")
+    x1 = _gemm(ctx, ao_w, ao_b, 2, x2d, aln_s, aln_b, eps)
+    h = _gemm(x1, w1, b1, 1)
+    y = _gemm(h, w2, b2, 2, x1, fln_s, fln_b, eps)
     _cuda.count(launches, _counter("kernel_bert_layer", rel, x))
-    return y
+    return y.view(B, S, H)
+
+
+_EPI_NAMES = ("K1 projection + bias", "K1 projection + GELU",
+              "K1 projection + LN")
+
+
+def _gemm(a, w, bias, epi: int, resid=None, ln_s=None, ln_b=None,
+          eps: float = 1e-12) -> torch.Tensor:
+    """One of K1's projections on the card (csrc/layer.cu::dawn_bert_gemm):
+    (M, K) a · (K, N) w + bias, then epi 0: nothing, 1: the GELU, 2: + the
+    (M, N) resid and LayerNorm(ln_s, ln_b, eps); out (M, N) in a's dtype
+    (bf16: the TMA + wgmma kernel; f32: the CUDA-core one). a, w and resid
+    contiguous in a's dtype, 16-byte aligned, the vectors f32: the caller
+    checks them (_layer_cuda; chip_smoke.py and the card tests time and
+    hold each projection alone). Counts nothing: K1 counts its layer."""
+    M, K = a.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    ptr = [None if t is None else t.data_ptr() for t in (resid, ln_s, ln_b)]
+    _cuda.check(_cuda.lib().dawn_bert_gemm(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), *ptr, out.data_ptr(), M,
+        N, K, epi, eps, int(a.dtype == torch.float32),
+        _cuda.stream_handle(a)), _EPI_NAMES[epi])
+    return out
 
 
 # -- K4 ---------------------------------------------------------------------

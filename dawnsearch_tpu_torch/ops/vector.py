@@ -31,6 +31,30 @@ def layer_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
+def layer_norm_from_partials(y: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor, eps: float,
+                             parts: int) -> torch.Tensor:
+    """`layer_norm` with its sums in the order of K1's cluster epilogue
+    (csrc/layer.cu): the row is cut into `parts` equal chunks, one per CTA
+    of the cluster; the chunks' Σy, added in chunk order, give the mean,
+    then the chunks' Σ(y - mean)², added likewise, the variance. Same
+    two-pass LayerNorm, f32 sums in another order."""
+    n = y.shape[-1]
+    if n % parts:
+        raise ValueError(f"{n} columns do not split into {parts} chunks")
+
+    def chunk_sum(t):
+        sums = t.reshape(*t.shape[:-1], parts, n // parts).sum(dim=-1)
+        total = sums[..., 0]
+        for p in range(1, parts):
+            total = total + sums[..., p]
+        return total[..., None]
+    mean = chunk_sum(y) / n
+    d = y - mean
+    var = chunk_sum(d.square()) / n
+    return d * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
 def embedding_to_bytes(v: np.ndarray) -> bytes:
     """f32[D] -> little-endian bytes, validating normalization
     (reference vector.rs:207-212)."""

@@ -25,7 +25,13 @@ wrong shape, dtype, device or layout raises. The per-op
 kernels K5 and K6 (which pass a null rel_bias through the same C entry)
 and K7 agree with their plain twins at per-row cosine
 > 0.9999 (the same bf16 rounding points, f32 sums in another order); K8,
-all f32, within 1e-5.
+all f32, within 1e-5. K1's bf16 GEMM (TMA + wgmma, its LayerNorm over a
+thread-block cluster) is held at rows that are not a multiple of its
+tiles at every cluster width up to a non-portable 10, each epilogue alone
+against the f32 product rounded to bf16, and in a CUDA-graph replay; the
+mma.sync attention at S of 16 to 512 and every head dim it pads (16 to
+128, and 26), on 16-byte aligned and misaligned inputs, in K5, K6 and K1
+with rel_bias; a bf16 input never reaches a plain twin either.
 """
 
 import numpy as np
@@ -39,6 +45,7 @@ from dawnsearch_tpu_torch.ops import attention, ffn, layer
 from dawnsearch_tpu_torch.ops.layer import quant_cols
 from dawnsearch_tpu_torch.ops import scan_select as ss
 from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
+from dawnsearch_tpu_torch.ops.vector import layer_norm
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(2)
@@ -708,3 +715,196 @@ def test_f32_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
     assert attention.fused_attention(heads, heads, heads, bias, 12).dtype == f32
     args = _ffn_args(rng, 64, 384, 1536, cuda, f32)
     assert ffn.fused_ffn(*args).dtype == f32
+
+
+# -- K1's TMA + wgmma GEMM and the mma.sync attention -----------------------
+
+@pytest.mark.parametrize("H,nh", [(384, 12), (768, 12), (1024, 16), (1280, 10)])
+@pytest.mark.parametrize("B,S", [(3, 16), (1, 16), (1, 128)])
+def test_k1_every_cluster_width_at_ragged_rows(cuda, B, S, H, nh):
+    """M = B·S = 48, 16 and 128 rows (not a multiple of the GEMM's 64- or
+    128-row tiles: TMA reads zeros past M, the stores mask them) at every
+    LayerNorm cluster width: 3, 6, 8 and 10 CTAs (a non-portable
+    cluster), I = 4H; the reference's bf16 bound (per-token cosine >
+    0.999)."""
+    xt, bt, w, m = _k1_args(np.random.default_rng(H + S + B), B, S, cuda,
+                            torch.bfloat16, H, 4 * H)
+    got = layer.fused_bert_layer(xt, bt, *w, nh=nh).float()
+    want = layer.bert_layer_plain(xt, bt, *w, nh=nh).float()
+    _layer_bound(got, want, m, torch.bfloat16)
+
+
+def _gemm_want(a, w, b, epi, resid, ln_s, ln_b):
+    """The f32 product of the bf16 operands with K1's epilogue in f32."""
+    y = a.float() @ w.float() + b
+    if epi == 1:
+        return 0.5 * y * (1.0 + ffn.erf_poly(y * 2.0 ** -0.5))
+    if epi == 2:
+        return layer_norm(y + resid.float(), ln_s, ln_b, 1e-12)
+    return y
+
+
+@pytest.mark.parametrize("epi", [0, 1, 2])
+@pytest.mark.parametrize("M,K,N", [(48, 384, 1152), (128, 1536, 384),
+                                   (4096, 1024, 1024), (16, 2048, 2048)])
+def test_k1_gemm_epilogues_match_the_f32_product(cuda, M, K, N, epi):
+    """Each epilogue of csrc/layer.cu::dawn_bert_gemm alone (bias, GELU,
+    residual + LayerNorm over a cluster of N / 128 CTAs, up to 16) against
+    the f32 product rounded to bf16: per-row cosine >= 0.9999 and max |d|
+    within 2^-7 of the output's scale (one bf16 rounding of the same f32
+    value, whose sums differ only in order)."""
+    rng = np.random.default_rng(M + K + N + epi)
+
+    def t(*shape, s=1.0, base=0.0, dt=None):
+        return torch.from_numpy((base + s * rng.standard_normal(shape)
+                                 ).astype(np.float32)).to(cuda, dt)
+    a = t(M, K, dt=torch.bfloat16)
+    w = t(K, N, s=0.05, dt=torch.bfloat16)
+    b = t(N, s=0.1)
+    resid, ln_s, ln_b = ((t(M, N, dt=torch.bfloat16), t(N, s=0.1, base=1.0),
+                          t(N, s=0.1)) if epi == 2 else (None, None, None))
+    got = layer._gemm(a, w, b, epi, resid, ln_s, ln_b)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    want = _gemm_want(a, w, b, epi, resid, ln_s, ln_b).to(torch.bfloat16)
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert float(_row_cos(got, want, N).min()) >= 0.9999
+    assert float((got - want).abs().max()) <= 2 ** -7 * float(
+        want.abs().max())
+
+
+def test_k1_gemm_refuses_a_cluster_past_sixteen(cuda):
+    """A LayerNorm over N = 2176 would need 17 CTAs in a cluster: refused
+    (CUDA's invalid-value error), never split or shrunk."""
+    a = torch.zeros((16, 256), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((256, 2176), dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros(2176, device=cuda)
+    resid = torch.zeros((16, 2176), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="LN: CUDA error"):
+        layer._gemm(a, w, v, 2, resid, v, v)
+
+
+def test_k1_replays_in_a_cuda_graph(cuda):
+    """fused_bert_layer captured once in a CUDA graph, then replayed on new
+    inputs copied into the captured ones: the tensor maps ride in the
+    kernels' parameters (__grid_constant__), so every replay reads the
+    captured buffers and matches the plain twin on the current input."""
+    rng = np.random.default_rng(21)
+    x, bias, w, m = _k1_args(rng, 2, 64, cuda, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            layer.fused_bert_layer(x, bias, *w, nh=12)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = layer.fused_bert_layer(x, bias, *w, nh=12)
+    for seed in (22, 23):
+        fresh, _, _, _ = _k1_args(np.random.default_rng(seed), 2, 64, cuda,
+                                  torch.bfloat16)
+        x.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = layer.bert_layer_plain(x, bias, *w, nh=12).float()
+        _layer_bound(y.float(), want, m, torch.bfloat16)
+
+
+ATTN_S = [16, 48, 128, 512]
+
+
+def _misaligned(shape, cuda, rng):
+    """A contiguous bf16 tensor whose storage starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.empty(int(np.prod(shape)) + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    t = flat[1:].view(shape)
+    t.copy_(torch.from_numpy(rng.standard_normal(shape, np.float32)))
+    return t
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", ATTN_S)
+def test_k5_every_head_dim_and_layout(cuda, S, hd, aligned):
+    """K5 at H = 384 (nh = 384 / hd) on q, k, v cut from one (B, S, ld)
+    buffer: ld = 3H with 16-byte rows (cp.async staging), or ld = 3H + 3
+    and a 2-byte offset (element staging); KERNEL_COS_MIN."""
+    H, B = 384, 2
+    nh = H // hd
+    rng = np.random.default_rng(S + hd + aligned)
+    ld, off = (3 * H, 0) if aligned else (3 * H + 3, 1)
+    buf = torch.from_numpy(rng.standard_normal((B, S, ld), np.float32)
+                           ).to(cuda, torch.bfloat16)
+    q, k, v = (buf[..., off + i * H: off + (i + 1) * H] for i in range(3))
+    bias = _bias(rng, B, S, cuda)
+    got = attention.fused_attention_packed(q, k, v, bias, nh)
+    want = attention.attention_packed_plain(q, k, v, bias, nh)
+    _per_op_bound(got, want, H, torch.bfloat16)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("hd", [16, 26, 32, 64, 128])
+@pytest.mark.parametrize("S", ATTN_S)
+def test_k6_every_head_dim_and_layout(cuda, S, hd, aligned):
+    """K6 on (B, 4, S, hd), 16-byte aligned or starting 2 bytes past a
+    16-byte boundary; hd 26 stages element by element either way;
+    KERNEL_COS_MIN."""
+    B, nh = 2, 4
+    rng = np.random.default_rng(S + hd + 2 * aligned)
+    if aligned:
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, nh, S, hd),
+                                                        np.float32)
+                                    ).to(cuda, torch.bfloat16)
+                   for _ in range(3))
+    else:
+        q, k, v = (_misaligned((B, nh, S, hd), cuda, rng) for _ in range(3))
+    bias = _bias(rng, B, S, cuda)
+    got = attention.fused_attention(q, k, v, bias, nh)
+    want = attention.attention_plain(q, k, v, bias, nh)
+    _per_op_bound(got, want, hd, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", ATTN_S)
+def test_k1_rel_every_head_dim(cuda, S, hd):
+    """K1 with a rel_bias at H = 384 (nh = 384 / hd), ragged masks, against
+    bert_layer_plain with the same operand: per-token cosine >=
+    KERNEL_COS_MIN, as the MPNet-width test holds it."""
+    H = 384
+    nh = H // hd
+    rng = np.random.default_rng(S * hd)
+    x, bias, w, m = _k1_args(rng, 2, S, cuda, torch.bfloat16, H, 4 * H)
+    rel = torch.from_numpy(rng.standard_normal((nh, S, S), np.float32) * 0.5
+                           ).to(cuda)
+    got = layer.fused_bert_layer(x, bias, *w, nh=nh, rel_bias=rel).float()
+    want = layer.bert_layer_plain(x, bias, *w, nh=nh, rel_bias=rel).float()
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
+    assert float(cos.min()) >= 0.9999
+
+
+def test_bf16_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
+    """K1 (with and without rel_bias), K5 and K6 on bf16 CUDA tensors
+    launch their kernels: with K1's and the attention's plain twins
+    replaced by ones that fail, every wrapper still runs."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain twin ran on CUDA tensors")
+    for mod, name in ((layer, "bert_layer_plain"),
+                      (attention, "attention_plain"),
+                      (attention, "attention_packed_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    bf = torch.bfloat16
+    rng = np.random.default_rng(10)
+    x, bias, w, _ = _k1_args(rng, 2, 32, cuda, bf)
+    assert layer.fused_bert_layer(x, bias, *w, nh=12).dtype == bf
+    rel = torch.zeros((12, 32, 32), device=cuda)
+    assert layer.fused_bert_layer(x, bias, *w, nh=12,
+                                  rel_bias=rel).dtype == bf
+    qkv = torch.from_numpy(rng.standard_normal((2, 32, 3 * 384), np.float32)
+                           ).to(cuda, bf)
+    q, k, v = qkv.split(384, dim=-1)
+    assert attention.fused_attention_packed(q, k, v, bias, 12).dtype == bf
+    heads = q.reshape(2, 32, 12, 32).transpose(1, 2).contiguous()
+    assert attention.fused_attention(heads, heads, heads, bias,
+                                     12).dtype == bf
