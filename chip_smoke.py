@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases k3,k2bf16,recall_i4,i4_scale
     python3 chip_smoke.py --phases attn,ffn,pool,ops   # the per-op encoder
     python3 chip_smoke.py --phases build,k1,k4,attn,ffn,node  # f32 entries
+    python3 chip_smoke.py --phases build,k1,attn,ops,node \
+        --node-runs f32,f32-k4,f32-ops,mpnet-f32          # the f32 routes
 
 Phases, each printing one progress line; any failure exits non-zero:
   device    card name and power limit (nvidia-smi); fails without CUDA
@@ -25,9 +27,12 @@ Phases, each printing one progress line; any failure exits non-zero:
             (8, 512), timed
             beside K1 without it and beside the library layer with rel and
             the key mask as one float src_mask; then the same in f32 (K1's
-            f32 instance, compute_dtype = "f32") at MiniLM and BERT-base
-            (64, 128) and with rel_bias at both MPNet shapes, against the
-            twin and the library layer in f32 with TF32 off
+            f32 instance, compute_dtype = "f32": 3xTF32, its weights as
+            (W_hi, W_lo) pairs) at MiniLM and BERT-base (64, 128) and with
+            rel_bias at both MPNet shapes, against the twin and the library
+            layer in f32 with TF32 off, and its four f32 GEMMs alone at
+            MiniLM and BERT-base widths at M = 8192 and 128 against the f64
+            product, timed beside torch.addmm in f32
   k4        the W8A8 whole-layer kernel vs bert_layer_i8_plain with ragged
             masks at MiniLM and BERT-base widths (64, 128) and BERT-large
             (8, 512), each timed beside K1 on the same weights; K4 with
@@ -107,9 +112,13 @@ library calls, which take tens of microseconds, are timed as CUDA-graph
 replays of 10 calls (graph_ms), so the host's launch work is not in
 their times. Each kernel's bound_ms is the larger of its
 operations over the H100's dense peak for their type and its bytes (each
-input read once, each output written once) over 3.35 TB/s. A kernel's
-launches are counted over the runs of the main path that a user drives:
-the node runs and the ops phase's encoders, each started from zero.
+input read once, each output written once) over 3.35 TB/s; f32 work is
+bound at f32 accuracy, as three TF32 products per multiply-add (3xTF32,
+495 TFLOP/s of TF32), with the CUDA cores' FMA bound beside it
+(ffma_bound_ms). A kernel's launches are counted over the runs of the
+main path that a user drives: the node runs and the ops phase's encoders,
+each started from zero. --node-runs picks the node phase's runs (a run
+with a subset prints no last line).
 """
 
 from __future__ import annotations
@@ -212,8 +221,12 @@ RAW_RECALL_MIN, RERANK_RECALL_MIN = 0.95, 0.99
 # equal on at least 99% of (query, window) pairs, and the top-10 after
 # the fold to k + 30 and an f32 re-rank equal for every query.
 BF16_VAL_TOL, BF16_ID_SHARE = 3.1e-5, 0.99
-# H100 SXM dense peaks (NVIDIA data sheet, 700 W) and HBM3 bandwidth
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# H100 SXM dense peaks (NVIDIA data sheet, 700 W) and HBM3 bandwidth. "f32"
+# is the CUDA cores' FMA rate, "tf32" the tensor cores'. f32 work at f32
+# accuracy is bound as "tf32x3": three TF32 products for each multiply-add
+# (3xTF32, which K1's GEMM and the f32 attention run), 165 TFLOP/s; the
+# FFMA bound rides beside it as ffma_bound_ms.
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 # each kernel entry's launch counter in /api/metrics
 COUNTER = {"bert_layer": "kernel_bert_layer",
@@ -385,11 +398,18 @@ def phase_build() -> None:
 
 def bound(ops: float, kind: str, nbytes: float) -> dict:
     """The least time the card could take: the larger of ops over the
-    dense peak for their type and bytes over the HBM bandwidth."""
-    t_ops = ops / PEAK_OPS[kind] * 1e3
+    dense peak for their type (kind "tf32x3": 3·ops over the TF32 peak,
+    and the FFMA bound beside it) and bytes over the HBM bandwidth."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    extra = {}
+    if kind == "tf32x3":
+        t_ops = 3 * ops / PEAK_OPS["tf32"] * 1e3
+        extra["ffma_bound_ms"] = max(ops / PEAK_OPS["f32"] * 1e3, t_bytes)
+    else:
+        t_ops = ops / PEAK_OPS[kind] * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **extra}
 
 
 def nbytes(*tensors) -> int:
@@ -440,17 +460,33 @@ def layer_flops(B: int, S: int, H: int, I: int) -> tuple[int, int]:
 
 
 def k1_bound(B: int, S: int, H: int, I: int, x, weights, rel=None) -> dict:
-    """Projections and attention at the peak of x's dtype (bf16 or f32);
-    bytes: x, y, the weights, the (B, S) key bias and the (nh, S, S)
-    rel_bias if any (its B·nh·S² adds are left out: < 0.1% of the
-    operations)."""
-    return bound(sum(layer_flops(B, S, H, I)), _tag(x.dtype),
+    """Projections and attention at the peak of x's dtype (bf16, or f32
+    work as tf32x3); bytes: x, y, the weights (the (in, out) matrices),
+    the (B, S) key bias and the (nh, S, S) rel_bias if any (its B·nh·S²
+    adds are left out: < 0.1% of the operations)."""
+    return bound(sum(layer_flops(B, S, H, I)), _peak(x.dtype),
                  2 * nbytes(x) + nbytes(*weights, rel) + B * S * 4)
 
 
 def _tag(dtype) -> str:
-    """The PEAK_OPS key and shape tag of a compute dtype."""
+    """The shape tag of a compute dtype."""
     return "f32" if dtype == torch.float32 else "bf16"
+
+
+def _peak(dtype) -> str:
+    """The bound kind of work in a compute dtype: bf16, or f32 work at f32
+    accuracy (tf32x3)."""
+    return "tf32x3" if dtype == torch.float32 else "bf16"
+
+
+def _k1_form(weights: list) -> list:
+    """K1's weights as its kernel takes them: at f32 each (in, out)
+    matrix as its (W_hi, W_lo) pair (ops/layer.py::tf32_pair), as the
+    model holds them on the card; bf16 and the plain twin take them as
+    they are."""
+    from dawnsearch_tpu_torch.ops.layer import tf32_pair
+    return [tf32_pair(t) if t.ndim == 2 and t.dtype == torch.float32 else t
+            for t in weights]
 
 
 def _f32_twins() -> None:
@@ -488,6 +524,7 @@ def phase_k1(results: list) -> None:
     phase_k1_rel(results, rng, made[BASE_W[0], BASE_W[2], torch.bfloat16][0])
     _f32_twins()
     results.append(k1_entry(rng, dev, K1_F32_SHAPES, torch.float32, made))
+    results[-1]["gemms"] = k1_gemms(rng, dev, made, torch.float32)
     phase_k1_rel(results, rng, made[BASE_W[0], BASE_W[2], torch.float32][0])
 
 
@@ -504,10 +541,11 @@ def k1_entry(rng: np.random.Generator, dev, k1_shapes, dtype,
             made[H, I, dtype] = weights, library_layer(weights, H, I, nh,
                                                        dtype=dtype)
         weights, lib = made[H, I, dtype]
+        kw = _k1_form(weights)
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
                              ).to(dev, dtype)
         mask, bias = _ragged(rng, B, S, dev)
-        got = layer.fused_bert_layer(x, bias, *weights, nh=nh).float()
+        got = layer.fused_bert_layer(x, bias, *kw, nh=nh).float()
         want = layer.bert_layer_plain(x, bias, *weights, nh=nh).float()
         torch.cuda.synchronize()
         err, cos, finite = _token_check(got, want, mask)
@@ -520,7 +558,7 @@ def k1_entry(rng: np.random.Generator, dev, k1_shapes, dtype,
             lib_cos = float(torch.nn.functional.cosine_similarity(
                 lib_out[mask], want[mask], dim=-1).min())
             library_ms = cuda_ms(lambda: lib(x, src_key_padding_mask=~mask))
-        ms = cuda_ms(lambda: layer.fused_bert_layer(x, bias, *weights, nh=nh))
+        ms = cuda_ms(lambda: layer.fused_bert_layer(x, bias, *kw, nh=nh))
         plain_ms = cuda_ms(lambda: layer.bert_layer_plain(x, bias, *weights,
                                                           nh=nh))
         bd = k1_bound(B, S, H, I, x, weights)
@@ -549,63 +587,88 @@ def k1_entry(rng: np.random.Generator, dev, k1_shapes, dtype,
             **shapes[0], "other_shapes": shapes[1:]}
 
 
-def k1_gemms(rng: np.random.Generator, dev, made: dict) -> list:
-    """Each of K1's four bf16 projections alone (ops/layer.py::_gemm, the
-    TMA + wgmma GEMM) on the bf16 entry's weights, at every K1_SHAPES
-    shape and at M = 128 (one B=1 query) of each width, against the f32
-    product of the same bf16 operands with its epilogue in f32, rounded
-    once: per-row cosine >= KERNEL_COS_MIN (the same rounding point, f32
-    sums in another order). Device time (graph_ms) beside torch.addmm of
-    the same product and bias in bf16, the yardstick (the port never calls
-    it; it has no GELU or LayerNorm), and the bound of the projection."""
+def k1_gemms(rng: np.random.Generator, dev, made: dict, dtype=torch.bfloat16
+             ) -> list:
+    """Each of K1's four projections alone (ops/layer.py::_gemm, the TMA +
+    wgmma GEMM) on the entry's weights of `dtype`. bf16: at every
+    K1_SHAPES shape and at M = 128 (one B=1 query) of each width, against
+    the f32 product of the same bf16 operands with its epilogue in f32,
+    rounded once: per-row cosine >= KERNEL_COS_MIN (the same rounding
+    point, f32 sums in another order). f32 (3xTF32, W as its tf32_pair):
+    at MiniLM and BERT-base widths at M = 8192 and 128, against the f64
+    product with its epilogue in f64: max |d| <= F32_REL_ERR_MAX of the
+    output's scale and per-row cosine >= F32_COS_MIN, the error of
+    torch.addmm in f32 beside it. Device time (graph_ms) beside
+    torch.addmm of the same product and bias in the same dtype (TF32 off),
+    the yardstick (the port never calls it; it has no GELU or LayerNorm),
+    and the bound of the projection."""
     from dawnsearch_tpu_torch.ops import layer
     from dawnsearch_tpu_torch.ops.ffn import erf_poly
     from dawnsearch_tpu_torch.ops.vector import layer_norm
-    shapes = [(w, B * S) for w, B, S in K1_SHAPES]
-    shapes += [(w, 128) for w in (MINILM_W, BASE_W, LARGE_W)]
+    f32 = dtype == torch.float32
+    if f32:
+        shapes = [(w, M) for M in (64 * 128, 128) for w in (MINILM_W, BASE_W)]
+    else:
+        shapes = [(w, B * S) for w, B, S in K1_SHAPES]
+        shapes += [(w, 128) for w in (MINILM_W, BASE_W, LARGE_W)]
+    wide = torch.float64 if f32 else torch.float32
     rows = []
     for (H, nh, I), M in shapes:
         (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2) = \
-            made[H, I, torch.bfloat16][0]
+            made[H, I, dtype][0]
 
         def act(n):
             return torch.from_numpy(rng.standard_normal((M, n), np.float32)
-                                    ).to(dev, torch.bfloat16)
+                                    ).to(dev, dtype)
         x, ctx, x1, h = act(H), act(H), act(H), act(I)
         for name, a, w, b, epi, resid, ln_s, ln_b in (
                 ("qkv + bias", x, wqkv, bqkv, 0, None, None, None),
                 ("attention out + LN", ctx, wo, bo, 2, x, g1, be1),
                 ("FFN in + GELU", x1, w1, b1, 1, None, None, None),
                 ("FFN out + LN", h, w2, b2, 2, x1, g2, be2)):
+            kw = layer.tf32_pair(w) if f32 else w
+
             def gemm():
-                return layer._gemm(a, w, b, epi, resid, ln_s, ln_b)
-            got = gemm().float()
-            want = a.float() @ w.float() + b
+                return layer._gemm(a, kw, b, epi, resid, ln_s, ln_b)
+            got = gemm()
+            want = a.to(wide) @ w.to(wide) + b.to(wide)
             if epi == 1:
                 want = 0.5 * want * (1.0 + erf_poly(want * 2.0 ** -0.5))
             elif epi == 2:
-                want = layer_norm(want + resid.float(), ln_s, ln_b, 1e-12)
+                want = layer_norm(want + resid.to(wide), ln_s.to(wide),
+                                  ln_b.to(wide), 1e-12)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
+            err = float((got.to(wide) - want).abs().max())
             cos = float(_row_cos(got, want, w.shape[1]).min())
-            b16 = b.to(torch.bfloat16)
             ms = graph_ms(gemm)
-            addmm_ms = graph_ms(lambda: torch.addmm(b16, a, w))
+            b_dt = b.to(dtype)
+            addmm_ms = graph_ms(lambda: torch.addmm(b_dt, a, w))
             K, N = w.shape
             flops = 2 * M * N * K
-            bd = bound(flops, "bf16", nbytes(a, w, b, resid, ln_s, ln_b)
-                       + M * N * 2)
-            shape = f"{name} M={M} K={K} N={N}"
-            say(f"phase k1 gemm {shape}: max|d|={err:.3e} min row cos="
-                f"{cos:.7f} kernel {ms:.4f} ms ({flops / ms / 1e9:.0f} "
-                f"TFLOP/s) addmm {addmm_ms:.4f} ms bound "
-                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-            if not (cos >= KERNEL_COS_MIN and np.isfinite(err)):
-                raise AssertionError(f"K1's GEMM disagrees with the f32 "
-                                     f"product at {shape}")
-            rows.append({"shape": shape, "max_abs_err": err,
-                         "min_row_cos": cos, "ms": ms, **bd,
-                         "library_ms": addmm_ms})
+            bd = bound(flops, _peak(dtype),
+                       nbytes(a, w, b, resid, ln_s, ln_b)
+                       + M * N * a.element_size())
+            shape = f"{name} M={M} K={K} N={N} {_tag(dtype)}"
+            row = {"shape": shape, "max_abs_err": err, "min_row_cos": cos,
+                   "ms": ms, **bd, "library_ms": addmm_ms}
+            scale = float(want.abs().max())
+            if f32:
+                ok = err <= F32_REL_ERR_MAX * scale and cos >= F32_COS_MIN
+                # addmm has no epilogue: its error on the bias GEMM only
+                row["library_max_abs_err"] = (
+                    float((torch.addmm(b, a, w).to(wide) - want).abs().max())
+                    if epi == 0 else None)
+            else:
+                ok = cos >= KERNEL_COS_MIN
+            say(f"phase k1 gemm {shape}: max|d|={err:.3e} (scale "
+                f"{scale:.3f}) min row cos={cos:.7f} kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.0f} TFLOP/s) addmm {addmm_ms:.4f} ms "
+                f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            if not (ok and np.isfinite(err)):
+                raise AssertionError(f"K1's GEMM disagrees with the "
+                                     f"{'f64' if f32 else 'f32'} product at "
+                                     f"{shape}")
+            rows.append(row)
     return rows
 
 
@@ -632,6 +695,7 @@ def phase_k1_rel(results: list, rng: np.random.Generator,
     H, nh, I = BASE_W
     dev, dtype = weights[0].device, weights[0].dtype
     lib = library_layer(weights, H, I, nh, eps=MPNET_EPS, dtype=dtype)
+    kw = _k1_form(weights)
     shapes = []
     for B, S in REL_SHAPES:
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
@@ -640,7 +704,7 @@ def phase_k1_rel(results: list, rng: np.random.Generator,
         rel = _rel_bias(rng, S, nh, dev)
 
         def k1(rel_bias=rel):
-            return layer.fused_bert_layer(x, bias, *weights, nh=nh,
+            return layer.fused_bert_layer(x, bias, *kw, nh=nh,
                                           eps=MPNET_EPS, rel_bias=rel_bias)
         got = k1().float()
         want = layer.bert_layer_plain(x, bias, *weights, nh=nh, eps=MPNET_EPS,
@@ -731,7 +795,7 @@ def k4_entry(rng: np.random.Generator, dev, k4_shapes, dtype) -> dict:
     shapes = []
     for (H, nh, I), B, S in k4_shapes:
         f32 = _layer_weights(rng, H, I, dev, dtype=torch.float32)
-        k1w = [t.to(dtype) if t.ndim == 2 else t for t in f32]
+        k1w = _k1_form([t.to(dtype) if t.ndim == 2 else t for t in f32])
         # quantized on the CPU from the f32 matrices, as the model does at load
         k4w = [tuple(q.to(dev) for q in layer.quant_cols(t.cpu()))
                if t.ndim == 2 else t for t in f32]
@@ -1035,7 +1099,7 @@ def _check_attention(tag: str, shape: str, kernel, plain, library, width,
     lib_cos = float(_row_cos(lib_out, want, width).min())
     ms, plain_ms, library_ms = (graph_ms(kernel), graph_ms(plain),
                                 graph_ms(library))
-    bd = bound(flops, _tag(got.dtype), nbytes_)
+    bd = bound(flops, _peak(got.dtype), nbytes_)
     say(f"phase attn {tag} {shape}: max|d|={err:.3e} min row cos={cos:.7f} "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f}"
         f" ms (min row cos vs plain {lib_cos:.4f}) bound "
@@ -1141,7 +1205,8 @@ def ffn_entry(rng: np.random.Generator, dev, ffn_shapes, dtype) -> dict:
         err, cos, ok = _per_op_check(got, want, H)
         ms = graph_ms(lambda: ffn.fused_ffn(x, *weights))
         plain_ms = graph_ms(lambda: ffn.ffn_plain(x, *weights))
-        bd = bound(4 * M * H * I, _tag(x.dtype), 2 * nbytes(x) + nbytes(*weights))
+        bd = bound(4 * M * H * I, _peak(x.dtype),
+                   2 * nbytes(x) + nbytes(*weights))
         shape = f"M={M} H={H} I={I} {_tag(dtype)}"
         say(f"phase ffn {shape}: max|d|={err:.3e} min row cos={cos:.7f} "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
@@ -1794,12 +1859,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    labels = [r[0] for r in NODE_RUNS]
+    ap.add_argument("--node-runs", default=",".join(labels),
+                    help=f"phase node's runs, a comma-separated subset of "
+                         f"{','.join(labels)}")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    full = set(phases) == set(PHASES)
+    node_runs = args.node_runs.split(",")
+    if set(node_runs) - set(labels):
+        ap.error(f"unknown node runs {sorted(set(node_runs) - set(labels))}")
+    full = set(phases) == set(PHASES) and set(node_runs) == set(labels)
 
     dev = phase_device()  # always: nothing runs without a GPU
     sys.path.insert(0, HERE)
@@ -1831,7 +1903,9 @@ def main(argv=None) -> int:
     # and the ops phase's encoders); a partial run without them has no
     # such count
     t0 = time.perf_counter()
-    node_counts = run_nodes(NODE_PAGES) if "node" in phases else {}
+    node_counts = (run_nodes(NODE_PAGES, [r for r in NODE_RUNS
+                                          if r[0] in node_runs])
+                   if "node" in phases else {})
     if node_counts:
         say(f"phase node: done in {time.perf_counter() - t0:.1f} s")
     for r in results:

@@ -83,16 +83,35 @@
 //
 // The f32 instance (the reference's BertConfig(dtype=float32): f32
 // operands into every projection, no rounding of qkv, ctx, x1, h or p, f32
-// out) runs the same five launches on f32 buffers. The H100 has no f32
-// MMA, and one TF32 pass keeps 10 mantissa bits (about 1e-3 relative), so
-// its GEMM (sgemm_kernel) takes f32 FMAs on the CUDA cores: a 64 x 128 CTA
-// tile (32 x 128 for the LayerNorm epilogue), a 4 x 8 (2 x 8) micro-tile
-// per thread, K slabs of 16 through two shared-memory buffers, the next
-// slab's global loads in registers while the current one computes. Same
-// three epilogues. Its attention is csrc/attention.cu's fixed-order kernel
-// on f32 q, k, v with p unrounded. What bounds it: the projections' FMAs
-// at 67 TFLOP/s of f32; this version is bound by shared-memory reads of
-// the micro-tile's operands.
+// out) runs the same five launches on f32 buffers, on the same kernel and
+// epilogues. The H100 has no f32 MMA, and one TF32 product keeps 10
+// mantissa bits (about 1e-3 relative), so every product is 3xTF32: each
+// f32 operand x = hi + lo (hi = tf32(x), lo = tf32(x − hi), rounded to
+// nearest with cvt.rna), and A·W = A_hi·W_hi + A_hi·W_lo + A_lo·W_hi in
+// f32 accumulators, each term to about 2^-21 relative. TF32 wgmma reads
+// both operands K-major (the transpose bit exists for 16-bit types only),
+// so the f32 weights are prepared once, when the model is built: W_hi and
+// W_lo, each (N, K) with TF32-rounded values (ops/layer.py::tf32_pair;
+// twice K1's f32 weight memory, 0.68 GB at BERT-base). A stage holds 32 k
+// of A (BM rows of 128 bytes, 128-byte swizzle) and 128 rows of 32 k of
+// W_hi and of W_lo; the consumers load their A fragments from the
+// swizzled stage, split them in registers and issue wgmma.m64n128k8 with
+// A from registers, three a k8 step. The tensor cores round their f32
+// accumulation toward zero, a bias that grows with K (1.2e-5 of the
+// scale at K = 1536 on the card, over K1's 1e-4 bound at BERT-base), so
+// each stage's products accumulate in a fresh register tile that is then
+// added to the running sum on the CUDA cores, rounded to nearest. Its
+// registers (the running sum, the stage's tile and its fragments: about
+// 170) allow one CTA an SM, with four stages; splitting the next stage's
+// fragments while a stage's products run (a second fragment set) spilled
+// and was slower. Its attention is csrc/attention.cu's 3xTF32 mma.sync
+// kernel. What bounds it: the projections' multiply-adds x3 at 495
+// TFLOP/s of TF32 (BERT-base, B = 64, S = 128: 0.70 ms), against 67
+// TFLOP/s of f32 FMA on the CUDA cores (1.73 ms). This version reads
+// 50-106 TFLOP/s at M = 8192 (PERF.md §6): each stage brings 48 KB from
+// L2 for 32 k (W_lo doubles W's bytes), 3.8-4.9 TB/s of L2-to-shared
+// traffic at those rates, and a warpgroup waits for its stage's products
+// before it adds them and splits the next stage's fragments.
 //
 // Differences from the TPU kernel that do not change the contract:
 //  - heads are computed one at a time: the 128-lane block-diagonal packing
@@ -116,57 +135,30 @@ constexpr int EPI_BIAS = 0;
 constexpr int EPI_GELU = 1;
 constexpr int EPI_LN = 2;
 
-// The LayerNorm epilogue over a CTA's f32 row block in shared memory (bm
-// rows of N + bias, pitch ldc): out = LN(C + bias + resid), one warp a row.
-template <typename R, typename O>
-__device__ __forceinline__ void ln_rows(float* Cs, int ldc, int bm, int m0,
-                                        int M, int N,
-                                        const float* __restrict__ bias,
-                                        const R* __restrict__ resid,
-                                        const float* __restrict__ ln_s,
-                                        const float* __restrict__ ln_b,
-                                        O* __restrict__ out, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < bm; r += blockDim.x / 32) {
-    if (m0 + r >= M) continue;  // warp-uniform
-    float* row = Cs + r * ldc;
-    const R* xr = resid + (size_t)(m0 + r) * N;
-    float sum = 0.0f;
-    for (int c = lane; c < N; c += 32) {
-      const float v = (row[c] + bias[c]) + to_f32(xr[c]);
-      row[c] = v;
-      sum += v;
-    }
-    const float mean = warp_sum(sum) / N;
-    float sq = 0.0f;
-    for (int c = lane; c < N; c += 32) {
-      const float d = row[c] - mean;
-      sq += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / N + eps);
-    O* orow = out + (size_t)(m0 + r) * N;
-    for (int c = lane; c < N; c += 32)
-      store(orow + c, (row[c] - mean) * rstd * ln_s[c] + ln_b[c]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The bf16 GEMM: out = epilogue(A (M,K) · W (K,N) + bias), TMA + wgmma.
-constexpr int BK = 64;                 // bf16 per 128-byte swizzled row
-constexpr int W_BOX = BK * 64 * 2;     // one 64 x 64 TMA box of W: 8 KB
+// The GEMM: out = epilogue(A (M,K) · W + bias), TMA + wgmma, in bf16 or f32.
+constexpr int ROW_BYTES = 128;         // a swizzled row: 64 bf16 or 32 f32 of k
 constexpr int MAX_CLUSTER = 16;        // non-portable cluster limit
 
-// Shared memory of a BM-row CTA: the stage ring (A: BM rows of 128 bytes;
-// W: two 64-column boxes), its full / empty mbarriers, and the LayerNorm
-// epilogue's per-row partial sums (two passes). 1 KB of slack aligns the
-// ring to the swizzle's 1024-byte atom.
-template <int BM>
+// Shared memory of a BM-row CTA with elements T: the stage ring, its full /
+// empty mbarriers, and the LayerNorm epilogue's per-row partial sums (two
+// passes). A stage holds BM rows of A (BK of k each) and two W boxes: for
+// bf16 the (in, out) matrix's two 64-column halves of BK rows (MN-major,
+// 8 KB each); for f32 W_hi and W_lo, 128 rows of BK each (K-major, 16 KB
+// each). 1 KB of slack aligns the ring to the swizzle's 1024-byte atom.
+template <int BM, typename T>
 struct Tile {
+  static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int NC = BM / 64;               // consumer warpgroups
   static constexpr int THREADS = NC * 128 + 32;    // + the producer warp
-  static constexpr int STAGES = BM == 128 ? 3 : 4;
-  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int BK = ROW_BYTES / sizeof(T);  // k per stage: 64 or 32
+  static constexpr int A_BYTES = BM * ROW_BYTES;
+  static constexpr int W_BOX = (F32 ? BN : 64) * ROW_BYTES;
   static constexpr int STAGE = A_BYTES + 2 * W_BOX;
+  // bf16: 96 KB at BM = 128, so two CTAs share an SM; f32: four stages
+  // (192 KB at BM = 128, 160 KB at 64): its registers (the accumulator,
+  // a stage's partial sums and the A fragments) allow one CTA an SM
+  static constexpr int STAGES = F32 ? 4 : (BM == 128 ? 3 : 4);
   static constexpr size_t bars = (size_t)STAGES * STAGE;
   static constexpr size_t red = bars + 2 * STAGES * sizeof(uint64_t);
   static constexpr size_t bytes = red + 2 * BM * sizeof(float) + 1024;
@@ -175,6 +167,21 @@ struct Tile {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// two adjacent elements as f32, and two f32 stored as T
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(v), __high2float(v));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 // Σ over the n CTAs of the cluster, in rank order, of the f32 at p's
@@ -200,35 +207,134 @@ __device__ __forceinline__ float2 cluster_rows(const float* p, int n) {
   return tot;
 }
 
+// bf16 mainloop: both operands from shared memory, wgmma.m64n128k16 with
+// W's transpose bit set; a stage is freed once the group after it has
+// been issued and its own has retired
+template <int BM>
+__device__ __forceinline__ void mainloop_bf16(float (&acc)[64],
+                                              unsigned char* smem,
+                                              uint64_t* full, uint64_t* empty,
+                                              int kt, int warp, int lane) {
+  using L = Tile<BM, bf16>;
+  const int wg = warp / 4;
+  for (int t = 0; t < kt; ++t) {
+    const int s = t % L::STAGES;
+    sm90::mbar_wait(&full[s], (t / L::STAGES) & 1);
+    const unsigned char* a = smem + s * L::STAGE + wg * 64 * ROW_BYTES;
+    const unsigned char* w = smem + s * L::STAGE + L::A_BYTES;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::BK / 16; ++kk)
+      sm90::wgmma_m64n128k16_tb(acc, sm90::wgmma_desc_kmajor(a + kk * 32),
+                                sm90::wgmma_desc(w + kk * 2048, L::W_BOX, 1024));
+    sm90::wgmma_commit();
+    sm90::fence_regs(acc);
+    // the group of stage t - 1 has retired: its buffers are free
+    sm90::wgmma_wait<1>();
+    if (t > 0 && lane == 0) sm90::mbar_arrive(&empty[(t - 1) % L::STAGES]);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+}
+
+// f32 mainloop, 3xTF32: each thread loads its A fragments from the
+// swizzled stage (a 16-byte chunk c of row r lies at chunk c ^ (r % 8):
+// conflict-free), splits them into hi and lo in registers, and issues
+// wgmma.m64n128k8 with A from registers, three a k8 step (A_lo·W_hi,
+// A_hi·W_lo, A_hi·W_hi). The tensor cores round their f32 accumulation
+// toward zero, a bias that grows with the number of accumulations (over K
+// = 1536 it reached 1.2e-5 of the output's scale on the card): so each
+// stage's 32 k accumulate into a fresh `part`, which is added to acc on
+// the CUDA cores (round to nearest). The fragments are read
+// asynchronously, so each stage's group retires before the stage is freed
+// and its registers are reused.
+template <int BM>
+__device__ __forceinline__ void mainloop_tf32(float (&acc)[64],
+                                              unsigned char* smem,
+                                              uint64_t* full, uint64_t* empty,
+                                              int kt, int warp, int lane) {
+  using L = Tile<BM, float>;
+  constexpr int KS = L::BK / 8;                       // k8 steps a stage
+  const int r0 = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+  const int t4 = lane % 4;
+  float part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+  for (int t = 0; t < kt; ++t) {
+    const int s = t % L::STAGES;
+    sm90::mbar_wait(&full[s], (t / L::STAGES) & 1);
+    const unsigned char* st = smem + s * L::STAGE;
+    const float* a = reinterpret_cast<const float*>(st);
+    uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // fragment register i: row r0 (+8 for odd i), k t4 (+4 for i >= 2)
+        const int r = r0 + 8 * (i & 1), c = kk * 8 + t4 + 4 * (i >> 1);
+        const float x = a[r * L::BK + (((c >> 2) ^ (r & 7)) << 2) + (c & 3)];
+        sm90::split_tf32(x, ah[kk][i], al[kk][i]);
+      }
+    const unsigned char* wh = st + L::A_BYTES;
+    const unsigned char* wl = wh + L::W_BOX;
+    sm90::fence_regs(part);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      sm90::wgmma_m64n128k8_tf32(part, al[kk],
+                                 sm90::wgmma_desc_kmajor(wh + kk * 32),
+                                 kk > 0);
+      sm90::wgmma_m64n128k8_tf32(part, ah[kk],
+                                 sm90::wgmma_desc_kmajor(wl + kk * 32), 1);
+      sm90::wgmma_m64n128k8_tf32(part, ah[kk],
+                                 sm90::wgmma_desc_kmajor(wh + kk * 32), 1);
+    }
+    sm90::wgmma_commit();
+    sm90::fence_regs(part);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(part);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      sm90::fence_regs(ah[kk]);
+      sm90::fence_regs(al[kk]);
+    }
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+}
+
 // grid (N / 128, ceil(M / BM)); EPI_LN: clusters of (N / 128, 1, 1), so
-// a cluster is one row block and blockIdx.x its rank (cx CTAs). A
-// consumer thread holds acc[4j + 2h + e] = C[row0 + 8h, n0 + 8j +
-// 2(lane % 4) + e], row0 = m0 + 64·wg + 16·(warp % 4) + lane / 4
-// (wgmma's accumulator layout).
-template <int BM, int EPI>
-__global__ void __launch_bounds__(Tile<BM>::THREADS)
+// a cluster is one row block and blockIdx.x its rank (cx CTAs). T = bf16:
+// map_w covers the (K, N) matrix; T = float: map_w and map_wl its (N, K)
+// hi and lo halves. A consumer thread holds acc[4j + 2h + e] = C[row0 +
+// 8h, n0 + 8j + 2(lane % 4) + e], row0 = m0 + 64·wg + 16·(warp % 4) +
+// lane / 4 (wgmma's accumulator layout, the same for both types).
+template <int BM, int EPI, typename T>
+__global__ void __launch_bounds__(Tile<BM, T>::THREADS)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ CUtensorMap map_w,
-            const float* __restrict__ bias, const bf16* __restrict__ resid,
+            const __grid_constant__ CUtensorMap map_wl,
+            const float* __restrict__ bias, const T* __restrict__ resid,
             const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-            bf16* __restrict__ out, int M, int N, int K, float eps,
-            int cx) {
-  using T = Tile<BM>;
+            T* __restrict__ out, int M, int N, int K, float eps, int cx) {
+  using L = Tile<BM, T>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
-  uint64_t* empty = full + T::STAGES;
-  float* red = reinterpret_cast<float*>(smem + T::red);   // [2][BM]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::STAGES;
+  float* red = reinterpret_cast<float*>(smem + L::red);   // [2][BM]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool consumer = warp < T::NC * 4;                 // warp-uniform
+  const bool consumer = warp < L::NC * 4;                 // warp-uniform
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int kt = (K + BK - 1) / BK;
+  const int kt = (K + L::BK - 1) / L::BK;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < T::STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], T::NC * 4);  // lane 0 of each consumer warp
+      sm90::mbar_init(&empty[s], L::NC * 4);  // lane 0 of each consumer warp
     }
     sm90::fence_mbar_init();
   }
@@ -242,40 +348,30 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     if (lane == 0) {
       sm90::prefetch_tensormap(&map_a);
       sm90::prefetch_tensormap(&map_w);
+      if (L::F32) sm90::prefetch_tensormap(&map_wl);
       for (int t = 0; t < kt; ++t) {
-        const int s = t % T::STAGES;
-        if (t >= T::STAGES)
-          sm90::mbar_wait(&empty[s], ((t / T::STAGES) - 1) & 1);
-        unsigned char* st = smem + s * T::STAGE;
-        sm90::mbar_expect_tx(&full[s], T::STAGE);
-        sm90::tma_load_2d(st, &map_a, &full[s], t * BK, m0);
-        sm90::tma_load_2d(st + T::A_BYTES, &map_w, &full[s], n0, t * BK);
-        sm90::tma_load_2d(st + T::A_BYTES + W_BOX, &map_w, &full[s], n0 + 64,
-                          t * BK);
+        const int s = t % L::STAGES;
+        if (t >= L::STAGES)
+          sm90::mbar_wait(&empty[s], ((t / L::STAGES) - 1) & 1);
+        unsigned char* st = smem + s * L::STAGE;
+        unsigned char* w = st + L::A_BYTES;
+        const int k0 = t * L::BK;
+        sm90::mbar_expect_tx(&full[s], L::STAGE);
+        sm90::tma_load_2d(st, &map_a, &full[s], k0, m0);
+        if (L::F32) {
+          sm90::tma_load_2d(w, &map_w, &full[s], k0, n0);
+          sm90::tma_load_2d(w + L::W_BOX, &map_wl, &full[s], k0, n0);
+        } else {
+          sm90::tma_load_2d(w, &map_w, &full[s], n0, k0);
+          sm90::tma_load_2d(w + L::W_BOX, &map_w, &full[s], n0 + 64, k0);
+        }
       }
     }
     __syncwarp();
+  } else if constexpr (L::F32) {
+    mainloop_tf32<BM>(acc, smem, full, empty, kt, warp, lane);
   } else {
-    const int wg = warp / 4;
-    for (int t = 0; t < kt; ++t) {
-      const int s = t % T::STAGES;
-      sm90::mbar_wait(&full[s], (t / T::STAGES) & 1);
-      const unsigned char* a = smem + s * T::STAGE + wg * 64 * 128;
-      const unsigned char* w = smem + s * T::STAGE + T::A_BYTES;
-      sm90::fence_regs(acc);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        sm90::wgmma_m64n128k16_tb(acc, sm90::wgmma_desc(a + kk * 32, 16, 1024),
-                                  sm90::wgmma_desc(w + kk * 2048, W_BOX, 1024));
-      sm90::wgmma_commit();
-      sm90::fence_regs(acc);
-      // the group of stage t - 1 has retired: its buffers are free
-      sm90::wgmma_wait<1>();
-      if (t > 0 && lane == 0) sm90::mbar_arrive(&empty[(t - 1) % T::STAGES]);
-    }
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(acc);
+    mainloop_bf16<BM>(acc, smem, full, empty, kt, warp, lane);
   }
 
   const int rl = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;  // local row
@@ -295,9 +391,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           v0 = gelu_as(v0);
           v1 = gelu_as(v1);
         }
-        if (r < M)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * N + c) =
-              __floats2bfloat162_rn(v0, v1);
+        if (r < M) store2(out + (size_t)r * N + c, v0, v1);
       }
     }
     return;
@@ -315,17 +409,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + rl + 8 * h;
-        float x0 = 0.0f, x1 = 0.0f;
-        if (r < M) {
-          const __nv_bfloat162 xv =
-              *reinterpret_cast<const __nv_bfloat162*>(resid + (size_t)r * N + c);
-          x0 = __low2float(xv);
-          x1 = __high2float(xv);
-        }
+        const float2 x = r < M ? load2(resid + (size_t)r * N + c)
+                               : make_float2(0.0f, 0.0f);
         float& v0 = acc[4 * j + 2 * h];
         float& v1 = acc[4 * j + 2 * h + 1];
-        v0 = (v0 + b0) + x0;
-        v1 = (v1 + b1) + x1;
+        v0 = (v0 + b0) + x.x;
+        v1 = (v1 + b1) + x.y;
         part[h] += v0;
         part[h] += v1;
       }
@@ -382,9 +471,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         const int r = m0 + rl + 8 * h;
         const float y0 = (acc[4 * j + 2 * h] - mean[h]) * rstd[h] * s0 + b0;
         const float y1 = (acc[4 * j + 2 * h + 1] - mean[h]) * rstd[h] * s1 + b1;
-        if (r < M)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * N + c) =
-              __floats2bfloat162_rn(y0, y1);
+        if (r < M) store2(out + (size_t)r * N + c, y0, y1);
       }
     }
   }
@@ -422,36 +509,39 @@ cudaError_t encode_tiled(EncodeTiledFn* fn) {
   return cudaSuccess;
 }
 
-// A row-major (rows, cols) bf16 matrix as a 2-D tensor map of (box_rows,
+// A row-major (rows, cols) matrix of T as a 2-D tensor map of (box_rows,
 // box_cols) boxes under the 128-byte swizzle; out-of-bounds reads are 0.
-// Needs a 16-byte aligned base and cols % 8 == 0.
+// Needs a 16-byte aligned base and rows of a multiple of 16 bytes.
+template <typename T>
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
                        int box_rows, int box_cols) {
   EncodeTiledFn encode;
   const cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Whether clusters of cx CTAs of gemm_kernel<BM, EPI> fit the card
+// Whether clusters of cx CTAs of gemm_kernel<BM, EPI, T> fit the card
 // (cached: the answer depends only on the kernel and cx). A refusal is an
 // error, never a smaller cluster.
-template <int BM, int EPI>
+template <int BM, int EPI, typename T>
 cudaError_t cluster_fits(const cudaLaunchConfig_t& cfg, int cx) {
   static signed char fits[MAX_CLUSTER + 1] = {};
   signed char& f = fits[cx];
   if (f == 0) {
     int n = 0;
-    auto kernel = gemm_kernel<BM, EPI>;
+    auto kernel = gemm_kernel<BM, EPI, T>;
     const cudaError_t err = cudaOccupancyMaxActiveClusters(
         &n, reinterpret_cast<const void*>(kernel), &cfg);
     if (err != cudaSuccess) return err;
@@ -460,20 +550,28 @@ cudaError_t cluster_fits(const cudaLaunchConfig_t& cfg, int cx) {
   return f > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-template <int BM, int EPI>
-cudaError_t launch_gemm(const void* a, const void* w, const void* bias,
-                        const void* resid, const void* ln_s, const void* ln_b,
-                        void* out, int M, int N, int K, float eps,
-                        cudaStream_t stream) {
-  using T = Tile<BM>;
-  CUtensorMap map_a, map_w;
-  cudaError_t err = tensor_map(&map_a, a, M, K, BM, BK);
+// w: bf16, the (K, N) matrix; f32, W_hi (N, K) with w_lo its W_lo
+template <int BM, int EPI, typename T>
+cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
+                        const void* bias, const void* resid, const void* ln_s,
+                        const void* ln_b, void* out, int M, int N, int K,
+                        float eps, cudaStream_t stream) {
+  using L = Tile<BM, T>;
+  CUtensorMap map_a, map_w, map_wl;
+  cudaError_t err = tensor_map<T>(&map_a, a, M, K, BM, L::BK);
+  if (err == cudaSuccess)
+    err = L::F32 ? tensor_map<T>(&map_w, w, N, K, BN, L::BK)
+                 : tensor_map<T>(&map_w, w, K, N, L::BK, 64);
   if (err != cudaSuccess) return err;
-  err = tensor_map(&map_w, w, K, N, BK, 64);
-  if (err != cudaSuccess) return err;
-  auto kernel = gemm_kernel<BM, EPI>;
+  if (L::F32) {
+    err = tensor_map<T>(&map_wl, w_lo, N, K, BN, L::BK);
+    if (err != cudaSuccess) return err;
+  } else {
+    map_wl = map_w;  // unread: bf16 reads both halves of W through map_w
+  }
+  auto kernel = gemm_kernel<BM, EPI, T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)T::bytes);
+                             (int)L::bytes);
   if (err == cudaSuccess && EPI == EPI_LN)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -483,8 +581,8 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* bias,
   if (cx > MAX_CLUSTER) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(N / BN, (M + BM - 1) / BM);
-  cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = T::bytes;
+  cfg.blockDim = dim3(L::THREADS);
+  cfg.dynamicSmemBytes = L::bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   if (cx > 1) {
@@ -494,236 +592,80 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* bias,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cluster_fits<BM, EPI>(cfg, cx);
+    err = cluster_fits<BM, EPI, T>(cfg, cx);
     if (err != cudaSuccess) return err;
   }
   const float* bias_p = static_cast<const float*>(bias);
-  const bf16* resid_p = static_cast<const bf16*>(resid);
+  const T* resid_p = static_cast<const T*>(resid);
   const float* ln_s_p = static_cast<const float*>(ln_s);
   const float* ln_b_p = static_cast<const float*>(ln_b);
-  bf16* out_p = static_cast<bf16*>(out);
-  void* args[] = {&map_a, &map_w, &bias_p, &resid_p, &ln_s_p, &ln_b_p,
-                  &out_p, &M, &N, &K, &eps, &cx};
+  T* out_p = static_cast<T*>(out);
+  void* args[] = {&map_a, &map_w, &map_wl, &bias_p, &resid_p, &ln_s_p,
+                  &ln_b_p, &out_p, &M, &N, &K, &eps, &cx};
   err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // BM = 128 where its tiles fill a wave of the card's 132 SMs, else 64
-template <int EPI>
-cudaError_t launch_gemm_bm(const void* a, const void* w, const void* bias,
-                           const void* resid, const void* ln_s,
-                           const void* ln_b, void* out, int M, int N, int K,
-                           float eps, cudaStream_t s) {
+template <int EPI, typename T>
+cudaError_t launch_gemm_bm(const void* a, const void* w, const void* w_lo,
+                           const void* bias, const void* resid,
+                           const void* ln_s, const void* ln_b, void* out,
+                           int M, int N, int K, float eps, cudaStream_t s) {
   if ((long long)((M + 127) / 128) * (N / BN) >= 132)
-    return launch_gemm<128, EPI>(a, w, bias, resid, ln_s, ln_b, out, M, N, K,
-                                 eps, s);
-  return launch_gemm<64, EPI>(a, w, bias, resid, ln_s, ln_b, out, M, N, K,
-                              eps, s);
+    return launch_gemm<128, EPI, T>(a, w, w_lo, bias, resid, ln_s, ln_b, out,
+                                    M, N, K, eps, s);
+  return launch_gemm<64, EPI, T>(a, w, w_lo, bias, resid, ln_s, ln_b, out, M,
+                                 N, K, eps, s);
 }
 
-// ---------------------------------------------------------------------------
-// The f32 instance's GEMM: out = epilogue(A (M,K) · W (K,N) + bias), all
-// f32, row-major, on the CUDA cores. 256 threads as 16 (rows) x 16
-// (columns); thread (ty, tx) owns rows ty·TM + i and columns tx·4 + j and
-// 64 + tx·4 + j of each 128-column chunk. A's slab is staged transposed
-// (k-major) so a k-step reads TM row values and two float4s of W.
-// EPI_LN: grid.x == 1 and the CTA covers all N columns of its BM rows,
-// keeping them in an f32 row block for ln_rows.
-constexpr int SG_THREADS = 256;         // f32 GEMM: 16 x 16 threads
-constexpr int SBK = 16;                 // f32 GEMM depth per smem stage
-constexpr int SA_LD = 4;                // A slab pitch: BM + SA_LD
-
-size_t sgemm_smem_bytes(int bm, int epi, int N) {
-  return 2 * align128((size_t)SBK * (bm + SA_LD) * sizeof(float)) +
-         2 * align128((size_t)SBK * BN * sizeof(float)) +
-         (epi == EPI_LN ? (size_t)bm * (N + 4) * sizeof(float) : 0);
-}
-
-template <int BM, int EPI>
-__global__ void __launch_bounds__(SG_THREADS)
-sgemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-             const float* __restrict__ bias, const float* __restrict__ resid,
-             const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-             float* __restrict__ out, int M, int N, int K, float eps) {
-  constexpr int TM = BM / 16;           // rows per thread: 4 or 2
-  constexpr int LDA = BM + SA_LD;
-  constexpr int A_VEC = BM * SBK / 4;   // float4s of an A slab: <= 256
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* As[2];
-  float* Bs[2];
-  const size_t a_bytes = align128((size_t)SBK * LDA * sizeof(float));
-  const size_t b_bytes = align128((size_t)SBK * BN * sizeof(float));
-  As[0] = reinterpret_cast<float*>(smem);
-  As[1] = reinterpret_cast<float*>(smem + a_bytes);
-  Bs[0] = reinterpret_cast<float*>(smem + 2 * a_bytes);
-  Bs[1] = reinterpret_cast<float*>(smem + 2 * a_bytes + b_bytes);
-  float* Cs = reinterpret_cast<float*>(smem + 2 * a_bytes + 2 * b_bytes);
-  const int ldc = N + 4;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n_begin = (EPI == EPI_LN) ? 0 : blockIdx.x * BN;
-  const int n_end = (EPI == EPI_LN) ? N : n_begin + BN;
-  // this thread's share of a slab: one float4 of A (row ar, k ac..ac+3; the
-  // threads past A_VEC load none) and two of W (k-rows br, br + 8)
-  const int ar = tid / (SBK / 4), ac = (tid % (SBK / 4)) * 4;
-  const int br = tid / (BN / 4), bc = (tid % (BN / 4)) * 4;
-  const int kt = K / SBK;
-
-  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
-    float4 ra = make_float4(0.f, 0.f, 0.f, 0.f), rb0, rb1;
-    auto fetch = [&](int t) {
-      const int k0 = t * SBK;
-      if (tid < A_VEC && m0 + ar < M)
-        ra = *reinterpret_cast<const float4*>(A + (size_t)(m0 + ar) * K + k0 +
-                                              ac);
-      rb0 = *reinterpret_cast<const float4*>(W + (size_t)(k0 + br) * N + n0 +
-                                             bc);
-      rb1 = *reinterpret_cast<const float4*>(W + (size_t)(k0 + br + 8) * N +
-                                             n0 + bc);
-    };
-    auto stage = [&](int buf) {
-      if (tid < A_VEC) {
-        float* a = As[buf];
-        a[(ac + 0) * LDA + ar] = ra.x;
-        a[(ac + 1) * LDA + ar] = ra.y;
-        a[(ac + 2) * LDA + ar] = ra.z;
-        a[(ac + 3) * LDA + ar] = ra.w;
-      }
-      *reinterpret_cast<float4*>(Bs[buf] + br * BN + bc) = rb0;
-      *reinterpret_cast<float4*>(Bs[buf] + (br + 8) * BN + bc) = rb1;
-    };
-    float acc[TM][8];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-    fetch(0);
-    stage(0);
-    __syncthreads();
-    for (int t = 0; t < kt; ++t) {
-      const int cur = t & 1;
-      if (t + 1 < kt) fetch(t + 1);
-      const float* a = As[cur];
-      const float* b = Bs[cur];
-#pragma unroll
-      for (int kk = 0; kk < SBK; ++kk) {
-        float av[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = a[kk * LDA + ty * TM + i];
-        const float4 b0 = *reinterpret_cast<const float4*>(b + kk * BN + tx * 4);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(b + kk * BN + 64 + tx * 4);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      // the other buffer was last read before the previous barrier
-      if (t + 1 < kt) stage(cur ^ 1);
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty * TM + i;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = half * 64 + tx * 4;     // column within the chunk
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = acc[i][half * 4 + j];
-        if (EPI == EPI_LN) {
-          *reinterpret_cast<float4*>(Cs + r * ldc + n0 + c) =
-              make_float4(v[0], v[1], v[2], v[3]);
-        } else if (m0 + r < M) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            v[j] = v[j] + bias[n0 + c + j];
-            if (EPI == EPI_GELU) v[j] = gelu_as(v[j]);
-          }
-          *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * N + n0 + c) =
-              make_float4(v[0], v[1], v[2], v[3]);
-        }
-      }
-    }
+template <typename T>
+cudaError_t launch_epi(int epi, const void* a, const void* w, const void* w_lo,
+                       const void* bias, const void* resid, const void* ln_s,
+                       const void* ln_b, void* out, int M, int N, int K,
+                       float eps, cudaStream_t s) {
+  switch (epi) {
+    case EPI_BIAS:
+      return launch_gemm_bm<EPI_BIAS, T>(a, w, w_lo, bias, resid, ln_s, ln_b,
+                                         out, M, N, K, eps, s);
+    case EPI_GELU:
+      return launch_gemm_bm<EPI_GELU, T>(a, w, w_lo, bias, resid, ln_s, ln_b,
+                                         out, M, N, K, eps, s);
+    case EPI_LN:
+      return launch_gemm_bm<EPI_LN, T>(a, w, w_lo, bias, resid, ln_s, ln_b,
+                                       out, M, N, K, eps, s);
   }
-
-  if (EPI == EPI_LN) {
-    __syncthreads();
-    ln_rows(Cs, ldc, BM, m0, M, N, bias, resid, ln_s, ln_b, out, eps);
-  }
+  return cudaErrorInvalidValue;
 }
-
-template <int BM, int EPI>
-cudaError_t launch_sgemm(const void* a, const void* w, const void* bias,
-                         const void* resid, const void* ln_s,
-                         const void* ln_b, void* out, int M, int N, int K,
-                         float eps, cudaStream_t stream) {
-  const size_t smem = sgemm_smem_bytes(BM, EPI, N);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sgemm_kernel<BM, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(EPI == EPI_LN ? 1 : N / BN, (M + BM - 1) / BM);
-  sgemm_kernel<BM, EPI><<<grid, SG_THREADS, smem, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(resid),
-      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<float*>(out), M, N, K, eps);
-  return cudaGetLastError();
-}
-
 
 }  // namespace
 
 extern "C" {
 
 // One of the layer's four projections. epi: 0 = +bias, 1 = +bias -> GELU,
-// 2 = +bias +resid -> LayerNorm(ln_s, ln_b, eps). f32 = 0: a, w, resid and
-// out bf16 (TMA + wgmma; the LayerNorm as a cluster of N / 128 CTAs);
-// f32 = 1: all f32 (CUDA-core FMAs). Needs N % 128 == 0 (bf16 LayerNorm:
-// N <= 2048) and K % 8 == 0 with 16-byte aligned a and w (bf16) or K % 16
-// == 0 with 16-byte aligned a, w and out (f32); resid/ln_* are read only
-// for epi 2. Returns a cudaError_t: a tensor map, shared-memory size or
-// cluster shape the card refuses is an error, never a smaller launch.
-int dawn_bert_gemm(const void* a, const void* w, const void* bias,
-                   const void* resid, const void* ln_s, const void* ln_b,
-                   void* out, int M, int N, int K, int epi, float eps, int f32,
-                   void* stream) {
-  if (M <= 0 || N % BN != 0 || K <= 0 || K % (f32 ? SBK : 8) != 0)
+// 2 = +bias +resid -> LayerNorm(ln_s, ln_b, eps), the LayerNorm over a
+// cluster of N / 128 CTAs. f32 = 0: a, resid and out bf16, w the bf16
+// (K, N) matrix, w_lo unread; f32 = 1: a, resid and out f32, w and w_lo
+// the (N, K) f32 W_hi and W_lo of the (K, N) matrix (3xTF32; ops/layer.py::
+// tf32_pair). Needs N % 128 == 0, N <= 2048 for the LayerNorm, K a
+// multiple of 16 bytes of elements, 16-byte aligned a, w and w_lo;
+// resid/ln_* are read only for epi 2. Returns a cudaError_t: a tensor
+// map, shared-memory size or cluster shape the card refuses is an error,
+// never a smaller launch.
+int dawn_bert_gemm(const void* a, const void* w, const void* w_lo,
+                   const void* bias, const void* resid, const void* ln_s,
+                   const void* ln_b, void* out, int M, int N, int K, int epi,
+                   float eps, int f32, void* stream) {
+  if (M <= 0 || N % BN != 0 || K <= 0 || K % (f32 ? 4 : 8) != 0 ||
+      (f32 && w_lo == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    switch (epi) {
-      case EPI_BIAS:
-        return (int)launch_sgemm<64, EPI_BIAS>(a, w, bias, resid, ln_s, ln_b,
-                                               out, M, N, K, eps, s);
-      case EPI_GELU:
-        return (int)launch_sgemm<64, EPI_GELU>(a, w, bias, resid, ln_s, ln_b,
-                                               out, M, N, K, eps, s);
-      case EPI_LN:
-        return (int)launch_sgemm<32, EPI_LN>(a, w, bias, resid, ln_s, ln_b,
-                                             out, M, N, K, eps, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (epi) {
-    case EPI_BIAS:
-      return (int)launch_gemm_bm<EPI_BIAS>(a, w, bias, resid, ln_s, ln_b, out,
-                                           M, N, K, eps, s);
-    case EPI_GELU:
-      return (int)launch_gemm_bm<EPI_GELU>(a, w, bias, resid, ln_s, ln_b, out,
-                                           M, N, K, eps, s);
-    case EPI_LN:
-      return (int)launch_gemm_bm<EPI_LN>(a, w, bias, resid, ln_s, ln_b, out,
-                                         M, N, K, eps, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (f32)
+    return (int)launch_epi<float>(epi, a, w, w_lo, bias, resid, ln_s, ln_b,
+                                  out, M, N, K, eps, s);
+  return (int)launch_epi<bf16>(epi, a, w, w_lo, bias, resid, ln_s, ln_b, out,
+                               M, N, K, eps, s);
 }
 
 const char* dawn_error_string(int err) {

@@ -35,8 +35,9 @@
 // (dawn_bert_layer_i8):
 //   quant_rows   x (dt) -> aq, row factor s·(1/127)          one warp a row
 //   gemm<QKV>    aq·Wqkv -> dequant + b -> qkv (M, 3H) dt
-//   attention    dawn_attention (csrc/attention.cu, out_f32), q, k, v as
-//                column views of qkv -> ctx (M, H) f32
+//   attention    dawn_attention (csrc/attention.cu, fixed_order: the
+//                fixed-order kernel, f32 out), q, k, v as column views
+//                of qkv -> ctx (M, H) f32
 //   quant_rows   ctx -> aq;  gemm<LN>  aq·Wo -> dequant + bo + x -> LN -> x1
 //   quant_rows   x1  -> aq;  gemm<GELU> aq·W1 -> dequant + b1 -> GELU -> h
 //   quant_rows   h   -> aq;  gemm<LN>  aq·W2 -> dequant + b2 + x1 -> LN -> y
@@ -73,7 +74,7 @@ extern "C" int dawn_attention(const void* q, const void* k, const void* v,
                               long long in_h,
                               long long in_r, long long out_b, long long out_h,
                               long long out_r, float scale, int out_f32,
-                              int in_f32, void* stream);
+                              int in_f32, int fixed_order, void* stream);
 
 namespace {
 
@@ -336,7 +337,7 @@ int layer_i8(const void* const* p, int B, int S, int H, int nh, int I,
   const long long S3H = 3LL * S * H, SH = (long long)S * H;
   int ae = dawn_attention(qkv, qkv + H, qkv + 2 * H, p[1], p[24], f, B, nh,
                           S, hd, S3H, hd, 3 * H, SH, hd, H, scale, 1, in_f32,
-                          stream);
+                          1, stream);
   if (ae) return ae;
   if ((e = quant_rows<float>(f, aq, rf, M, H, s))) return (int)e;
   if ((e = gemm<32, EPI_LN, T, float>(aq, rf, p[5], p[6], p[7], x, p[8],

@@ -1,7 +1,9 @@
 // Inline-PTX wrappers for the Hopper (sm_90a) features the encoder kernels
 // use: mbarriers, TMA tile loads (cp.async.bulk.tensor), cp.async,
-// ldmatrix, mma.sync, wgmma (shared-memory descriptors, fence / commit /
-// wait) and thread-block-cluster barriers and distributed shared memory.
+// ldmatrix, mma.sync (bf16, and TF32 with the 3xTF32 split), wgmma
+// (shared-memory descriptors, bf16 and TF32 with A from registers, fence /
+// commit / wait) and thread-block-cluster barriers and distributed shared
+// memory.
 // Raw PTX rather than CuTe: CuTe's headers turn a seconds-long nvcc build
 // into minutes, and every build counts against chip_smoke.py's time. Each
 // includer gets its own copy (internal linkage). <cuda.h> is included for
@@ -141,6 +143,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// -- TF32 and 3xTF32 ----------------------------------------------------------
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero: the f32 bits with the low 13 cleared. The tensor cores
+// truncate an operand's low 13 bits, so every TF32 operand is rounded
+// here first.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split of one f32 operand: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact), so x = hi + lo within 2^-22·|x| while lo stays
+// normal. ops/layer.py::split_tf32 is its twin.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a (16x8, row) · b (8x8, col), tf32 in, f32 accumulate. Lane (g =
+// lane / 4, t = lane % 4) holds a = {A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]}, b = {B[t][g], B[t+4][g]} and d = {D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]}.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b to f32 accuracy from split operands: the three TF32 products
+// hi·hi + hi·lo + lo·hi, the small ones first (lo·lo is below f32's
+// rounding of the sum)
+__device__ __forceinline__ void mma_tf32x3_1688(float (&d)[4],
+                                                const uint32_t (&ah)[4],
+                                                const uint32_t (&al)[4],
+                                                uint32_t bh0, uint32_t bh1,
+                                                uint32_t bl0, uint32_t bl1) {
+  mma_tf32_1688(d, al, bh0, bh1);
+  mma_tf32_1688(d, ah, bl0, bl1);
+  mma_tf32_1688(d, ah, bh0, bh1);
+}
+
 // -- wgmma --------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand (layout
@@ -174,6 +224,22 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for A fragments held in registers: a wgmma reads them
+// asynchronously, so they stay live and unchanged until the wait that
+// retires it, which this follows
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// Descriptor of a K-major operand under the 128-byte swizzle whose rows
+// are 128 bytes of k (32 f32 or 64 bf16): the next 8 rows 1024 bytes on.
+// Advancing p by 32 bytes steps one k8 (TF32) or k16 (bf16) slab.
+__device__ __forceinline__ uint64_t wgmma_desc_kmajor(const void* p) {
+  return wgmma_desc(p, 16, 1024);
 }
 
 // d (64 x 128, f32) += A (64 x 16, K-major) · B (16 x 128, MN-major: the
@@ -211,6 +277,46 @@ __device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) = A (64 x 8, tf32 in registers: each warp of the
+// warpgroup holds its 16 rows as mma_tf32_1688's A fragment) · B (8 x 128,
+// tf32, K-major in shared memory: TF32 wgmma has no transpose bit), plus
+// d itself if accumulate != 0
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 // -- clusters -----------------------------------------------------------------

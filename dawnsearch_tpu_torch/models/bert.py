@@ -33,7 +33,10 @@ torch.inference_mode(). Matrices are stored in the compute dtype, biases,
 LayerNorm parameters and embeddings in f32, as the reference casts them.
 A layer on K4's route stores its matrices only as i8 codes and f32
 per-column scales, quantized once from the f32 parameters (the reference
-quantizes the same f32 matrices on every call, ops/layer.py:344-347).
+quantizes the same f32 matrices on every call, ops/layer.py:344-347). A
+layer on K1's route at f32 on a card stores each matrix only as the
+(W_hi, W_lo) pair K1's 3xTF32 GEMM reads (ops/layer.py::tf32_pair), made
+once here: twice the f32 matrices' memory.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from dawnsearch_tpu_torch.ops.attention import (fused_attention,
                                                 fused_mean_pool)
 from dawnsearch_tpu_torch.ops.ffn import fused_ffn
 from dawnsearch_tpu_torch.ops.layer import (fused_bert_layer,
-                                            fused_bert_layer_i8, quant_cols)
+                                            fused_bert_layer_i8, quant_cols,
+                                            tf32_pair)
 from dawnsearch_tpu_torch.ops.vector import layer_norm, normalize
 
 Params = dict
@@ -181,10 +185,11 @@ def _layer_fwd(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
             layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
             eps=cfg.layer_norm_eps, rel_bias=pos_bias)
     if route == "layer":
+        k1 = layer.k1
         return fused_bert_layer(
-            x.to(cfg.dtype), bias, layer.qkv_w, layer.qkv_b, layer.attn_out_w,
+            x.to(cfg.dtype), bias, k1("qkv_w"), layer.qkv_b, k1("attn_out_w"),
             layer.attn_out_b, layer.attn_ln_scale, layer.attn_ln_bias,
-            layer.ffn_in_w, layer.ffn_in_b, layer.ffn_out_w, layer.ffn_out_b,
+            k1("ffn_in_w"), layer.ffn_in_b, k1("ffn_out_w"), layer.ffn_out_b,
             layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
             eps=cfg.layer_norm_eps, rel_bias=pos_bias)
     attn = _attention(x, layer, cfg, bias, pos_bias)
@@ -205,7 +210,8 @@ def _frozen(t, device, dtype=torch.float32) -> nn.Parameter:
 class BertLayer(nn.Module):
     """One post-LN layer's weights; forward is `_layer_fwd`. On K4's route
     each matrix `m` is held only as `m_codes` (i8) and `m_scales` (f32
-    per column); on the others in the compute dtype."""
+    per column); on K1's route at f32 on a card only as `m_hi` and `m_lo`
+    (tf32_pair); otherwise in the compute dtype."""
 
     MATRICES = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
     VECTORS = ("qkv_b", "attn_out_b", "attn_ln_scale", "attn_ln_bias",
@@ -214,12 +220,18 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, layer: Params, *, device):
         super().__init__()
         self.cfg = cfg
-        k4 = layer_route(cfg) == "layer_i8"
+        route = layer_route(cfg)
+        k1_tf32 = (route == "layer" and cfg.dtype == torch.float32
+                   and torch.device(device).type == "cuda")
         for name in self.MATRICES:
-            if k4:
+            if route == "layer_i8":
                 codes, scales = quant_cols(torch.as_tensor(layer[name]).float())
                 setattr(self, name + "_codes", _frozen(codes, device, torch.int8))
                 setattr(self, name + "_scales", _frozen(scales, device))
+            elif k1_tf32:
+                pair = tf32_pair(torch.as_tensor(layer[name]).to(device))
+                for part, t in zip(("_hi", "_lo"), pair):
+                    setattr(self, name + part, _frozen(t, device))
             else:
                 setattr(self, name, _frozen(layer[name], device, cfg.dtype))
         for name in self.VECTORS:
@@ -228,6 +240,13 @@ class BertLayer(nn.Module):
     def i8(self, name: str) -> tuple[torch.Tensor, torch.Tensor]:
         """Matrix `name` as K4 takes it: (i8 codes, f32 scales)."""
         return getattr(self, name + "_codes"), getattr(self, name + "_scales")
+
+    def k1(self, name: str):
+        """Matrix `name` as K1 takes it: (W_hi, W_lo) where the layer holds
+        the pair, else the matrix."""
+        if hasattr(self, name + "_hi"):
+            return getattr(self, name + "_hi"), getattr(self, name + "_lo")
+        return getattr(self, name)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None,
                 pos_bias: torch.Tensor | None = None) -> torch.Tensor:

@@ -136,8 +136,8 @@ def lib() -> ctypes.CDLL:
             cdll = ctypes.CDLL(build())
             p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_float)
-            cdll.dawn_bert_gemm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f,
-                                            i, p]
+            cdll.dawn_bert_gemm.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                            i, f, i, p]
             cdll.dawn_bert_gemm.restype = i
             cdll.dawn_bert_layer_i8.argtypes = [ctypes.POINTER(p), i, i, i, i,
                                                 i, f, i, p]
@@ -146,7 +146,7 @@ def lib() -> ctypes.CDLL:
                                          i, p]
             cdll.dawn_select.restype = i
             cdll.dawn_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, ll,
-                                            ll, ll, ll, ll, ll, f, i, i, p]
+                                            ll, ll, ll, ll, ll, f, i, i, i, p]
             cdll.dawn_attention.restype = i
             cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
             cdll.dawn_ffn.restype = i

@@ -14,9 +14,9 @@ rounding points (attention.py:63-77, :157-174): scores and softmax in f32,
 p rounded to the compute dtype before PV, 1/Σp from the f32 p applied
 after PV, one rounding to the output dtype. Both launch csrc/attention.cu:
 K5 reads q, k and v where they lie, as column slices of the projection's
-(B, S, 3H) output, with no split copy. bf16 inputs run the mma.sync kernel;
-f32 inputs (compute_dtype = "f32": p unrounded, f32 out) run the
-fixed-order CUDA-core kernel, and count under their own `_f32` names.
+(B, S, 3H) output, with no split copy. bf16 inputs run the bf16 mma.sync
+kernel; f32 inputs (compute_dtype = "f32": p unrounded, f32 out) run the
+3xTF32 mma.sync kernel, and count under their own `_f32` names.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain twin
 (`attention_packed_plain`, `attention_plain`, `mean_pool_plain`) for a
@@ -167,8 +167,9 @@ def _check_qkv(what: str, q, k, v, shape, S: int) -> None:
 
 def _attention_cuda(name: str, q, k, v, bias, out, B, nh, S, hd, strides,
                     out_strides) -> None:
-    """Launch dawn_attention: the mma.sync kernel for bf16, the fixed-order
-    kernel (f32 in and out) for f32; count under `name` or `name`_f32."""
+    """Launch dawn_attention: the bf16 mma.sync kernel for bf16, the
+    3xTF32 one (f32 in and out) for f32, never the fixed-order kernel
+    (K4's); count under `name` or `name`_f32."""
     if bias is None:
         bias = torch.zeros((B, S), dtype=torch.float32, device=q.device)
     _cuda.check_tensor(bias, "attention bias", torch.float32, (B, S), q.device)
@@ -179,5 +180,5 @@ def _attention_cuda(name: str, q, k, v, bias, out, B, nh, S, hd, strides,
     _cuda.check(lib.dawn_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None,
         out.data_ptr(), B, nh, S, hd, *strides, *out_strides,
-        1.0 / math.sqrt(hd), f32, f32, _cuda.stream_handle(q)), name)
+        1.0 / math.sqrt(hd), f32, f32, 0, _cuda.stream_handle(q)), name)
     _cuda.count(launches, name + ("_f32" if f32 else ""))

@@ -28,9 +28,13 @@ launches from one C call), for a CUDA tensor; each runs its plain twin
 (`bert_layer_plain`, `bert_layer_i8_plain`) for a CPU tensor. There is no
 fallback between the two: a CUDA input a kernel does not take raises. On
 the card both take bf16 or f32 activations (f32: the kernels' f32
-instances, CUDA-core FMAs, counted under `_f32` names; K1's matrices in
-x's dtype, a mix is refused) and the reference's envelope: H = nh·hd with
-128 % hd == 0 and H % 128 == 0, I % 128 == 0, S % 16 == 0, S <= 512.
+instances, counted under `_f32` names) and the reference's envelope:
+H = nh·hd with 128 % hd == 0 and H % 128 == 0, I % 128 == 0, S % 16 == 0,
+S <= 512. K1 at bf16 takes its matrices in bf16; K1 at f32 on the card
+computes every product 3xTF32 (hi·hi + hi·lo + lo·hi of TF32 operands,
+`split_tf32`) and takes each matrix as the (W_hi, W_lo) pair of
+`tf32_pair`, made once when the model is built, as K4 takes (codes,
+scales); a matrix in another form or dtype is refused.
 
 Both take the reference's optional `rel_bias` (ops/layer.py:247-296,
 `has_rel`): a (nh, S, S) f32 score bias every sequence shares, MPNet's
@@ -39,7 +43,8 @@ relative-position bias (models/mpnet.py). It is added after the key bias,
 in the plain twins as in the kernels.
 
 Weights keep the JAX layout: (in, out) matrices, 1-D biases and LN
-parameters; K1's matrices in the compute dtype, the rest f32.
+parameters; K1's matrices in the compute dtype, the rest f32. The plain
+twins take the (in, out) matrices at every dtype.
 """
 
 from __future__ import annotations
@@ -62,6 +67,29 @@ launches = {f"kernel_bert_layer{k}{r}{f}": 0 for k in ("", "_i8")
 
 MAX_SEQ = 512
 INV127 = 1.0 / 127.0  # folded to f32(1/127) in f32 products, as the reference
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 x -> (hi, lo), the 3xTF32 split: hi is x rounded to TF32 (10
+    explicit mantissa bits: the low 13 bits of the f32 cleared) to nearest
+    with ties away from zero, as `cvt.rna.tf32.f32` rounds, and lo is
+    x - hi (exact) rounded the same way. x = hi + lo within 2^-22·|x|
+    while lo is a normal number (|x| >= 2^-102); hi is inf only within
+    half a TF32 step of f32's largest value. The twin of csrc/sm90.cuh's
+    split_tf32, which splits K1's f32 activations in registers."""
+    def rna(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    x = x.float().contiguous()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def tf32_pair(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, N) f32 matrix -> (W_hi, W_lo), each (N, K) f32 contiguous:
+    split_tf32 of wᵀ. The form in which K1's f32 GEMM on the card reads a
+    weight (TF32 wgmma reads both operands K-major); made once when a
+    model is built."""
+    return split_tf32(w.float().t().contiguous())
 
 
 def bert_layer_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1,
@@ -156,20 +184,38 @@ def _counter(base: str, rel, x) -> str:
             + ("_f32" if x.dtype == torch.float32 else ""))
 
 
+def _check_matrix(name: str, w, k: int, n: int, dt, dev) -> None:
+    """K1's matrix `name` of the (in, out) shape (k, n): bf16 in bf16; at
+    f32 the (W_hi, W_lo) pair of tf32_pair, each (n, k) f32."""
+    if dt != torch.float32:
+        check_tensor(w, f"K1 {name}", dt, (k, n), dev)
+        return
+    if not (isinstance(w, tuple) and len(w) == 2):
+        got = (f"{w.dtype} {tuple(w.shape)}" if isinstance(w, torch.Tensor)
+               else type(w).__name__)
+        raise ValueError(f"K1 {name}: at f32 the kernel takes the (W_hi, "
+                         f"W_lo) pair of ops.layer.tf32_pair, got {got}")
+    for part, t in zip(("hi", "lo"), w):
+        check_tensor(t, f"K1 {name} {part}", torch.float32, (n, k), dev)
+
+
 def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                 b2, fln_s, fln_b, *, nh: int, eps: float,
                 rel_bias) -> torch.Tensor:
     B, S, H = x.shape
-    I = w1.shape[1]
+    I = b1.shape[0]
     dev = x.device
     bias, rel = _check_layer("K1", x, bias, rel_bias, nh, I)
     dt = x.dtype
-    for name, t, shape in (("qkv_w", qkv_w, (H, 3 * H)), ("ao_w", ao_w, (H, H)),
-                           ("w1", w1, (H, I)), ("w2", w2, (I, H))):
-        check_tensor(t, f"K1 {name}", dt, shape, dev)
+    for name, w, (k, n) in (("qkv_w", qkv_w, (H, 3 * H)),
+                            ("ao_w", ao_w, (H, H)), ("w1", w1, (H, I)),
+                            ("w2", w2, (I, H))):
+        _check_matrix(name, w, k, n, dt, dev)
     _check_vectors("K1", dev, H, I, qkv_b=qkv_b, ao_b=ao_b, aln_s=aln_s,
                    aln_b=aln_b, b1=b1, b2=b2, fln_s=fln_s, fln_b=fln_b)
-    if any(t.data_ptr() % 16 for t in (x, qkv_w, ao_w, w1, w2)):
+    mats = [t for w in (qkv_w, ao_w, w1, w2)
+            for t in (w if isinstance(w, tuple) else (w,))]
+    if any(t.data_ptr() % 16 for t in (x, *mats)):
         raise ValueError("K1 reads x and the weights in 16-byte vectors: "
                          "their storage must be 16-byte aligned")
 
@@ -179,13 +225,14 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
     qkv = _gemm(x2d, qkv_w, qkv_b, 0)
     # q, k and v are column views of qkv (row stride 3H), as K5 reads them;
     # the C entry is called directly so K5's launch counter counts K5 only.
-    # f32: the fixed-order kernel, f32 in and out, p unrounded
+    # f32: the 3xTF32 kernel, f32 in and out, p unrounded
     ctx = torch.empty((M, H), dtype=dt, device=dev)
     q, es = qkv.data_ptr(), qkv.element_size()
     _cuda.check(_cuda.lib().dawn_attention(
         q, q + H * es, q + 2 * H * es, bias.data_ptr(), rel, ctx.data_ptr(),
         B, nh, S, hd, S * 3 * H, hd, 3 * H, S * H, hd, H,
-        1.0 / math.sqrt(hd), f32, f32, _cuda.stream_handle(x)), "K1 attention")
+        1.0 / math.sqrt(hd), f32, f32, 0, _cuda.stream_handle(x)),
+        "K1 attention")
     x1 = _gemm(ctx, ao_w, ao_b, 2, x2d, aln_s, aln_b, eps)
     h = _gemm(x1, w1, b1, 1)
     y = _gemm(h, w2, b2, 2, x1, fln_s, fln_b, eps)
@@ -199,21 +246,25 @@ _EPI_NAMES = ("K1 projection + bias", "K1 projection + GELU",
 
 def _gemm(a, w, bias, epi: int, resid=None, ln_s=None, ln_b=None,
           eps: float = 1e-12) -> torch.Tensor:
-    """One of K1's projections on the card (csrc/layer.cu::dawn_bert_gemm):
-    (M, K) a · (K, N) w + bias, then epi 0: nothing, 1: the GELU, 2: + the
-    (M, N) resid and LayerNorm(ln_s, ln_b, eps); out (M, N) in a's dtype
-    (bf16: the TMA + wgmma kernel; f32: the CUDA-core one). a, w and resid
-    contiguous in a's dtype, 16-byte aligned, the vectors f32: the caller
-    checks them (_layer_cuda; chip_smoke.py and the card tests time and
-    hold each projection alone). Counts nothing: K1 counts its layer."""
+    """One of K1's projections on the card (csrc/layer.cu::dawn_bert_gemm,
+    the TMA + wgmma kernel): (M, K) a · the (K, N) matrix + bias, then epi
+    0: nothing, 1: the GELU, 2: + the (M, N) resid and LayerNorm(ln_s,
+    ln_b, eps); out (M, N) in a's dtype. w: bf16, the (K, N) matrix; f32,
+    its (W_hi, W_lo) pair (tf32_pair, each (N, K)), multiplied 3xTF32. a,
+    w and resid contiguous in a's dtype, 16-byte aligned, the vectors f32:
+    the caller checks them (_layer_cuda; chip_smoke.py and the card tests
+    time and hold each projection alone). Counts nothing: K1 counts its
+    layer."""
     M, K = a.shape
-    N = w.shape[1]
+    hi, lo = w if isinstance(w, tuple) else (w, None)
+    N = hi.shape[0] if lo is not None else hi.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     ptr = [None if t is None else t.data_ptr() for t in (resid, ln_s, ln_b)]
     _cuda.check(_cuda.lib().dawn_bert_gemm(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(), *ptr, out.data_ptr(), M,
-        N, K, epi, eps, int(a.dtype == torch.float32),
-        _cuda.stream_handle(a)), _EPI_NAMES[epi])
+        a.data_ptr(), hi.data_ptr(), None if lo is None else lo.data_ptr(),
+        bias.data_ptr(), *ptr, out.data_ptr(), M, N, K, epi, eps,
+        int(a.dtype == torch.float32), _cuda.stream_handle(a)),
+        _EPI_NAMES[epi])
     return out
 
 

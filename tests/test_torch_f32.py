@@ -14,7 +14,7 @@ K4's f32 bound (per-row cosine >= 0.99995, tests/test_torch_layer_i8.py).
 
 Also: the f32 node answers a text search with the page at rank 1; the
 node refuses a compute_dtype it does not know; and the fixed-order
-attention twin on f32 qkv (the contract of the kernel's f32 instance) is
+attention twin on f32 qkv (the contract of K4's f32 attention kernel) is
 bit-equal to a numpy loop that rounds each product and each sum on its
 own.
 """

@@ -7,12 +7,15 @@ package, so it also runs on a machine that has only torch:
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
 Every encoder kernel runs at bf16 and at f32 (compute_dtype = "f32": the
-kernels' f32 instances, CUDA-core FMAs, counted under `_f32` names). At
-f32, against the twin run at f32 with TF32 off: K1 within max |d| 1e-4 and
-per-token cosine 0.99999, K4 at per-token cosine 0.99995 (its f32 CPU
-bound), K5, K6 and K7 within 1e-5 of the output's scale and per-row cosine
-0.99999; an f32 input never reaches a plain twin, and a dtype mix is
-refused. K2 (i8 queries) and K3 (i8 queries) must be bit-equal to their
+kernels' f32 instances, counted under `_f32` names; K1's GEMM and the K1,
+K5 and K6 attention take every product 3xTF32 on the tensor cores, K4's
+attention keeps its fixed order, K7 runs CUDA-core FMAs). At f32, against
+the twin run at f32 with TF32 off: K1 within max |d| 1e-4 and per-token
+cosine 0.99999, K4 at per-token cosine 0.99995 (its f32 CPU bound), K5,
+K6 and K7 within 1e-5 of the output's scale and per-row cosine 0.99999;
+an f32 input never reaches a plain twin, a dtype mix is refused, and K1
+at f32 refuses a matrix that is not its (W_hi, W_lo) pair. K2 (i8
+queries) and K3 (i8 queries) must be bit-equal to their
 plain twin; the bf16-query variants agree within two key steps (3.1e-5) on the
 values and on at least 99% of the window ids; K1 agrees to the bf16 bound
 of the reference's own tests (per-row cosine > 0.999) at every head dim
@@ -25,13 +28,18 @@ wrong shape, dtype, device or layout raises. The per-op
 kernels K5 and K6 (which pass a null rel_bias through the same C entry)
 and K7 agree with their plain twins at per-row cosine
 > 0.9999 (the same bf16 rounding points, f32 sums in another order); K8,
-all f32, within 1e-5. K1's bf16 GEMM (TMA + wgmma, its LayerNorm over a
+all f32, within 1e-5. K1's GEMM (TMA + wgmma, its LayerNorm over a
 thread-block cluster) is held at rows that are not a multiple of its
 tiles at every cluster width up to a non-portable 10, each epilogue alone
-against the f32 product rounded to bf16, and in a CUDA-graph replay; the
-mma.sync attention at S of 16 to 512 and every head dim it pads (16 to
-128, and 26), on 16-byte aligned and misaligned inputs, in K5, K6 and K1
-with rel_bias; a bf16 input never reaches a plain twin either.
+against the f32 product rounded to bf16 (bf16) or the f64 product (f32,
+at M = 128 and 8192), and in a CUDA-graph replay (f32: equal to the eager
+call); the mma.sync attention at S of 16 to 512 and every head dim it
+pads (16 to 128, and 26), on 16-byte aligned and misaligned inputs, in
+K5, K6 and K1 with rel_bias, and at f32 with rel at hd 26, with whole
+key tiles masked and with every key of a sequence masked; a bf16 input
+never reaches a plain twin either. The profiler names the kernels each
+route runs: K1 f32 the TMA + wgmma GEMM and the 3xTF32 attention, K4 (at
+either dtype) the fixed-order attention.
 """
 
 import numpy as np
@@ -101,14 +109,24 @@ def _k1_args(rng, B, S, cuda, dtype, H=384, I=1536):
             torch.from_numpy(mask).to(cuda))
 
 
+def _k1_form(w):
+    """K1's weights as its kernel takes them: at f32 each (in, out)
+    matrix as its (W_hi, W_lo) pair (layer.tf32_pair), as the model holds
+    them on a card; the plain twin takes w as it is."""
+    return [layer.tf32_pair(t) if t.ndim == 2 and t.dtype == torch.float32
+            else t for t in w]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("B,S", [(3, 16), (4, 32), (2, 128), (1, 512)])
+@pytest.mark.parametrize("B,S", [(3, 16), (4, 32), (2, 128), (1, 512),
+                                 (3, 48)])
 def test_k1_matches_plain(cuda, B, S, dtype):
+    """(3, 48): M = 144 rows, not a multiple of the GEMM's tiles."""
     dt = DTYPES[dtype]
     xt, bt, w, m = _k1_args(np.random.default_rng(S), B, S, cuda, dt)
     name = "kernel_bert_layer" + ("_f32" if dtype == "f32" else "")
     before = dict(layer.launches)
-    got = layer.fused_bert_layer(xt, bt, *w, nh=12)
+    got = layer.fused_bert_layer(xt, bt, *_k1_form(w), nh=12)
     assert got.dtype == dt
     assert layer.launches == {**before, name: before[name] + 1}
     want = layer.bert_layer_plain(xt, bt, *w, nh=12)
@@ -141,6 +159,28 @@ def test_k1_refuses_what_it_does_not_take(cuda):
     assert torch.isfinite(got).all() and float(cos.min()) > 0.999
     with pytest.raises(ValueError, match="128 % hd == 0"):
         layer.fused_bert_layer(xt.bfloat16(), bt, *w, nh=16)  # hd 24
+
+
+def test_k1_f32_refuses_a_missing_or_misshaped_pair(cuda):
+    """At f32 K1 takes each matrix as its (W_hi, W_lo) pair only: the
+    (in, out) matrix, a lone half, halves in the (in, out) layout or in
+    bf16 raise, and nothing launches (no fallback to the (in, out)
+    matrix)."""
+    x, _, bias, weights = _layer_inputs(np.random.default_rng(8), 2, 16)
+    w = [torch.from_numpy(a).to(cuda) for a in weights]
+    xt, bt = torch.from_numpy(x).to(cuda), torch.from_numpy(bias).to(cuda)
+    pairs = _k1_form(w)
+    before = dict(layer.launches)
+    for i, bad, match in (
+            (0, w[0], "K1 qkv_w: at f32"),
+            (0, pairs[0][:1], "K1 qkv_w: at f32"),
+            (6, tuple(t.t() for t in pairs[6]), "K1 w1 hi"),
+            (8, tuple(t.bfloat16() for t in pairs[8]), "K1 w2 hi")):
+        args = list(pairs)
+        args[i] = bad
+        with pytest.raises(ValueError, match=match):
+            layer.fused_bert_layer(xt, bt, *args, nh=12)
+    assert layer.launches == before
 
 
 @pytest.mark.parametrize("H,nh,I", [(256, 16, 512), (768, 12, 3072),
@@ -260,10 +300,11 @@ def test_rel_bias_matches_plain(cuda, kernel, B, S, dtype):
         x, bias, w, m = _k1_args(rng, B, S, cuda, dt, H, I)
         fused, plain = layer.fused_bert_layer, layer.bert_layer_plain
     rel = _rel(rng, S, nh, cuda)
+    kw = _k1_form(w) if kernel == "k1" else w
     name = {"k1": "kernel_bert_layer", "k4": "kernel_bert_layer_i8"}[kernel]
     name += "_rel" + ("_f32" if dtype == "f32" else "")
     before = dict(layer.launches)
-    got = fused(x, bias, *w, nh=nh, eps=1e-5, rel_bias=rel).float()
+    got = fused(x, bias, *kw, nh=nh, eps=1e-5, rel_bias=rel).float()
     assert layer.launches == {**before, name: before[name] + 1}
     want = plain(x, bias, *w, nh=nh, eps=1e-5, rel_bias=rel).float()
     if kernel == "k1":
@@ -273,8 +314,8 @@ def test_rel_bias_matches_plain(cuda, kernel, B, S, dtype):
         cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
         assert float(cos.min()) >= K4_COS[dt]
     # a zero rel_bias adds exact zeros: bit-equal to the call without one
-    assert torch.equal(fused(x, bias, *w, nh=nh, eps=1e-5),
-                       fused(x, bias, *w, nh=nh, eps=1e-5,
+    assert torch.equal(fused(x, bias, *kw, nh=nh, eps=1e-5),
+                       fused(x, bias, *kw, nh=nh, eps=1e-5,
                              rel_bias=torch.zeros_like(rel)))
 
 
@@ -704,7 +745,7 @@ def test_f32_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
     f32 = torch.float32
     rng = np.random.default_rng(9)
     x, bias, w, _ = _k1_args(rng, 2, 32, cuda, f32)
-    assert layer.fused_bert_layer(x, bias, *w, nh=12).dtype == f32
+    assert layer.fused_bert_layer(x, bias, *_k1_form(w), nh=12).dtype == f32
     _, _, w8, _ = _k4_args(rng, 2, 32, 384, 1536, cuda)
     assert layer.fused_bert_layer_i8(x, bias, *w8, nh=12).dtype == f32
     qkv = torch.from_numpy(rng.standard_normal((2, 32, 3 * 384), np.float32)
@@ -771,6 +812,71 @@ def test_k1_gemm_epilogues_match_the_f32_product(cuda, M, K, N, epi):
     assert float(_row_cos(got, want, N).min()) >= 0.9999
     assert float((got - want).abs().max()) <= 2 ** -7 * float(
         want.abs().max())
+
+
+def _gemm_want_f64(a, w, b, epi, resid, ln_s, ln_b):
+    """The f64 product of the f32 operands with K1's epilogue in f64."""
+    y = a.double() @ w.double() + b.double()
+    if epi == 1:
+        return 0.5 * y * (1.0 + ffn.erf_poly(y * 2.0 ** -0.5))
+    if epi == 2:
+        return layer_norm(y + resid.double(), ln_s.double(), ln_b.double(),
+                          1e-12)
+    return y
+
+
+@pytest.mark.parametrize("epi", [0, 1, 2])
+@pytest.mark.parametrize("M,K,N", [(128, 384, 1152), (128, 1536, 384),
+                                   (128, 3072, 768), (8192, 384, 1536),
+                                   (8192, 3072, 768), (48, 768, 768),
+                                   (16, 2048, 2048)])
+def test_k1_f32_gemm_epilogues_match_the_f64_product(cuda, M, K, N, epi):
+    """Each epilogue of dawn_bert_gemm at f32 alone (3xTF32 on the TF32
+    wgmma, W as its (W_hi, W_lo) pair), at one query's M = 128 and a
+    batch's 8192 rows, at rows past the tiles (48, 16) and at a LayerNorm
+    cluster of 16: max |d| within 1e-5 of the output's scale and per-row
+    cosine >= 0.99999 against the f64 product (the f32 kernels' bound)."""
+    rng = np.random.default_rng(M + K + N + epi)
+
+    def t(*shape, s=1.0, base=0.0):
+        return torch.from_numpy((base + s * rng.standard_normal(shape)
+                                 ).astype(np.float32)).to(cuda)
+    a, w, b = t(M, K), t(K, N, s=0.05), t(N, s=0.1)
+    resid, ln_s, ln_b = ((t(M, N), t(N, s=0.1, base=1.0), t(N, s=0.1))
+                         if epi == 2 else (None, None, None))
+    got = layer._gemm(a, layer.tf32_pair(w), b, epi, resid, ln_s, ln_b)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    want = _gemm_want_f64(a, w, b, epi, resid, ln_s, ln_b)
+    assert torch.isfinite(got).all()
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    assert float(_row_cos(got, want, N).min()) >= 0.99999
+
+
+def test_k1_f32_replays_in_a_cuda_graph(cuda):
+    """K1 at f32 captured once in a CUDA graph and replayed on new inputs
+    copied into the captured ones gives, bit for bit, what its eager call
+    gives on the same input."""
+    rng = np.random.default_rng(24)
+    x, bias, w, _ = _k1_args(rng, 2, 64, cuda, torch.float32)
+    kw = _k1_form(w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            layer.fused_bert_layer(x, bias, *kw, nh=12)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = layer.fused_bert_layer(x, bias, *kw, nh=12)
+    for seed in (25, 26):
+        fresh, _, _, _ = _k1_args(np.random.default_rng(seed), 2, 64, cuda,
+                                  torch.float32)
+        x.copy_(fresh)
+        graph.replay()
+        eager = layer.fused_bert_layer(x.clone(), bias, *kw, nh=12)
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
 
 
 def test_k1_gemm_refuses_a_cluster_past_sixteen(cuda):
@@ -882,6 +988,119 @@ def test_k1_rel_every_head_dim(cuda, S, hd):
     assert torch.isfinite(got).all()
     cos = torch.nn.functional.cosine_similarity(got[m], want[m], dim=-1)
     assert float(cos.min()) >= 0.9999
+
+
+def _lengths_bias(lengths, S, cuda):
+    mask = np.arange(S)[None, :] < np.asarray(lengths)[:, None]
+    return torch.from_numpy(np.where(mask, 0.0, -1e30).astype(np.float32)
+                            ).to(cuda)
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k6"])
+def test_f32_attention_with_whole_key_tiles_masked(cuda, kernel):
+    """The one-pass f32 kernel at S = 512 (eight 64-key tiles) on
+    sequences of 512, 10 (seven masked tiles after the first), 0 (every
+    key masked: the softmax is uniform, as in the twin) and 70 keys, K5 at
+    MiniLM width and K6 at hd 26, within 1e-5 of the scale."""
+    B, S, nh = 4, 512, 12
+    rng = np.random.default_rng(31)
+    bias = _lengths_bias([512, 10, 0, 70], S, cuda)
+    if kernel == "k5":
+        H = 384
+        qkv = torch.from_numpy(rng.standard_normal((B, S, 3 * H), np.float32)
+                               ).to(cuda)
+        q, k, v = qkv.split(H, dim=-1)
+        got = attention.fused_attention_packed(q, k, v, bias, nh)
+        want = attention.attention_packed_plain(q, k, v, bias, nh)
+        _per_op_bound(got, want, H, torch.float32)
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, nh, S, 26),
+                                                        np.float32)).to(cuda)
+                   for _ in range(3))
+        got = attention.fused_attention(q, k, v, bias, nh)
+        want = attention.attention_plain(q, k, v, bias, nh)
+        _per_op_bound(got, want, 26, torch.float32)
+
+
+@pytest.mark.parametrize("hd", [16, 26, 32, 64, 128])
+@pytest.mark.parametrize("S", [16, 48, 512])
+def test_f32_attention_with_rel_at_every_head_dim(cuda, S, hd):
+    """dawn_attention's 3xTF32 kernel with a rel operand at every padded
+    head dim, hd 26 (element staging) included, on head-major f32 q, k, v
+    with ragged masks, against the contract computed in f32: within 1e-5
+    of the scale."""
+    from dawnsearch_tpu_torch.ops import _cuda
+    B, nh = 2, 4
+    rng = np.random.default_rng(S * hd + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, nh, S, hd),
+                                                    np.float32)).to(cuda)
+               for _ in range(3))
+    bias = _bias(rng, B, S, cuda)
+    rel = torch.from_numpy(rng.standard_normal((nh, S, S), np.float32) * 0.5
+                           ).to(cuda)
+    out = torch.empty_like(q)
+    strides = (nh * S * hd, S * hd, hd)
+    _cuda.check(_cuda.lib().dawn_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        rel.data_ptr(), out.data_ptr(), B, nh, S, hd, *strides, *strides,
+        1.0 / np.sqrt(hd), 1, 1, 0, _cuda.stream_handle(q)), "attention")
+    s = layer._biased(q @ k.transpose(-1, -2), hd, bias, rel)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    want = (p @ v) * (1.0 / p.sum(dim=-1, keepdim=True))
+    _per_op_bound(out, want, hd, torch.float32)
+
+
+def test_dawn_attention_refuses_a_flag_mix(cuda):
+    """The flags pick the kernel and must match the output: an f32 input
+    without an f32 output, a bf16 input with one outside the fixed order,
+    and the fixed order without an f32 output are invalid values."""
+    from dawnsearch_tpu_torch.ops import _cuda
+    t = torch.zeros((1, 1, 16, 32), device=cuda)
+    bias = torch.zeros((1, 16), device=cuda)
+    st = (16 * 32, 16 * 32, 32)
+    for out_f32, in_f32, fixed in ((0, 1, 0), (1, 0, 0), (0, 0, 1)):
+        err = _cuda.lib().dawn_attention(
+            t.data_ptr(), t.data_ptr(), t.data_ptr(), bias.data_ptr(), None,
+            t.data_ptr(), 1, 1, 16, 32, *st, *st, 1.0, out_f32, in_f32, fixed,
+            _cuda.stream_handle(t))
+        assert err != 0
+
+
+def _kernel_names(fn) -> set:
+    """The names of the CUDA kernels fn() launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def test_f32_routes_run_the_kernels_they_name(cuda):
+    """K1 at f32 runs the TMA + wgmma GEMM and the 3xTF32 attention (no
+    CUDA-core SGEMM is left); K4 at f32 and at bf16 still runs the
+    fixed-order attention, which nothing else runs."""
+    rng = np.random.default_rng(27)
+    x, bias, w, _ = _k1_args(rng, 2, 64, cuda, torch.float32)
+    kw = _k1_form(w)
+    k1 = _kernel_names(lambda: layer.fused_bert_layer(x, bias, *kw, nh=12))
+    assert any("gemm_kernel" in n for n in k1)
+    assert any("attention_tf32_kernel" in n for n in k1)
+    assert not any("attention_seq_kernel" in n or "sgemm" in n for n in k1)
+    _, _, w8, _ = _k4_args(rng, 2, 64, 384, 1536, cuda)
+    for xt in (x, x.bfloat16()):
+        k4 = _kernel_names(lambda: layer.fused_bert_layer_i8(xt, bias, *w8,
+                                                              nh=12))
+        assert any("attention_seq_kernel" in n for n in k4)
+        assert not any("attention_tf32_kernel" in n for n in k4)
+    qkv = torch.from_numpy(rng.standard_normal((2, 64, 3 * 384), np.float32)
+                           ).to(cuda)
+    q, k, v = qkv.split(384, dim=-1)
+    k5 = _kernel_names(lambda: attention.fused_attention_packed(q, k, v,
+                                                                bias, 12))
+    assert any("attention_tf32_kernel" in n for n in k5)
+    assert not any("attention_seq_kernel" in n for n in k5)
 
 
 def test_bf16_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
