@@ -34,18 +34,25 @@ Phases, each printing one progress line; any failure exits non-zero:
             MiniLM and BERT-base widths at M = 8192 and 128 against the f64
             product, timed beside torch.addmm in f32
   k4        the W8A8 whole-layer kernel vs bert_layer_i8_plain with ragged
-            masks at MiniLM and BERT-base widths (64, 128) and BERT-large
-            (8, 512), each timed beside K1 on the same weights; K4 with
-            rel_bias at all-mpnet-base-v2's width at (64, 128) and
-            (8, 512), timed beside K4 without it; K4's f32 instance at
-            MiniLM and BERT-base (64, 128) beside K1's; then 12-layer
-            BERT-base and MPNet-base encode_batch on K1 and on K4, device
-            time at B = 1 and 64, S = 128
+            masks at MiniLM and BERT-base widths (64, 128) and (1, 128)
+            and BERT-large (8, 512), each timed beside K1 on the same
+            weights, its device time split by launch (torch.profiler);
+            its four s8 GEMMs alone at M = 8192 / 4096 and 128, against
+            the twin's arithmetic, beside torch._int_mm; K4 with rel_bias
+            at all-mpnet-base-v2's width at (64, 128) and (8, 512), timed
+            beside K4 without it; K4's f32 instance at MiniLM and
+            BERT-base (64, 128) and BERT-base (1, 128) beside K1's; then
+            12-layer BERT-base and MPNet-base encode_batch on K1 and on
+            K4, device time at B = 1 and 64, S = 128
   k2        i8 score+select vs select_candidates_plain at 1,048,576 x 384
-            codes and 1024 queries: values and ids bit-equal; timed
+            codes and 1024 queries, and at B = 1, 8 and 32 over the node's
+            index (capacity 524,288, 270,000 live rows) and over 1,048,576
+            rows: values and ids bit-equal; timed (the small batches as
+            CUDA-graph replays)
   k3        i4 score+select (K3) at 1,048,576 logical rows (201 MB packed)
-            and 1024 queries: qi8 values and ids bit-equal to the plain
-            twin, qi8=False within the bf16 tolerance; timed
+            and 1024 queries and at B = 1, 8 and 32 over the node's index:
+            qi8 values and ids bit-equal to the plain twin, qi8=False
+            (1024 queries) within the bf16 tolerance; timed
   k2bf16    K2 over bf16 codes (805 MB) and K2 i8 with qi8=False, 1024
             queries, within the bf16 tolerance; timed
   attn      K5 (packed: q, k, v as column slices of one (B, S, 3H) qkv)
@@ -151,11 +158,13 @@ MINILM_W, BASE_W, LARGE_W = (384, 12, 1536), (768, 12, 3072), (1024, 16, 4096)
 # (width, B, S); the first is the entry's headline shape
 K1_SHAPES = ((MINILM_W, 64, 128), (MINILM_W, 8, 512), (MINILM_W, 64, 16),
              (BASE_W, 64, 128), (LARGE_W, 8, 512))
-K4_SHAPES = ((MINILM_W, 64, 128), (BASE_W, 64, 128), (LARGE_W, 8, 512))
+K4_SHAPES = ((MINILM_W, 64, 128), (BASE_W, 64, 128), (LARGE_W, 8, 512),
+             (MINILM_W, 1, 128), (BASE_W, 1, 128))
 # the f32 instances (compute_dtype = "f32"), each entry at its route's
 # serving shapes: K1 at MiniLM and BERT-base (64, 128), K4 at the same two
+# and at one BERT-base query (B = 1)
 K1_F32_SHAPES = (K1_SHAPES[0], K1_SHAPES[3])
-K4_F32_SHAPES = K4_SHAPES[:2]
+K4_F32_SHAPES = (*K4_SHAPES[:2], K4_SHAPES[4])
 # K1 and K4 with MPNet's relative-position bias (rel_bias), at
 # all-mpnet-base-v2's width: (B, S), the first the entry's headline shape
 REL_SHAPES = ((64, 128), (8, 512))
@@ -200,6 +209,10 @@ K2_ROWS, K2_BATCH = 1 << 20, 1024
 I4_RECALL_ROWS = 1 << 21
 I4_SCALE_ROWS, I4_SCALE_ADD = 1 << 26, 1 << 20
 NODE_PAGES = 270_000
+# the node's i8 index at NODE_PAGES rows: FlatIndex's capacity doubles
+# from 16,384 (index/flat.py), so 524,288 rows, 15 of 32 tiles past count
+NODE_CAPACITY = 1 << 19
+SMALL_BATCHES = (1, 8, 32)  # a searcher's batch buckets up to 32
 NODE_TIERS = ("i8", "i4", "bf16")
 PROFILE_BATCHES, PROFILE_K = (1, 8, 64), 50
 COS_MIN = 0.999          # bf16 bound of the reference (test_pallas_kernels.py)
@@ -773,20 +786,63 @@ def k4_bound(B: int, S: int, H: int, I: int, x, qweights: list,
 
 def phase_k4(results: list) -> None:
     """K4 against bert_layer_i8_plain on ragged masks at MiniLM, BERT-base
-    and BERT-large widths in bf16, and at the first two in f32 (the f32
+    and BERT-large widths and at one query (B = 1) of the first two in
+    bf16, and at MiniLM, BERT-base and one BERT-base query in f32 (the f32
     instance), each timed beside K1 on the same f32 weights (K1's in the
-    entry's dtype, i8 codes and scales from quant_cols for K4); then a
-    12-layer BERT-base-width encode_batch on K1 and on K4 at B = 1 and 64,
-    S = 128, as device time (CUDA-graph replays). No single PyTorch call
-    computes a W8A8 layer, so there is no library time."""
+    entry's dtype, i8 codes (N, K) and scales from i8_weight for K4), with
+    its device time split by kernel (torch.profiler); its four s8 GEMMs
+    alone; then a 12-layer BERT-base-width encode_batch on K1 and on K4 at
+    B = 1 and 64, S = 128, as device time (CUDA-graph replays). No single
+    PyTorch call computes a W8A8 layer, so the layer has no library time;
+    each GEMM has torch._int_mm's."""
     rng = np.random.default_rng(14)
     dev = torch.device("cuda")
     results.append(k4_entry(rng, dev, K4_SHAPES, torch.bfloat16))
+    results[-1]["gemms"] = k4_gemms(rng, dev)
     phase_k4_rel(results, rng, dev)
     _f32_twins()
     results.append(k4_entry(rng, dev, K4_F32_SHAPES, torch.float32))
     for family in ("bert", "mpnet"):
         encode_base(rng, dev, family)
+
+
+# K4's CUDA launches, by the part of the layer each is (kernel names as
+# the profiler reports them; csrc/layer_i8.cu's six launches)
+K4_PARTS = (("quantize x, ctx", "quant_rows_kernel"),
+            ("attention", "attention_seq_kernel"),
+            ("qkv GEMM", "gemm_kernel<64, 0,|gemm_kernel<128, 0,"),
+            ("attn-out GEMM + quantize x1", r"gemm_kernel<(64|128), 2, "
+             r"signed char, (__nv_bfloat16|float), float>"),
+            ("FFN-in GEMM + GELU + h absmax",
+             "gemm_kernel<64, 1,|gemm_kernel<128, 1,"),
+            ("FFN-out GEMM + quantize h", "gemm_kernel<64, 2,|"
+             "gemm_kernel<128, 2,"))
+
+
+def k4_split(fn, calls: int = 10) -> dict:
+    """K4's device time a call, split by part (K4_PARTS, the first pattern
+    that matches a kernel's name): torch.profiler's sums over `calls`
+    calls. The two LayerNorm GEMMs are told apart by their residual and
+    output types: the attention-out one writes f32 (x1); at f32 both do,
+    and both count under the attention-out label."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        part = next((label for label, pattern in K4_PARTS
+                     if re.search(pattern, e.key)), "other")
+        split[part] = split.get(part, 0.0) \
+            + e.self_device_time_total / calls / 1e3
+    return split
 
 
 def k4_entry(rng: np.random.Generator, dev, k4_shapes, dtype) -> dict:
@@ -797,7 +853,7 @@ def k4_entry(rng: np.random.Generator, dev, k4_shapes, dtype) -> dict:
         f32 = _layer_weights(rng, H, I, dev, dtype=torch.float32)
         k1w = _k1_form([t.to(dtype) if t.ndim == 2 else t for t in f32])
         # quantized on the CPU from the f32 matrices, as the model does at load
-        k4w = [tuple(q.to(dev) for q in layer.quant_cols(t.cpu()))
+        k4w = [tuple(q.to(dev) for q in layer.i8_weight(t.cpu()))
                if t.ndim == 2 else t for t in f32]
         flat = [t for w in k4w for t in (w if isinstance(w, tuple) else (w,))]
         x = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
@@ -813,19 +869,22 @@ def k4_entry(rng: np.random.Generator, dev, k4_shapes, dtype) -> dict:
         k1_ms = cuda_ms(lambda: layer.fused_bert_layer(x, bias, *k1w, nh=nh))
         plain_ms = cuda_ms(lambda: layer.bert_layer_i8_plain(x, bias, *k4w,
                                                              nh=nh))
+        split = k4_split(lambda: layer.fused_bert_layer_i8(x, bias, *k4w,
+                                                           nh=nh))
         bd = k4_bound(B, S, H, I, x, flat)
         shape = f"B={B} S={S} H={H} nh={nh} I={I} {_tag(dtype)} W8A8"
         say(f"phase k4 {shape}: max|d|={err:.3e} min token cos={cos:.7f} "
             f"(vs K1 {k1_cos:.6f}) kernel {ms:.3f} ms K1 {k1_ms:.3f} ms "
             f"(K4/K1 {ms / k1_ms:.3f}) plain {plain_ms:.3f} ms bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); device ms by part: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
         if not (finite and cos >= cos_min):
             raise AssertionError(f"K4 disagrees with its plain version at "
                                  f"{shape} (cos bound {cos_min})")
         shapes.append({"shape": shape, "max_abs_err": err,
                        "min_token_cos": cos, "min_token_cos_vs_k1": k1_cos,
                        "ms": ms, "k1_ms": k1_ms, "plain_ms": plain_ms, **bd,
-                       "library_ms": None})
+                       "library_ms": None, "device_ms_by_part": split})
         del f32, k1w, k4w, flat
     f32 = dtype == torch.float32
     return {"name": "bert_layer_i8" + ("_f32" if f32 else ""), "route": "cuda",
@@ -833,6 +892,117 @@ def k4_entry(rng: np.random.Generator, dev, k4_shapes, dtype) -> dict:
             "replaces": "dawnsearch_tpu/ops/layer.py:318"
                         + (" (f32)" if f32 else ""),
             **shapes[0], "other_shapes": shapes[1:]}
+
+
+def _int_mm(a, wq):
+    """torch._int_mm of the (M, K) codes and the (N, K) weight codes: the
+    s32 product, the yardstick of one s8 GEMM (the port never calls it)."""
+    return torch._int_mm(a, wq.t())
+
+
+def k4_gemms(rng: np.random.Generator, dev) -> list:
+    """Each of K4's four s8 GEMMs alone (ops/layer.py::_gemm_i8, the TMA +
+    wgmma GEMM with its epilogue and, for the LayerNorm ones, the
+    FFN-out one's quantization of h in its prologue) in bf16, at M = 8192 of
+    MiniLM and BERT-base, 4096 of BERT-large and 128 (one B=1 query) of
+    MiniLM and BERT-base, against the plain twin's arithmetic on the same
+    operands (_mm_codes, the GELU, layer_norm, quant_rows): per-row cosine
+    >= KERNEL_COS_MIN; the attention-out GEMM's x1 codes and factors,
+    made in its epilogue, bit-equal to quant_rows of the x1 it wrote, and
+    the GELU GEMM's partial absmax bit-equal to that of the h it wrote.
+    The FFN-out GEMM's codes of h (made in its prologue) enter only its
+    products. Device time
+    (graph_ms) beside torch._int_mm of the same product and the bound of
+    the projection."""
+    from dawnsearch_tpu_torch.ops import layer
+    from dawnsearch_tpu_torch.ops.ffn import erf_poly
+    from dawnsearch_tpu_torch.ops.vector import layer_norm
+    dt = torch.bfloat16
+    shapes = [(MINILM_W, 8192), (BASE_W, 8192), (LARGE_W, 4096),
+              (MINILM_W, 128), (BASE_W, 128)]
+    rows = []
+    for (H, nh, I), M in shapes:
+        f32 = _layer_weights(rng, H, I, dev, dtype=torch.float32)
+        wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = [
+            tuple(q.to(dev) for q in layer.i8_weight(t.cpu()))
+            if t.ndim == 2 else t for t in f32]
+
+        def act(n, dtype=torch.float32):
+            return torch.from_numpy(rng.standard_normal((M, n), np.float32)
+                                    ).to(dev, dtype)
+        x, ctx, x1, h = act(H, dt), act(H), act(H), act(I)
+        xq, xrf = layer.quant_rows(x.float())
+        cq, crf = layer.quant_rows(ctx)
+        x1q, x1rf = layer.quant_rows(x1)
+        hpart = h.abs().reshape(M, I // 128, 128).amax(dim=-1)
+        for name, epi, a, w, b, kw in (
+                ("qkv + bias", 0, xq, wqkv, bqkv, dict(rf=xrf)),
+                ("attention out + LN + quantize x1", 2, cq, wo, bo,
+                 dict(rf=crf, resid=x, ln_s=g1, ln_b=be1)),
+                ("FFN in + GELU + h absmax", 1, x1q, w1, b1,
+                 dict(rf=x1rf)),
+                ("FFN out + LN + quantize h", 2, h, w2, b2,
+                 dict(part=hpart, resid=x1, ln_s=g2, ln_b=be2))):
+            # epi 2 on codes: attention out, which quantizes x1 (QOUT)
+            quant_out = epi == 2 and a.dtype == torch.int8
+
+            def gemm():
+                return layer._gemm_i8(a, w, b, epi, dt=dt, **kw)
+            got = gemm()
+            codes_share = None
+            if epi == 1:
+                got, got_part = got
+            if epi == 2:
+                aq, arf = (a, kw["rf"]) if quant_out else layer.quant_rows(a)
+                want = layer_norm(layer._mm_codes(aq, arf, *w) + b
+                                  + kw["resid"].float(), kw["ln_s"],
+                                  kw["ln_b"], 1e-12)
+            else:
+                want = layer._mm_codes(a, kw["rf"], *w) + b
+                if epi == 1:
+                    want = 0.5 * want * (1.0 + erf_poly(want * 2.0 ** -0.5))
+                    # PART: exactly the absmax of what it wrote
+                    codes_share = float((got_part == got.abs().reshape(
+                        M, -1, 128).amax(dim=-1)).float().mean())
+            if quant_out:
+                got, got_q, got_rf = got
+                want_q, want_rf = layer.quant_rows(got)
+                codes_share = min(
+                    float((got_q == want_q).float().mean()),
+                    float((got_rf.view(torch.int32) == want_rf.view(
+                        torch.int32)).float().mean()))
+            torch.cuda.synchronize()
+            err = float((got.float() - want).abs().max())
+            cos = float(_row_cos(got, want, w[0].shape[0]).min())
+            ms = graph_ms(gemm)
+            lib_a = a if a.dtype == torch.int8 else layer.quant_rows(a)[0]
+            lib_ms = graph_ms(lambda: _int_mm(lib_a, w[0]))
+            N, K = w[0].shape
+            ops = 2 * M * N * K
+            bd = bound(ops, "int8", nbytes(a, *w, b, kw.get("rf"),
+                                           kw.get("part"), kw.get("resid"),
+                                           kw.get("ln_s"), kw.get("ln_b"))
+                       + M * N * (4 if epi == 1 or quant_out else 2)
+                       + (M * N + 4 * M if quant_out else 0)
+                       + (4 * M * N // 128 if epi == 1 else 0))
+            shape = f"{name} M={M} K={K} N={N} s8"
+            ok = cos >= KERNEL_COS_MIN and np.isfinite(err) and (
+                codes_share is None or codes_share == 1.0)
+            say(f"phase k4 gemm {shape}: max|d|={err:.3e} min row cos="
+                f"{cos:.7f}" + ("" if codes_share is None else
+                                f" codes/absmax equal share="
+                                f"{codes_share:.6f}")
+                + f" kernel {ms:.4f} ms ({ops / ms / 1e9:.0f} TOP/s) _int_mm "
+                f"{lib_ms:.4f} ms bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']})")
+            if not ok:
+                raise AssertionError(f"K4's GEMM disagrees with its plain "
+                                     f"arithmetic at {shape}")
+            rows.append({"shape": shape, "max_abs_err": err,
+                         "min_row_cos": cos, "codes_equal_share": codes_share,
+                         "ms": ms, **bd, "library_ms": lib_ms})
+        del f32
+    return rows
 
 
 def phase_k4_rel(results: list, rng: np.random.Generator, dev) -> None:
@@ -843,7 +1013,7 @@ def phase_k4_rel(results: list, rng: np.random.Generator, dev) -> None:
     from dawnsearch_tpu_torch.ops import layer
     H, nh, I = BASE_W
     f32 = _layer_weights(rng, H, I, dev, dtype=torch.float32)
-    k4w = [tuple(q.to(dev) for q in layer.quant_cols(t.cpu()))
+    k4w = [tuple(q.to(dev) for q in layer.i8_weight(t.cpu()))
            if t.ndim == 2 else t for t in f32]
     flat = [t for w in k4w for t in (w if isinstance(w, tuple) else (w,))]
     shapes = []
@@ -934,6 +1104,12 @@ def encode_base(rng: np.random.Generator, dev, family: str) -> None:
 
 
 def phase_k2(results: list) -> None:
+    """K2 i8 (qi8) at 1,048,576 rows x 1024 queries (the entry's headline
+    shape), then at B = 1 and 8 over the node's index (capacity 524,288,
+    270,000 live rows: 15 of its 32 tiles wholly past count) and over
+    1,048,576 rows; each bit-equal to the plain twin. The small batches
+    are timed as device time (graph_ms): the host's launch work is not in
+    it."""
     from dawnsearch_tpu_torch.index.flat import quantize_rows_i8
     from dawnsearch_tpu_torch.ops import scan_select as ss
     dev = torch.device("cuda")
@@ -941,12 +1117,27 @@ def phase_k2(results: list) -> None:
     rows = _unit_rows(K2_ROWS, g, dev)
     queries = _unit_rows(K2_BATCH, g, dev)
     codes, scales = quantize_rows_i8(rows)
-    qq, qs = ss.quantize_queries(queries)
     count = K2_ROWS - 1000  # the count mask bites in the last tile
-    check_select(results, "k2", "select_i8",
-                 "dawnsearch_tpu/ops/scan_select.py:281",
-                 f"N={K2_ROWS} D=384 B={K2_BATCH} i8", qq, qs, codes, scales,
-                 count, rows, queries)
+    shapes = []
+    for N, live, B in ((K2_ROWS, count, K2_BATCH),
+                       *((NODE_CAPACITY, NODE_PAGES, b) for b in SMALL_BATCHES),
+                       *((K2_ROWS, count, b) for b in SMALL_BATCHES)):
+        qq, qs = ss.quantize_queries(queries[:B])
+        shapes.append(check_select(
+            "k2", "select_i8", f"N={N} count={live} D=384 B={B} i8", qq, qs,
+            codes[:N], scales[:N], live, rows[:N], queries[:B],
+            timer=cuda_ms if B == K2_BATCH else graph_ms))
+    results.append(select_entry("select_i8",
+                                "dawnsearch_tpu/ops/scan_select.py:281",
+                                shapes))
+
+
+def select_entry(name: str, replaces: str, shapes: list) -> dict:
+    """A select variant's kernels-line entry: its first shape's numbers,
+    the others beside them."""
+    return {"name": name, "route": "cuda",
+            "source": "dawnsearch_tpu_torch/csrc/scan_select.cu",
+            "replaces": replaces, **shapes[0], "other_shapes": shapes[1:]}
 
 
 def select_bound(q, qs, codes, scales, count: int) -> dict:
@@ -974,11 +1165,11 @@ def reranked_top(vals, ids, rows, queries, k: int = 10) -> torch.Tensor:
     return torch.gather(cand, 1, torch.topk(exact, k, dim=1).indices)
 
 
-def check_select(results: list, phase: str, name: str, replaces: str,
-                 shape: str, q, qs, codes, scales, count: int, rows,
-                 queries) -> None:
+def check_select(phase: str, name: str, shape: str, q, qs, codes, scales,
+                 count: int, rows, queries, timer=cuda_ms) -> dict:
     """One select variant vs its plain twin on the same inputs: bit-equal
-    for i8 queries, within the bf16 tolerance otherwise; both timed."""
+    for i8 queries, within the bf16 tolerance otherwise; both timed with
+    `timer`. Returns the shape's row of the kernels line."""
     from dawnsearch_tpu_torch.ops import scan_select as ss
     vals, ids = ss.select_candidates(q, qs, codes, scales, count)
     pvals, pids = ss.select_candidates_plain(q, qs, codes, scales, count)
@@ -1001,19 +1192,18 @@ def check_select(results: list, phase: str, name: str, replaces: str,
                  f"{share:.6f} (bound {BF16_ID_SHARE}) re-ranked top-10 "
                  f"equal={top_equal}")
     del pvals, pids
-    ms = cuda_ms(lambda: ss.select_candidates(q, qs, codes, scales, count))
-    plain_ms = cuda_ms(lambda: ss.select_candidates_plain(q, qs, codes,
-                                                          scales, count))
+    ms = timer(lambda: ss.select_candidates(q, qs, codes, scales, count))
+    plain_ms = timer(lambda: ss.select_candidates_plain(q, qs, codes,
+                                                        scales, count))
     bd = select_bound(q, qs, codes, scales, count)
-    say(f"phase {phase} {name} {shape}: {agree}; kernel {ms:.3f} ms plain "
-        f"{plain_ms:.3f} ms bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    say(f"phase {phase} {name} {shape}: {agree}; kernel {ms:.4f} ms plain "
+        f"{plain_ms:.3f} ms bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})"
+        f"{' (device time)' if timer is graph_ms else ''}")
     if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version")
-    results.append({"name": name, "route": "cuda",
-                    "source": "dawnsearch_tpu_torch/csrc/scan_select.cu",
-                    "replaces": replaces, "shape": shape,
-                    "max_abs_err": err, "ids_equal_share": share, "ms": ms,
-                    "plain_ms": plain_ms, **bd, "library_ms": None})
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{shape}")
+    return {"shape": shape, "max_abs_err": err, "ids_equal_share": share,
+            "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
 
 
 def phase_k3(results: list) -> None:
@@ -1028,14 +1218,22 @@ def phase_k3(results: list) -> None:
     write_rows_i4(codes, vals, 0)
     del vals
     count = K2_ROWS - 1000
-    qq, qs = ss.quantize_queries(queries)
-    shape = f"N={K2_ROWS} D=384 B={K2_BATCH} i4"
-    check_select(results, "k3", "select_i4",
-                 "dawnsearch_tpu/ops/scan_select.py:221", shape, qq, qs,
-                 codes, scales, count, rows, queries)
-    check_select(results, "k3", "select_i4_qbf16",
-                 "dawnsearch_tpu/ops/scan_select.py:221", shape + " qi8=False",
-                 queries.bfloat16(), None, codes, scales, count, rows, queries)
+    shapes = []
+    for N, live, B in ((K2_ROWS, count, K2_BATCH),
+                       *((NODE_CAPACITY, NODE_PAGES, b) for b in SMALL_BATCHES)):
+        qq, qs = ss.quantize_queries(queries[:B])
+        shapes.append(check_select(
+            "k3", "select_i4", f"N={N} count={live} D=384 B={B} i4", qq, qs,
+            codes[:N // 2], scales[:N], live, rows[:N], queries[:B],
+            timer=cuda_ms if B == K2_BATCH else graph_ms))
+    results.append(select_entry("select_i4",
+                                "dawnsearch_tpu/ops/scan_select.py:221",
+                                shapes))
+    shape = f"N={K2_ROWS} D=384 B={K2_BATCH} i4 qi8=False"
+    results.append(select_entry(
+        "select_i4_qbf16", "dawnsearch_tpu/ops/scan_select.py:221",
+        [check_select("k3", "select_i4_qbf16", shape, queries.bfloat16(),
+                      None, codes, scales, count, rows, queries)]))
 
 
 def phase_k2bf16(results: list) -> None:
@@ -1046,15 +1244,17 @@ def phase_k2bf16(results: list) -> None:
     queries = _unit_rows(K2_BATCH, g, dev)
     count = K2_ROWS - 1000
     qb = queries.bfloat16()
-    check_select(results, "k2bf16", "select_bf16",
-                 "dawnsearch_tpu/ops/scan_select.py:281",
-                 f"N={K2_ROWS} D=384 B={K2_BATCH} bf16", qb, None,
-                 rows.bfloat16(), None, count, rows, queries)
+    results.append(select_entry(
+        "select_bf16", "dawnsearch_tpu/ops/scan_select.py:281",
+        [check_select("k2bf16", "select_bf16",
+                      f"N={K2_ROWS} D=384 B={K2_BATCH} bf16", qb, None,
+                      rows.bfloat16(), None, count, rows, queries)]))
     codes, scales = quantize_rows_i8(rows)
-    check_select(results, "k2bf16", "select_i8_qbf16",
-                 "dawnsearch_tpu/ops/scan_select.py:281",
-                 f"N={K2_ROWS} D=384 B={K2_BATCH} i8 qi8=False", qb, None,
-                 codes, scales, count, rows, queries)
+    results.append(select_entry(
+        "select_i8_qbf16", "dawnsearch_tpu/ops/scan_select.py:281",
+        [check_select("k2bf16", "select_i8_qbf16",
+                      f"N={K2_ROWS} D=384 B={K2_BATCH} i8 qi8=False", qb,
+                      None, codes, scales, count, rows, queries)]))
 
 
 def _ragged(rng: np.random.Generator, B: int, S: int, dev):
@@ -1915,7 +2115,7 @@ def main(argv=None) -> int:
         r["launches_node"] = node_counts.get(counter)
         r["launches_ops"] = ops_counts.get(counter)
         if r["name"] == "select_i4" and scale:
-            r["other_shapes"] = scale
+            r["other_shapes"] = r.get("other_shapes", []) + scale
     say(json.dumps({"kernels": results}))
     say(dev["smi"])
     if full:

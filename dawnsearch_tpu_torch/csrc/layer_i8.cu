@@ -22,8 +22,10 @@
 // anyway: x is read as f32, qkv is kept in f32, the attention takes f32
 // q, k, v with p unrounded, and y is written in f32.
 //
-// Weights Wq are (K, N) row-major i8 codes with per-column f32 scales ws,
-// quantized once from the f32 parameters (ops/layer.py::quant_cols). GELU
+// Weights are i8 codes with per-column f32 scales ws, quantized once from
+// the f32 parameters (ops/layer.py::quant_cols) and laid out (N, K), the
+// transpose of the reference's (K, N), when the model is built
+// (ops/layer.py::i8_weight): 8-bit wgmma reads both operands K-major. GELU
 // uses the reference's A&S 7.1.26 erf polynomial (ops/layer.py:53-59).
 // Every dequant and epilogue step is written with __fmul_rn / __fadd_rn in
 // the reference's order, so nvcc cannot contract an FMA the reference does
@@ -31,42 +33,72 @@
 // (ops/layer.py::bert_layer_i8_plain) wherever the activation codes agree.
 //
 // Design. The TPU kernel keeps a row block and every intermediate in VMEM;
-// here the layer is nine launches on one stream, issued by one C call
+// here the layer is seven launches on one stream, issued by one C call
 // (dawn_bert_layer_i8):
-//   quant_rows   x (dt) -> aq, row factor s·(1/127)          one warp a row
-//   gemm<QKV>    aq·Wqkv -> dequant + b -> qkv (M, 3H) dt
+//   quant_rows   x (dt) -> codes, row factor s·(1/127)        one warp a row
+//   gemm<QKV>    codes·Wqkv -> dequant + b -> qkv (M, 3H) dt
 //   attention    dawn_attention (csrc/attention.cu, fixed_order: the
 //                fixed-order kernel, f32 out), q, k, v as column views
 //                of qkv -> ctx (M, H) f32
-//   quant_rows   ctx -> aq;  gemm<LN>  aq·Wo -> dequant + bo + x -> LN -> x1
-//   quant_rows   x1  -> aq;  gemm<GELU> aq·W1 -> dequant + b1 -> GELU -> h
-//   quant_rows   h   -> aq;  gemm<LN>  aq·W2 -> dequant + b2 + x1 -> LN -> y
-// The GEMM is K1's shape (csrc/layer.cu) on the s8 tensor cores: WMMA
-// 16x16x16 signed char with int accumulators, 64x128 output tiles (32 whole
-// rows for the LayerNorm epilogues, which walk every 128-column chunk of N
-// and keep the s32 row block in shared memory), 256 threads as 2 x 4 warps,
-// k-depth 64 per stage. Shared tiles are stored as 16-byte k-slabs
-// ([slab][row][16]) so every WMMA fragment starts on a 256-byte boundary.
+//   quant_rows   ctx -> codes, row factors
+//   gemm<LN>     codes·Wo -> dequant + bo + x -> LN -> x1 (M, H) f32, and
+//                x1's codes and factors (QOUT)
+//   gemm<GELU>   x1 codes·W1 -> dequant + b1 -> GELU -> h (M, I) f32, and
+//                each row's absmax over each 128 columns (PART)
+//   gemm<LN>     quantize h (QA) · W2 -> dequant + b2 + x1 -> LN -> y
+// The four projections are csrc/gemm.cuh's TMA + wgmma kernel, K1's, with
+// its s8 mainloop: wgmma.m64n128k32 on the s8 tensor cores, 128-deep
+// stages of 32 KB at BM = 128 (A and the (N, K) codes under the 128-byte
+// swizzle), a producer warp keeping three to four stages in flight. Both
+// LayerNorm GEMMs run over a thread-block cluster of N / 128 CTAs that
+// holds whole rows, as K1's: at a B = 1 query (M = 128) that is 2·H/128
+// CTAs, not the one CTA a 32-row block of the first version had.
+// Registers per thread (-Xptxas -v, sm_90a, CUDA 12.8; chip_smoke.py phase
+// build prints them): 96-99 for the QKV and GELU GEMMs, 128-161 for the
+// LayerNorm ones; no spills. Shared memory: 96 KB of ring a CTA (two an
+// SM), as K1's bf16 GEMM.
+//
+// Which activation quantizations are fused, and why. Each needs its row's
+// absmax before any code is written:
+//   x1   in the attention-out LayerNorm epilogue (QOUT): the cluster holds
+//        whole rows, and their absmax is gathered through distributed
+//        shared memory like the LayerNorm's sums. One launch and one read
+//        of x1 fewer.
+//   h    split over the two GEMMs around it: the GELU epilogue leaves each
+//        row's absmax over its 128 columns (the GEMM's N = I needs 12-32
+//        CTAs a row, past the 16-CTA cluster limit, so it cannot gather
+//        them), and the FFN-out GEMM's prologue (QA) takes their max and
+//        writes the codes, each CTA of its cluster reading its K / cx of
+//        the columns once, then a proxy fence and a cluster barrier put
+//        them before the TMA loads that read them. One launch and one
+//        read of h fewer than quant_rows: on the card it beats a
+//        quant_rows launch plus the GEMM from codes at M >= 4096 and
+//        trails them by ~5 µs at M = 128, where its loads' latency shows
+//        (PERF.md §6).
+//   ctx  keeps its quant_rows launch: quantized in the attention-out GEMM's
+//        prologue it read slower than the launch (PERF.md §6), and the
+//        attention kernel, which holds K4 to its twin, stays as it is.
+//   x    keeps its quant_rows launch: the QKV GEMM's N = 3H needs 9-24
+//        CTAs a row block, and x is the layer's input.
+// Every one is quant_rows_kernel's arithmetic, so the codes are the same.
 //
 // What bounds it. The four projections are ~96% of the layer's operations
 // at MiniLM width and more at BERT-base; at 1,979 int8 TOP/s they take half
-// the bf16 time. This first version stages tiles synchronously (no
-// cp.async / TMA ring, no wgmma) and makes one HBM round trip for every
-// intermediate, in f32 where the reference keeps f32 (ctx, x1, h), plus the
-// four activation quantizations: about M·(12H + 10I) bytes beyond K1's per
-// layer. Fusing the quantization into the producing epilogue and a wgmma
-// pipeline are later work.
+// the bf16 time. The attention stays the fixed-order CUDA-core kernel,
+// whose summation order the twin repeats: each i8 re-quantization
+// amplifies a one-ulp difference, so it is what holds K4 to its twin and
+// what now takes most of K4's time at S >= 128 (a third at S = 128, two
+// thirds at S = 512). Intermediates qkv (dt), ctx, x1 and h (f32, as the
+// reference keeps them) and the codes of x, ctx, x1 and h make one HBM
+// round trip each: about M·(12H + 9I) bytes a layer beyond K1's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "gemm.cuh"
 
 extern "C" int dawn_attention(const void* q, const void* k, const void* v,
                               const void* bias, const void* rel, void* out,
@@ -78,26 +110,8 @@ extern "C" int dawn_attention(const void* q, const void* k, const void* v,
 
 namespace {
 
-constexpr int BN = 128;                 // GEMM output columns per tile
-constexpr int BK = 64;                  // GEMM depth per stage (bytes of i8)
-constexpr int KS = BK / 16;             // 16-deep k-slabs per stage
-constexpr int NS = BN / 16;             // 16-wide column slabs of B
-constexpr int B_SLAB = BK * 16 + 64;    // bytes per B slab (+64: no conflicts)
-constexpr int THREADS = 256;            // 8 warps, 2 (M) x 4 (N)
-constexpr int QUANT_ROWS = THREADS / 32;
-
-constexpr int EPI_QKV = 0;              // + b -> bf16
-constexpr int EPI_GELU = 1;             // + b -> GELU -> f32
-constexpr int EPI_LN = 2;               // + b + resid -> LayerNorm
-
-constexpr float INV127 = 1.0f / 127.0f;  // f32(1/127), as the reference folds it
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+constexpr int QUANT_THREADS = 256;
+constexpr int QUANT_ROWS = QUANT_THREADS / 32;
 
 // four consecutive elements (16-byte aligned for f32, 8-byte for bf16)
 __device__ __forceinline__ void load4(const float* p, float* v) {
@@ -111,15 +125,10 @@ __device__ __forceinline__ void load4(const bf16* p, float* v) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
-// (f32(acc) · row factor) · column scale + bias
-__device__ __forceinline__ float dequant(int acc, float rf, float ws, float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rf), ws), b);
-}
-
 // Per-row symmetric i8 quantization of (M, K) activations: one warp a row,
 // K % 128 == 0. Writes the codes and the row factor s·f32(1/127).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(QUANT_THREADS)
 quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                   float* __restrict__ rf, int M, int K) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -140,179 +149,69 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
     float v[4];
     load4(xr + c, v);
     char4 o;
-    o.x = (signed char)__float2int_rn(__fmul_rn(v[0], r));
-    o.y = (signed char)__float2int_rn(__fmul_rn(v[1], r));
-    o.z = (signed char)__float2int_rn(__fmul_rn(v[2], r));
-    o.w = (signed char)__float2int_rn(__fmul_rn(v[3], r));
+    o.x = quant(v[0], r);
+    o.y = quant(v[1], r);
+    o.z = quant(v[2], r);
+    o.w = quant(v[3], r);
     *reinterpret_cast<char4*>(qr + c) = o;
   }
   if (lane == 0) rf[row] = __fmul_rn(s, INV127);
 }
 
-size_t gemm_smem_bytes(int bm, int epi, int N) {
-  const int ldc = (epi == EPI_LN ? N : BN) + 4;
-  return align128((size_t)KS * bm * 16) + align128((size_t)NS * B_SLAB) +
-         (size_t)bm * ldc * sizeof(int);
-}
-
-// out = epilogue(dequant(Aq (M,K) · Wq (K,N))). Row-major i8 operands.
-// EPI_LN: grid.x == 1 and the CTA covers all N columns of its BM rows;
-// resid is R (M, N), the output O. Otherwise out is O (M, N).
-template <int BM, int EPI, typename R, typename O>
-__global__ void __launch_bounds__(THREADS)
-gemm_i8_kernel(const int8_t* __restrict__ A, const float* __restrict__ rf,
-               const int8_t* __restrict__ W, const float* __restrict__ ws,
-               const float* __restrict__ bias, const R* __restrict__ resid,
-               const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-               O* __restrict__ out, int M, int N, int K, float eps) {
-  constexpr int FM = BM / 32;          // 16-row fragments per warp
-  constexpr int FN = 2;                // warp tile is (BM/2) x 32
-  extern __shared__ __align__(128) unsigned char smem[];
-  signed char* As = reinterpret_cast<signed char*>(smem);   // [KS][BM][16]
-  signed char* Bs = reinterpret_cast<signed char*>(
-      smem + align128((size_t)KS * BM * 16));                // [NS][B_SLAB]
-  int* Cs = reinterpret_cast<int*>(
-      smem + align128((size_t)KS * BM * 16) + align128((size_t)NS * B_SLAB));
-  const int ldc = (EPI == EPI_LN ? N : BN) + 4;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM;
-  const int n_begin = (EPI == EPI_LN) ? 0 : blockIdx.x * BN;
-  const int n_end = (EPI == EPI_LN) ? N : n_begin + BN;
-
-  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[FM][FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      // A: 16 bytes of one row's k-slab per thread (four threads read one
-      // row's 64 contiguous bytes; eight rows fill one 128-byte line of a slab)
-      for (int idx = tid; idx < BM * KS; idx += THREADS) {
-        const int r = idx / KS, ks = idx % KS;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M)
-          v = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 +
-                                              ks * 16);
-        *reinterpret_cast<uint4*>(As + (ks * BM + r) * 16) = v;
-      }
-      // B: 16 columns of one k-row per thread (eight threads read a row's
-      // 128 contiguous bytes)
-      for (int idx = tid; idx < BK * NS; idx += THREADS) {
-        const int r = idx / NS, ns = idx % NS;
-        *reinterpret_cast<uint4*>(Bs + ns * B_SLAB + r * 16) =
-            *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N + n0 +
-                                            ns * 16);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                       wmma::row_major> af[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                       wmma::row_major> bfr[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(
-              af[i], As + (ks * BM + wm * FM * 16 + i * 16) * 16, 16);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(
-              bfr[j], Bs + (wn * 2 + j) * B_SLAB + ks * 16 * 16, 16);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j)
-            wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    const int cbase = (EPI == EPI_LN) ? n0 : 0;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(
-            Cs + (wm * FM * 16 + i * 16) * ldc + cbase + wn * 32 + j * 16,
-            acc[i][j], ldc, wmma::mem_row_major);
-
-    if (EPI != EPI_LN) {
-      __syncthreads();
-      for (int idx = tid; idx < BM * BN; idx += THREADS) {
-        const int r = idx / BN, c = idx % BN;
-        if (m0 + r >= M) continue;
-        float v = dequant(Cs[r * ldc + c], rf[m0 + r], ws[n0 + c],
-                          bias[n0 + c]);
-        if (EPI == EPI_GELU) v = gelu_as(v);
-        store(out + (size_t)(m0 + r) * N + n0 + c, v);
-      }
-    }
-  }
-
-  if (EPI == EPI_LN) {
-    __syncthreads();
-    for (int r = warp; r < BM; r += THREADS / 32) {
-      if (m0 + r >= M) continue;  // warp-uniform
-      int* row = Cs + r * ldc;
-      const float rfr = rf[m0 + r];
-      const R* xr = resid + (size_t)(m0 + r) * N;
-      float sum = 0.0f;
-      for (int c = lane; c < N; c += 32) {
-        const float v = __fadd_rn(dequant(row[c], rfr, ws[c], bias[c]),
-                                  to_f32(xr[c]));
-        row[c] = __float_as_int(v);
-        sum += v;
-      }
-      const float mean = warp_sum(sum) / N;
-      float sq = 0.0f;
-      for (int c = lane; c < N; c += 32) {
-        const float d = __int_as_float(row[c]) - mean;
-        sq += d * d;
-      }
-      const float rstd = rsqrtf(warp_sum(sq) / N + eps);
-      O* orow = out + (size_t)(m0 + r) * N;
-      for (int c = lane; c < N; c += 32) {
-        const float d = __fmul_rn(__fsub_rn(__int_as_float(row[c]), mean), rstd);
-        store(orow + c, __fadd_rn(__fmul_rn(d, ln_s[c]), ln_b[c]));
-      }
-    }
-  }
-}
-
 template <typename T>
 cudaError_t quant_rows(const T* x, int8_t* q, float* rf, int M, int K,
                        cudaStream_t s) {
-  quant_rows_kernel<T><<<(M + QUANT_ROWS - 1) / QUANT_ROWS, THREADS, 0, s>>>(
-      x, q, rf, M, K);
+  quant_rows_kernel<T><<<(M + QUANT_ROWS - 1) / QUANT_ROWS, QUANT_THREADS, 0,
+                         s>>>(x, q, rf, M, K);
   return cudaGetLastError();
 }
 
-template <int BM, int EPI, typename R, typename O>
-cudaError_t gemm(const int8_t* a, const float* rf, const void* wq,
-                 const void* ws, const void* bias, const R* resid,
-                 const void* ln_s, const void* ln_b, O* out, int M, int N,
-                 int K, float eps, cudaStream_t s) {
-  const size_t smem = gemm_smem_bytes(BM, EPI, N);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_i8_kernel<BM, EPI, R, O>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(EPI == EPI_LN ? 1 : N / BN, (M + BM - 1) / BM);
-  gemm_i8_kernel<BM, EPI, R, O><<<grid, THREADS, smem, s>>>(
-      a, rf, static_cast<const int8_t*>(wq), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), resid,
-      static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), out,
-      M, N, K, eps);
-  return cudaGetLastError();
+// One of K4's four projections with activations of type T (x, qkv, y),
+// as the layer runs it: epi 0 the QKV GEMM (codes a, factors rf; out T);
+// 1 the GELU GEMM (codes a, rf; out f32, each row's absmax over each 128
+// columns into the (M, N / 128) part); 2 with q_out the attention-out
+// LayerNorm GEMM (codes a, rf; resid T, out f32, its rows' codes and
+// factors into q_out / rf_out); 2 with a32 the FFN-out one (the f32 A
+// quantized into `a` first, its row absmax from the (M, K / 128) part;
+// resid f32, out T). launch_gemm refuses any other combination.
+template <typename T>
+cudaError_t i8_gemm(int epi, void* a, const void* rf, const void* a32,
+                    void* part, const void* w, const void* ws,
+                    const void* bias, const void* resid, const void* ln_s,
+                    const void* ln_b, void* out, void* q_out, void* rf_out,
+                    int M, int N, int K, float eps, cudaStream_t s) {
+  if ((a32 == nullptr) == (rf == nullptr) ||
+      (q_out == nullptr) != (rf_out == nullptr))
+    return cudaErrorInvalidValue;
+  GemmArgs g = {};
+  g.bias = static_cast<const float*>(bias);
+  g.resid = resid;
+  g.ln_s = static_cast<const float*>(ln_s);
+  g.ln_b = static_cast<const float*>(ln_b);
+  g.out = out;
+  g.rf = static_cast<const float*>(rf);
+  g.ws = static_cast<const float*>(ws);
+  g.a32 = static_cast<const float*>(a32);
+  g.aq = static_cast<int8_t*>(a);
+  g.part = static_cast<float*>(part);
+  g.q_out = static_cast<int8_t*>(q_out);
+  g.rf_out = static_cast<float*>(rf_out);
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.eps = eps;
+  if (epi == EPI_BIAS)
+    return launch_gemm_bm<EPI_BIAS, int8_t, T, T>(a, w, nullptr, g, s);
+  if (epi == EPI_GELU)
+    return launch_gemm_bm<EPI_GELU, int8_t, float, float>(a, w, nullptr, g, s);
+  if (epi != EPI_LN) return cudaErrorInvalidValue;
+  if (q_out != nullptr)
+    return launch_gemm_bm<EPI_LN, int8_t, T, float>(a, w, nullptr, g, s);
+  return launch_gemm_bm<EPI_LN, int8_t, float, T>(a, w, nullptr, g, s);
 }
 
-// dawn_bert_layer_i8's nine launches with activations of type T (x, qkv, y)
+// dawn_bert_layer_i8's seven launches with activations of type T (x, qkv,
+// y)
 template <typename T>
 int layer_i8(const void* const* p, int B, int S, int H, int nh, int I,
              float eps, void* stream) {
@@ -320,67 +219,96 @@ int layer_i8(const void* const* p, int B, int S, int H, int nh, int I,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * S;
   const T* x = static_cast<const T*>(p[0]);
-  int8_t* aq = static_cast<int8_t*>(const_cast<void*>(p[19]));
+  void* aq = const_cast<void*>(p[19]);
   float* rf = static_cast<float*>(const_cast<void*>(p[20]));
   T* qkv = static_cast<T*>(const_cast<void*>(p[21]));
   float* f = static_cast<float*>(const_cast<void*>(p[22]));
-  float* x1 = static_cast<float*>(const_cast<void*>(p[23]));
-  T* y = static_cast<T*>(const_cast<void*>(p[18]));
+  void* x1 = const_cast<void*>(p[23]);
+  void* aq1 = const_cast<void*>(p[25]);
+  void* rf1 = const_cast<void*>(p[26]);
+  void* hpart = const_cast<void*>(p[27]);
+  void* y = const_cast<void*>(p[18]);
+  int8_t* codes = static_cast<int8_t*>(aq);
   const float scale = (float)(1.0 / sqrt((double)hd));
   const int in_f32 = sizeof(T) == sizeof(float);
   cudaError_t e;
-  if ((e = quant_rows(x, aq, rf, M, H, s))) return (int)e;
-  if ((e = gemm<64, EPI_QKV, float, T>(aq, rf, p[2], p[3], p[4], nullptr,
-                                       nullptr, nullptr, qkv, M, 3 * H, H, eps,
-                                       s)))
+  if ((e = quant_rows(x, codes, rf, M, H, s))) return (int)e;
+  if ((e = i8_gemm<T>(EPI_BIAS, aq, rf, nullptr, nullptr, p[2], p[3], p[4],
+                      nullptr, nullptr, nullptr, qkv, nullptr, nullptr, M,
+                      3 * H, H, eps, s)))
     return (int)e;
   const long long S3H = 3LL * S * H, SH = (long long)S * H;
   int ae = dawn_attention(qkv, qkv + H, qkv + 2 * H, p[1], p[24], f, B, nh,
                           S, hd, S3H, hd, 3 * H, SH, hd, H, scale, 1, in_f32,
                           1, stream);
   if (ae) return ae;
-  if ((e = quant_rows<float>(f, aq, rf, M, H, s))) return (int)e;
-  if ((e = gemm<32, EPI_LN, T, float>(aq, rf, p[5], p[6], p[7], x, p[8],
-                                      p[9], x1, M, H, H, eps, s)))
+  if ((e = quant_rows<float>(f, codes, rf, M, H, s))) return (int)e;
+  if ((e = i8_gemm<T>(EPI_LN, aq, rf, nullptr, nullptr, p[5], p[6], p[7], x,
+                      p[8], p[9], x1, aq1, rf1, M, H, H, eps, s)))
     return (int)e;
-  if ((e = quant_rows<float>(x1, aq, rf, M, H, s))) return (int)e;
-  if ((e = gemm<64, EPI_GELU, float, float>(aq, rf, p[10], p[11], p[12],
-                                            nullptr, nullptr, nullptr, f, M, I,
-                                            H, eps, s)))
+  if ((e = i8_gemm<T>(EPI_GELU, aq1, rf1, nullptr, hpart, p[10], p[11],
+                      p[12], nullptr, nullptr, nullptr, f, nullptr, nullptr,
+                      M, I, H, eps, s)))
     return (int)e;
-  if ((e = quant_rows<float>(f, aq, rf, M, I, s))) return (int)e;
-  return (int)gemm<32, EPI_LN, float, T>(aq, rf, p[13], p[14], p[15], x1,
-                                         p[16], p[17], y, M, H, I, eps, s);
+  return (int)i8_gemm<T>(EPI_LN, aq, nullptr, f, hpart, p[13], p[14], p[15],
+                         x1, p[16], p[17], y, nullptr, nullptr, M, H, I, eps,
+                         s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One BERT layer with W8A8 projections (K4). p holds 25 device pointers:
+// One BERT layer with W8A8 projections (K4). p holds 28 device pointers:
 //   0 x (B·S, H) dt          1 bias (B, S) f32 additive key bias
-//   2 qkv_wq (H, 3H) i8      3 qkv_ws (3H) f32   4 qkv_b (3H) f32
+//   2 qkv_wq (3H, H) i8      3 qkv_ws (3H) f32   4 qkv_b (3H) f32
 //   5 ao_wq (H, H) i8        6 ao_ws (H)         7 ao_b (H)
 //   8 aln_s (H)              9 aln_b (H)
-//  10 w1q (H, I) i8         11 w1s (I)          12 b1 (I)
-//  13 w2q (I, H) i8         14 w2s (H)          15 b2 (H)
+//  10 w1q (I, H) i8         11 w1s (I)          12 b1 (I)
+//  13 w2q (H, I) i8         14 w2s (H)          15 b2 (H)
 //  16 fln_s (H)             17 fln_b (H)
 //  18 y (B·S, H) dt, the output
 //  scratch, with W = max(H, I):
 //          19 aq (B·S, W) i8   20 rf (B·S) f32   21 qkv (B·S, 3H) dt
 //          22 f (B·S, W) f32 (ctx, then h)       23 x1 (B·S, H) f32
 //  24 rel (nh, S, S) f32 shared score bias (MPNet's rel_bias), or null
-// dt is bf16, or f32 when f32 != 0. Needs H = nh·hd with hd <= 128,
-// H % 128 == 0, I % 128 == 0, S % 16 == 0, S <= 512, 16-byte aligned
-// pointers. Returns a cudaError_t.
+//  scratch: 25 x1's codes (B·S, H) i8           26 x1's factors (B·S) f32
+//           27 h's absmax over each 128 columns (B·S, I / 128) f32
+// Weight codes are (N, K): the transpose of the reference's (in, out). dt
+// is bf16, or f32 when f32 != 0. Needs H = nh·hd with hd <= 128,
+// H % 128 == 0, H <= 2048, I % 128 == 0, S % 16 == 0, S <= 512, 16-byte
+// aligned pointers. Returns a cudaError_t.
 int dawn_bert_layer_i8(const void* const* p, int B, int S, int H, int nh,
                        int I, float eps, int f32, void* stream) {
   const int hd = nh > 0 ? H / nh : 0;
   if (B <= 0 || nh <= 0 || hd * nh != H || hd > 128 || H % 128 != 0 ||
-      I % 128 != 0 || S <= 0 || S % 16 != 0 || S > 512)
+      H > 2048 || I % 128 != 0 || S <= 0 || S % 16 != 0 || S > 512)
     return (int)cudaErrorInvalidValue;
   return f32 ? layer_i8<float>(p, B, S, H, nh, I, eps, stream)
              : layer_i8<bf16>(p, B, S, H, nh, I, eps, stream);
+}
+
+// One of K4's projections alone, in one of the four forms the layer runs
+// (i8_gemm above): epi 0 QKV, 1 GELU (part receives h's partial absmax),
+// 2 the attention-out LayerNorm (q_out / rf_out) or the FFN-out one (a32
+// and its (M, K / 128) partial absmax `part`, quantized into a first).
+// w the (N, K) codes, ws and bias (N,) f32; rf the factors of the codes
+// a where a32 is null. f32 picks dt. Needs N % 128 == 0 (N <= 2048 for
+// epi 2), K % 128 == 0, 16-byte aligned pointers. Returns a cudaError_t.
+int dawn_i8_gemm(void* a, const void* rf, const void* a32, void* part,
+                 const void* w, const void* ws, const void* bias,
+                 const void* resid, const void* ln_s, const void* ln_b,
+                 void* out, void* q_out, void* rf_out, int M, int N, int K,
+                 int epi, int f32, float eps, void* stream) {
+  if (M <= 0 || N <= 0 || N % BN != 0 || K <= 0 || K % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? (int)i8_gemm<float>(epi, a, rf, a32, part, w, ws, bias, resid,
+                                   ln_s, ln_b, out, q_out, rf_out, M, N, K,
+                                   eps, s)
+             : (int)i8_gemm<bf16>(epi, a, rf, a32, part, w, ws, bias, resid,
+                                  ln_s, ln_b, out, q_out, rf_out, M, N, K, eps,
+                                  s);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
-// Inline-PTX wrappers for the Hopper (sm_90a) features the encoder kernels
-// use: mbarriers, TMA tile loads (cp.async.bulk.tensor), cp.async,
-// ldmatrix, mma.sync (bf16, and TF32 with the 3xTF32 split), wgmma
-// (shared-memory descriptors, bf16 and TF32 with A from registers, fence /
-// commit / wait) and thread-block-cluster barriers and distributed shared
-// memory.
+// Inline-PTX wrappers for the Hopper (sm_90a) features the encoder and
+// select kernels use: mbarriers, TMA tile loads (cp.async.bulk.tensor) and
+// the host-side encoding of their tensor maps, cp.async, ldmatrix,
+// mma.sync (bf16, s8, and TF32 with the 3xTF32 split), wgmma
+// (shared-memory descriptors, bf16 and s8 from shared memory, TF32 with A
+// from registers, fence / commit / wait), the generic-to-async proxy
+// fence, and thread-block-cluster barriers and distributed shared memory.
 // Raw PTX rather than CuTe: CuTe's headers turn a seconds-long nvcc build
 // into minutes, and every build counts against chip_smoke.py's time. Each
 // includer gets its own copy (internal linkage). <cuda.h> is included for
@@ -87,6 +88,67 @@ __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
                : "memory");
 }
 
+// orders this thread's generic-proxy global writes before later
+// async-proxy (TMA) reads of them, once a barrier has passed them on
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (CUDA 12.5 added the versioned lookup and deprecated the other).
+inline cudaError_t encode_tiled(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A row-major (rows, cols) matrix of `elem`-byte elements (4: f32, 2:
+// bf16, 1: bytes) as a 2-D tensor map of (box_rows, box_cols) boxes under
+// the 128-byte swizzle; out-of-bounds reads are 0. Needs a 16-byte aligned
+// base, rows of a multiple of 16 bytes and box_cols·elem <= 128.
+inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* base,
+                                 int elem, long long rows, long long cols,
+                                 int box_rows, int box_cols) {
+  EncodeTiledFn encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapDataType type =
+      elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // -- cp.async -----------------------------------------------------------------
 
 // 16 bytes global -> shared; src_bytes < 16 zero-fills the rest (0: all)
@@ -134,6 +196,21 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32, row) · b (32x8, col), s8 in, s32 accumulate (exact).
+// Lane (g = lane / 4, t = lane % 4) holds a = {A[g][4t..4t+3],
+// A[g+8][4t..], A[g][16+4t..], A[g+8][16+4t..]}, b = {B[4t..4t+3][g],
+// B[16+4t..][g]} and d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
+// The bytes of a are those of mma_bf16_16816's a over 32 bytes of k.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -224,6 +301,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // the same for A fragments held in registers: a wgmma reads them
@@ -319,6 +402,42 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
         "r"(accumulate));
 }
 
+// d (64 x 128, s32) += A (64 x 32, s8, K-major) · B (32 x 128, s8,
+// K-major: the (N, K) codes), both from shared memory; 8-bit wgmma has no
+// transpose bit. The s32 sums are exact.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // -- clusters -----------------------------------------------------------------
 
 // every thread of every CTA of the cluster; release / acquire orders the
@@ -343,6 +462,16 @@ __device__ __forceinline__ float ld_dsmem(const float* local, uint32_t rank) {
                : "=r"(remote)
                : "r"(smem_u32(local)), "r"(rank));
   asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote));
+  return v;
+}
+
+__device__ __forceinline__ int ld_dsmem(const int* local, uint32_t rank) {
+  uint32_t remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("ld.shared::cluster.s32 %0, [%1];" : "=r"(v) : "r"(remote));
   return v;
 }
 

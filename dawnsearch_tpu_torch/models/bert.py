@@ -31,9 +31,10 @@ pools over it (embedding_service.rs:126-128). The key mask is an additive
 Parameters never require gradients; encode_batch runs under
 torch.inference_mode(). Matrices are stored in the compute dtype, biases,
 LayerNorm parameters and embeddings in f32, as the reference casts them.
-A layer on K4's route stores its matrices only as i8 codes and f32
-per-column scales, quantized once from the f32 parameters (the reference
-quantizes the same f32 matrices on every call, ops/layer.py:344-347). A
+A layer on K4's route stores its matrices only as i8 codes, (out, in) as
+K4's s8 wgmma reads them, and f32 per-column scales, quantized once from
+the f32 parameters (the reference quantizes the same f32 matrices on
+every call, ops/layer.py:344-347). A
 layer on K1's route at f32 on a card stores each matrix only as the
 (W_hi, W_lo) pair K1's 3xTF32 GEMM reads (ops/layer.py::tf32_pair), made
 once here: twice the f32 matrices' memory.
@@ -52,7 +53,7 @@ from dawnsearch_tpu_torch.ops.attention import (fused_attention,
                                                 fused_mean_pool)
 from dawnsearch_tpu_torch.ops.ffn import fused_ffn
 from dawnsearch_tpu_torch.ops.layer import (fused_bert_layer,
-                                            fused_bert_layer_i8, quant_cols,
+                                            fused_bert_layer_i8, i8_weight,
                                             tf32_pair)
 from dawnsearch_tpu_torch.ops.vector import layer_norm, normalize
 
@@ -209,9 +210,10 @@ def _frozen(t, device, dtype=torch.float32) -> nn.Parameter:
 
 class BertLayer(nn.Module):
     """One post-LN layer's weights; forward is `_layer_fwd`. On K4's route
-    each matrix `m` is held only as `m_codes` (i8) and `m_scales` (f32
-    per column); on K1's route at f32 on a card only as `m_hi` and `m_lo`
-    (tf32_pair); otherwise in the compute dtype."""
+    each matrix `m` is held only as `m_codes` (i8, laid out (out, in) by
+    i8_weight) and `m_scales` (f32 per column); on K1's route at f32 on a
+    card only as `m_hi` and `m_lo` (tf32_pair); otherwise in the compute
+    dtype."""
 
     MATRICES = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
     VECTORS = ("qkv_b", "attn_out_b", "attn_ln_scale", "attn_ln_bias",
@@ -225,7 +227,7 @@ class BertLayer(nn.Module):
                    and torch.device(device).type == "cuda")
         for name in self.MATRICES:
             if route == "layer_i8":
-                codes, scales = quant_cols(torch.as_tensor(layer[name]).float())
+                codes, scales = i8_weight(torch.as_tensor(layer[name]).float())
                 setattr(self, name + "_codes", _frozen(codes, device, torch.int8))
                 setattr(self, name + "_scales", _frozen(scales, device))
             elif k1_tf32:
@@ -238,7 +240,7 @@ class BertLayer(nn.Module):
             setattr(self, name, _frozen(layer[name], device))
 
     def i8(self, name: str) -> tuple[torch.Tensor, torch.Tensor]:
-        """Matrix `name` as K4 takes it: (i8 codes, f32 scales)."""
+        """Matrix `name` as K4 takes it: (i8 codes (N, K), f32 scales)."""
         return getattr(self, name + "_codes"), getattr(self, name + "_scales")
 
     def k1(self, name: str):

@@ -142,8 +142,11 @@ def lib() -> ctypes.CDLL:
             cdll.dawn_bert_layer_i8.argtypes = [ctypes.POINTER(p), i, i, i, i,
                                                 i, f, i, p]
             cdll.dawn_bert_layer_i8.restype = i
+            cdll.dawn_i8_gemm.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
+                                          p, i, i, i, i, i, f, p]
+            cdll.dawn_i8_gemm.restype = i
             cdll.dawn_select.argtypes = [i, i, p, p, p, p, ll, p, p, i, ll,
-                                         i, p]
+                                         i, i, i, p]
             cdll.dawn_select.restype = i
             cdll.dawn_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, ll,
                                             ll, ll, ll, ll, ll, f, i, i, i, p]

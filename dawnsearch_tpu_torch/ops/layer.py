@@ -13,17 +13,19 @@ rounding point (ops/layer.py:115-154), with dt the compute dtype (x's):
                                               the A&S 7.1.26 erf polynomial)
 
 K4's (ops/layer.py:157-211) quantizes each projection's input per row
-(`s = max(rowabsmax, 1e-6)`, codes `round(a·(127/s))`), multiplies the i8
-codes with i8 weight codes exactly, and scales back
+(`s = max(rowabsmax, 1e-6)`, codes `round(a·(127/s))`: `quant_rows`),
+multiplies the i8 codes with i8 weight codes exactly, and scales back
 `f32(acc)·(s·f32(1/127))·ws`. qkv is rounded to the compute dtype; the
 attention context, x1 and h stay f32; GELU uses the A&S 7.1.26 erf
 polynomial. K4's attention sums in one fixed order
 (`attention_f32_plain`), which its kernel follows. Weights are quantized
-once per column from the f32 parameters (`quant_cols`); the wrappers take
-each matrix as its (codes, scales) pair.
+once per column from the f32 parameters (`quant_cols`) and laid out
+(out, in) when the model is built (`i8_weight`): the kernel's s8 wgmma
+reads both operands K-major. K4 and its twin take each matrix as that
+(codes (N, K), scales (N,)) pair.
 
 `fused_bert_layer` launches csrc/layer.cu's GEMMs and csrc/attention.cu's
-attention (five launches), `fused_bert_layer_i8` csrc/layer_i8.cu (nine
+attention (five launches), `fused_bert_layer_i8` csrc/layer_i8.cu (seven
 launches from one C call), for a CUDA tensor; each runs its plain twin
 (`bert_layer_plain`, `bert_layer_i8_plain`) for a CPU tensor. There is no
 fallback between the two: a CUDA input a kernel does not take raises. On
@@ -66,6 +68,7 @@ launches = {f"kernel_bert_layer{k}{r}{f}": 0 for k in ("", "_i8")
             for r in ("", "_rel") for f in ("", "_f32")}
 
 MAX_SEQ = 512
+MAX_LN_WIDTH = 2048   # H <= 16·128: the LayerNorm GEMMs' cluster limit
 INV127 = 1.0 / 127.0  # folded to f32(1/127) in f32 products, as the reference
 
 
@@ -283,16 +286,41 @@ def quant_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(w / s).to(torch.int8), s
 
 
-def _mm_i8(a32: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
-           ) -> torch.Tensor:
-    """(M, K) f32 @ per-column i8 weights -> (M, N) f32, the reference's
-    _mm_i8 (ops/layer.py:157-172). The i8 product is taken in f64, which
-    is exact here (|acc| <= 127²·K < 2^53) on the CPU and on CUDA, and
-    rounded to f32 once, as s32 -> f32 rounds."""
+def i8_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, N) f32 weights -> (i8 codes (N, K) contiguous, f32 scales
+    (N,)): quant_cols with the codes transposed, the form K4 and its twin
+    take (the kernel's s8 wgmma reads both operands K-major). Made once
+    when a model is built; no (K, N) copy is kept."""
+    codes, scales = quant_cols(w)
+    return codes.t().contiguous(), scales
+
+
+def quant_rows(a32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) f32 activations -> (i8 codes (M, K), f32 row factors (M,)):
+    s = max(row absmax, 1e-6), codes = round(a·(127/s)) half to even,
+    factor s·f32(1/127); the reference's _mm_i8 quantization
+    (ops/layer.py:157-172) and the twin of csrc/layer_i8.cu's
+    quant_rows_kernel."""
     s = a32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
     aq = torch.round(a32 * torch.div(torch.full_like(s, 127.0), s))
-    acc = (aq.double() @ wq.double()).float()
-    return acc * (s * INV127) * ws.float()
+    return aq.to(torch.int8), (s * INV127).reshape(-1)
+
+
+def _mm_codes(aq: torch.Tensor, rf: torch.Tensor, wq: torch.Tensor,
+              ws: torch.Tensor) -> torch.Tensor:
+    """(M, K) i8 codes with row factors rf @ the (N, K) weight codes ->
+    (M, N) f32 `(f32(acc)·rf)·ws`. The i8 product is taken in f64, which
+    is exact here (|acc| <= 127²·K < 2^53) on the CPU and on CUDA, and
+    rounded to f32 once, as s32 -> f32 rounds."""
+    acc = (aq.double() @ wq.double().T).float()
+    return acc * rf.reshape(-1, 1) * ws.float()
+
+
+def _mm_i8(a32: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor
+           ) -> torch.Tensor:
+    """(M, K) f32 @ per-column i8 weights (codes (N, K)) -> (M, N) f32,
+    the reference's _mm_i8 (ops/layer.py:157-172)."""
+    return _mm_codes(*quant_rows(a32), wq, ws)
 
 
 def attention_f32_plain(qkv, bias, B, S, H, nh, rel_bias=None
@@ -330,7 +358,7 @@ def bert_layer_i8_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
                         eps: float = 1e-12, rel_bias=None) -> torch.Tensor:
     """(B, S, H) x + (B, S) f32 additive key bias (or None) + optional
     (nh, S, S) f32 rel_bias -> (B, S, H) in x's dtype; each of qkv_w, ao_w,
-    w1, w2 is a (codes, scales) pair from quant_cols."""
+    w1, w2 is a (codes (N, K), scales) pair from i8_weight."""
     B, S, H = x.shape
     dt = x.dtype
     x32 = x.reshape(B * S, H).float()
@@ -349,19 +377,23 @@ def fused_bert_layer_i8(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
                         eps: float = 1e-12, rel_bias=None) -> torch.Tensor:
     """K4: one BERT layer with W8A8 projections, the CUDA kernel for a
     CUDA x, bert_layer_i8_plain for a CPU x (same signature; each matrix
-    argument is its (i8 codes, f32 scales) pair)."""
+    argument is its (i8 codes (N, K), f32 scales) pair from i8_weight, on
+    either device)."""
     if not x.is_cuda:
         return bert_layer_i8_plain(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s,
                                    aln_b, w1, b1, w2, b2, fln_s, fln_b, nh=nh,
                                    eps=eps, rel_bias=rel_bias)
     B, S, H = x.shape
-    I = w1[0].shape[1]
+    I = w1[0].shape[0]
     dev = x.device
     bias, rel = _check_layer("K4", x, bias, rel_bias, nh, I)
-    for name, (q, s), (k, n) in (("qkv_w", qkv_w, (H, 3 * H)),
-                                 ("ao_w", ao_w, (H, H)), ("w1", w1, (H, I)),
-                                 ("w2", w2, (I, H))):
-        check_tensor(q, f"K4 {name} codes", torch.int8, (k, n), dev)
+    if H > MAX_LN_WIDTH:
+        raise ValueError(f"K4's LayerNorm GEMMs span a cluster of H / 128 "
+                         f"<= 16 CTAs: H <= {MAX_LN_WIDTH}, got H={H}")
+    for name, (q, s), (n, k) in (("qkv_w", qkv_w, (3 * H, H)),
+                                 ("ao_w", ao_w, (H, H)), ("w1", w1, (I, H)),
+                                 ("w2", w2, (H, I))):
+        check_tensor(q, f"K4 {name} codes", torch.int8, (n, k), dev)
         check_tensor(s, f"K4 {name} scales", torch.float32, (n,), dev)
     _check_vectors("K4", dev, H, I, qkv_b=qkv_b, ao_b=ao_b, aln_s=aln_s,
                    aln_b=aln_b, b1=b1, b2=b2, fln_s=fln_s, fln_b=fln_b)
@@ -373,14 +405,66 @@ def fused_bert_layer_i8(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1,
                torch.empty((M, 3 * H), dtype=dt, device=dev),
                torch.empty((M, W), dtype=torch.float32, device=dev),
                torch.empty((M, H), dtype=torch.float32, device=dev))
+    x1_codes = (torch.empty((M, H), dtype=torch.int8, device=dev),
+                torch.empty((M,), dtype=torch.float32, device=dev),
+                torch.empty((M, I // 128), dtype=torch.float32, device=dev))
     if any(t.data_ptr() % 16 for t in (x, qkv_w[0], ao_w[0], w1[0], w2[0])):
         raise ValueError("K4 reads x and the weight codes in 16-byte "
                          "vectors: their storage must be 16-byte aligned")
     ptrs = [t.data_ptr() for t in (
         x, bias, *qkv_w, qkv_b, *ao_w, ao_b, aln_s, aln_b, *w1, b1, *w2, b2,
-        fln_s, fln_b, y, *scratch)] + [rel]
+        fln_s, fln_b, y, *scratch)] + [rel] + [t.data_ptr() for t in x1_codes]
     _cuda.check(_cuda.lib().dawn_bert_layer_i8(
         (ctypes.c_void_p * len(ptrs))(*ptrs), B, S, H, nh, I, eps,
         int(dt == torch.float32), _cuda.stream_handle(x)), "K4 layer")
     _cuda.count(launches, _counter("kernel_bert_layer_i8", rel, x))
     return y
+
+
+_I8_EPI_NAMES = ("K4 qkv projection", "K4 FFN-in projection + GELU",
+                 "K4 LayerNorm projection")
+
+
+def _gemm_i8(a, w, bias, epi: int, *, dt, rf=None, part=None, resid=None,
+             ln_s=None, ln_b=None, eps: float = 1e-12):
+    """One of K4's projections on the card as the layer runs it
+    (csrc/layer_i8.cu::dawn_i8_gemm, the TMA + s8 wgmma GEMM), w its
+    (codes (N, K), scales) pair:
+      epi 0, qkv: the (M, K) codes `a` with row factors rf -> (M, N) dt;
+      epi 1, FFN in + GELU: codes a, rf -> (f32 h, (M, N / 128) absmax of
+        h over each 128 columns);
+      epi 2 on codes a, rf, attention out: + the dt resid, LayerNorm ->
+        (f32 x1, x1's codes, x1's row factors);
+      epi 2 on f32 a, FFN out: a quantized in the GEMM, its row absmax the
+        max of `part` (M, K / 128); + the f32 resid, LayerNorm -> dt.
+    The caller checks shapes, dtypes and alignment (chip_smoke.py and the
+    card tests time and hold each alone). Counts nothing: K4 counts its
+    layer."""
+    M, K = a.shape
+    wq, ws = w
+    N = wq.shape[0]
+    dev = a.device
+    quantize = a.dtype == torch.float32
+    quant_out = epi == 2 and not quantize
+    out_dt = torch.float32 if epi == 1 or quant_out else dt
+    out = torch.empty((M, N), dtype=out_dt, device=dev)
+    codes = (torch.empty((M, K), dtype=torch.int8, device=dev) if quantize
+             else a)
+    q_out = rf_out = None
+    if quant_out:
+        q_out = torch.empty((M, N), dtype=torch.int8, device=dev)
+        rf_out = torch.empty((M,), dtype=torch.float32, device=dev)
+    if epi == 1:
+        part = torch.empty((M, N // 128), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    _cuda.check(_cuda.lib().dawn_i8_gemm(
+        codes.data_ptr(), ptr(rf), ptr(a) if quantize else None, ptr(part),
+        wq.data_ptr(), ws.data_ptr(), bias.data_ptr(), ptr(resid), ptr(ln_s),
+        ptr(ln_b), out.data_ptr(), ptr(q_out), ptr(rf_out), M, N, K, epi,
+        int(dt == torch.float32), eps, _cuda.stream_handle(a)),
+        _I8_EPI_NAMES[epi])
+    if quant_out:
+        return out, q_out, rf_out
+    return (out, part) if epi == 1 else out

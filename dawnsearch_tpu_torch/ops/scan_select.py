@@ -26,7 +26,10 @@ queries are quantized per row to i8 outside the kernel
 half to even), and, as in the reference, no query scale enters.
 
 `select_candidates` launches csrc/scan_select.cu for CUDA tensors and
-runs `select_candidates_plain` for CPU tensors; there is no fallback. The
+runs `select_candidates_plain` for CPU tensors; there is no fallback.
+`plan_select` sizes the launch: queries a CTA and how many CTAs share a
+row tile's window blocks (`split_blocks`), so a small batch still spreads
+over the card; tiles wholly past `count` read no codes. The
 qi8 variants are bit-equal to their plain twin (exact integer dots, the
 epilogue's three separately rounded f32 ops). The bf16 variants sum f32
 products of bf16 operands in another order than the plain twin's matmul,
@@ -63,6 +66,38 @@ VARIANTS = {(torch.int8, True): "kernel_select",
 # Launches of each CUDA variant in this process; tests and chip_smoke.py
 # read and reset them.
 launches = dict.fromkeys(VARIANTS.values(), 0)
+
+QUERY_TILES = (8, 64)  # queries a CTA of the CUDA kernel holds
+MAX_SPLIT = 16        # CTAs a row tile's window blocks split over
+MAX_GRID_Y = 65535    # the launch's row-tile x split grid dimension
+
+
+def plan_select(B: int, N: int, count: int, sms: int
+                ) -> tuple[int, int]:
+    """The CUDA kernel's launch shape for B queries over N logical rows of
+    which `count` are live, on a card of `sms` SMs -> (qb, s): qb queries a
+    CTA (8 for a searcher's small batch, else 64) and s CTAs a 16384-row
+    tile, the smallest power of two up to MAX_SPLIT that puts two CTAs on
+    every SM over the tiles holding live rows (the others read nothing),
+    and no larger than the grid takes (N / 16384 · s <= MAX_GRID_Y). CTA q
+    of a tile's s walks the window blocks split_blocks(s, q) of the tile's
+    128 (i4: its 64 packed blocks)."""
+    qb = next((t for t in QUERY_TILES if B <= t), QUERY_TILES[-1])
+    tiles = N // DEFAULT_TN
+    live = min(tiles, max(0, -(-count // DEFAULT_TN)))
+    qtiles = -(-B // qb)
+    s = 1
+    while (s < MAX_SPLIT and tiles * s * 2 <= MAX_GRID_Y
+           and qtiles * live * s < 2 * sms):
+        s *= 2
+    return qb, s
+
+
+def split_blocks(s: int, q: int, blocks: int = W) -> range:
+    """The blocks of a tile that CTA q of its s walks (csrc/scan_select.cu
+    select_kernel's blk0 .. blk1): an equal, contiguous share."""
+    per = blocks // s
+    return range(q * per, (q + 1) * per)
 
 
 def supports(capacity: int, dim: int, dtype: str,
@@ -164,16 +199,19 @@ def select_candidates(q: torch.Tensor, qs: torch.Tensor | None,
                              f"{dt} {shape} on {dev}, got " + (
                                  "None" if t is None else
                                  f"{t.dtype} {tuple(t.shape)} on {t.device}"))
-    if N % DEFAULT_TN or D % 16:
-        raise ValueError(f"{name} needs {DEFAULT_TN}-row tiles and D % 16 == 0, "
-                         f"got codes {tuple(codes.shape)}")
+    if N % DEFAULT_TN or D % 128:
+        raise ValueError(f"{name} needs {DEFAULT_TN}-row tiles and "
+                         f"D % 128 == 0, got codes {tuple(codes.shape)}")
     vals = torch.empty((B, N // W), dtype=torch.float32, device=dev)
     ids = torch.empty((B, N // W), dtype=torch.int32, device=dev)
+    qb, s = plan_select(B, N, int(count),
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
     _cuda.check(_cuda.lib().dawn_select(
         _FMT[codes.dtype], int(qi8), q.data_ptr(),
         qs.data_ptr() if qi8 else None, codes.data_ptr(),
         None if scales is None else scales.data_ptr(), int(count),
-        vals.data_ptr(), ids.data_ptr(), B, N, D,
+        vals.data_ptr(), ids.data_ptr(), B, N, D, qb, s,
         _cuda.stream_handle(codes)), name)
     _cuda.count(launches, name)
     return vals, ids

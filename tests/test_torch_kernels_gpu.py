@@ -16,12 +16,15 @@ K6 and K7 within 1e-5 of the output's scale and per-row cosine 0.99999;
 an f32 input never reaches a plain twin, a dtype mix is refused, and K1
 at f32 refuses a matrix that is not its (W_hi, W_lo) pair. K2 (i8
 queries) and K3 (i8 queries) must be bit-equal to their
-plain twin; the bf16-query variants agree within two key steps (3.1e-5) on the
+plain twin, also at B = 1 and 8 over 32 tiles with count mid-tile and
+whole tiles past it; the bf16-query variants agree within two key steps (3.1e-5) on the
 values and on at least 99% of the window ids; K1 agrees to the bf16 bound
 of the reference's own tests (per-row cosine > 0.999) at every head dim
 of the packed envelope; K4 agrees with bert_layer_i8_plain at per-token
 cosine >= 0.9999 (the same rounding points and exact s32 sums; f32 sums
-of LayerNorm and attention in another order). K1 and K4 with MPNet's
+of LayerNorm and attention in another order), at B = 1 too, and each of
+its s8 GEMMs alone with the twin's arithmetic (the codes it makes of x1
+and the absmax it records of h bit-equal to the twin's). K1 and K4 with MPNet's
 rel_bias agree with their plain twins given the same operand at per-token
 cosine >= 0.9999, a zero rel_bias changes no bit, and a rel_bias of the
 wrong shape, dtype, device or layout raises. The per-op
@@ -50,7 +53,7 @@ from dawnsearch_tpu_torch.index.flat import FlatIndex, quantize_rows_i8
 from dawnsearch_tpu_torch.models import bert, mpnet
 from dawnsearch_tpu_torch.models.weights import init_params
 from dawnsearch_tpu_torch.ops import attention, ffn, layer
-from dawnsearch_tpu_torch.ops.layer import quant_cols
+from dawnsearch_tpu_torch.ops.layer import i8_weight
 from dawnsearch_tpu_torch.ops import scan_select as ss
 from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
 from dawnsearch_tpu_torch.ops.vector import layer_norm
@@ -207,7 +210,7 @@ def _k4_args(rng, B, S, H, I, cuda):
     x, mask, bias, weights = _layer_inputs(rng, B, S, H, I)
     w = [torch.from_numpy(a) for a in weights]
     for i in (0, 2, 6, 8):
-        w[i] = tuple(t.to(cuda) for t in quant_cols(w[i]))
+        w[i] = tuple(t.to(cuda) for t in i8_weight(w[i]))
     w = [t if isinstance(t, tuple) else t.to(cuda) for t in w]
     return (torch.from_numpy(x).to(cuda, torch.bfloat16),
             torch.from_numpy(bias).to(cuda), w,
@@ -222,9 +225,12 @@ K4_COS = {torch.bfloat16: 0.9999, torch.float32: 0.99995}
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,S,H,nh,I", [(3, 128, 384, 12, 1536),
                                         (2, 64, 768, 12, 3072),
-                                        (1, 512, 1024, 16, 4096)])
+                                        (1, 512, 1024, 16, 4096),
+                                        (1, 128, 384, 12, 1536),
+                                        (1, 128, 768, 12, 3072)])
 def test_k4_matches_plain(cuda, B, S, H, nh, I, dtype):
-    """MiniLM, BERT-base and BERT-large widths, ragged masks."""
+    """MiniLM, BERT-base and BERT-large widths, ragged masks, and one B=1
+    query (M = 128) at MiniLM and BERT-base widths."""
     dt = DTYPES[dtype]
     x, bias, w, m = _k4_args(np.random.default_rng(H), B, S, H, I, cuda)
     x = x.to(dt)
@@ -284,7 +290,7 @@ def _rel(rng, S, nh, cuda):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("kernel", ["k1", "k4"])
-@pytest.mark.parametrize("B,S", [(3, 128), (1, 512), (2, 16)])
+@pytest.mark.parametrize("B,S", [(3, 128), (1, 512), (2, 16), (1, 128)])
 def test_rel_bias_matches_plain(cuda, kernel, B, S, dtype):
     """all-mpnet-base-v2's width (H=768, 12 heads of 64, I=3072), ragged
     masks, eps 1e-5; each call counts under the `_rel` name only (`_rel_f32`
@@ -391,9 +397,17 @@ def _i4_codes(rows):
     return codes, scales
 
 
-@pytest.mark.parametrize("B,count", [(8, 30000), (100, 32768), (1, 17)])
-def test_k2_bit_equal_to_plain(cuda, B, count):
-    rows, q = _rows_and_queries(cuda, B, B)
+# B = 1, 8 and 32 (the searcher's batch buckets up to 32) over 32 tiles
+# (the node's capacity of 524,288 rows): count mid-tile with 15 tiles
+# wholly past it, inside the first tile, and full
+NODE_SHAPES = [(B, 524288, count) for B in (1, 8, 32)
+               for count in (270000, 5000, 524288)]
+
+
+@pytest.mark.parametrize("B,n,count", [(8, 32768, 30000), (100, 32768, 32768),
+                                       (1, 32768, 17), *NODE_SHAPES])
+def test_k2_bit_equal_to_plain(cuda, B, n, count):
+    rows, q = _rows_and_queries(cuda, B, B, n)
     codes, scales = quantize_rows_i8(rows)
     qq, qs = ss.quantize_queries(q)
     before = ss.launches["kernel_select"]
@@ -404,9 +418,10 @@ def test_k2_bit_equal_to_plain(cuda, B, count):
     assert torch.equal(got_i, want_i)
 
 
-@pytest.mark.parametrize("B,count", [(8, 30000), (70, 17000)])
-def test_k3_bit_equal_to_plain(cuda, B, count):
-    rows, q = _rows_and_queries(cuda, B, 10 + B)
+@pytest.mark.parametrize("B,n,count", [(8, 32768, 30000), (70, 32768, 17000),
+                                       *NODE_SHAPES])
+def test_k3_bit_equal_to_plain(cuda, B, n, count):
+    rows, q = _rows_and_queries(cuda, B, 10 + B, n)
     codes, scales = _i4_codes(rows)
     qq, qs = ss.quantize_queries(q)
     before = ss.launches["kernel_select_i4"]
@@ -417,9 +432,10 @@ def test_k3_bit_equal_to_plain(cuda, B, count):
     assert torch.equal(got_i, want_i)
 
 
+@pytest.mark.parametrize("B", [40, 1])
 @pytest.mark.parametrize("fmt", ["bf16", "i8", "i4"])
-def test_bf16_query_variants_within_tolerance(cuda, fmt):
-    rows, q = _rows_and_queries(cuda, 40, 20)
+def test_bf16_query_variants_within_tolerance(cuda, fmt, B):
+    rows, q = _rows_and_queries(cuda, B, 20)
     if fmt == "bf16":
         codes, scales = rows.bfloat16(), None
     elif fmt == "i8":
@@ -773,6 +789,69 @@ def test_k1_every_cluster_width_at_ragged_rows(cuda, B, S, H, nh):
     got = layer.fused_bert_layer(xt, bt, *w, nh=nh).float()
     want = layer.bert_layer_plain(xt, bt, *w, nh=nh).float()
     _layer_bound(got, want, m, torch.bfloat16)
+
+
+@pytest.mark.parametrize("epi", ["qkv", "attn_out", "ffn_in", "ffn_out"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("M,H,I", [(128, 384, 1536), (200, 768, 3072),
+                                   (4096, 1024, 4096), (48, 128, 256)])
+def test_k4_gemms_match_the_plain_arithmetic(cuda, M, H, I, dtype, epi):
+    """Each of K4's s8 GEMMs alone (ops/layer.py::_gemm_i8) against the
+    twin's arithmetic on the same operands, at rows that are not a multiple
+    of its tiles and LayerNorm clusters of 1 to 8 CTAs: the qkv and FFN-in
+    products' dequantized outputs within one rounding of the twin's
+    (exact s32 sums, the same f32 steps: bit-equal before the GELU and the
+    cast to dt), the FFN-in GEMM's partial absmax bit-equal to that of the
+    h it wrote; the LayerNorm ones at per-row cosine >= 0.9999, with the
+    attention-out GEMM's x1 codes and factors bit-equal to quant_rows of
+    the x1 it wrote, and the FFN-out one quantizing its f32 h itself from
+    the partials."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(M + H + I)
+
+    def t(*shape, s=1.0, base=0.0, d=torch.float32):
+        return torch.from_numpy((base + s * rng.standard_normal(shape)
+                                 ).astype(np.float32)).to(cuda, d)
+    K, N = {"qkv": (H, 3 * H), "attn_out": (H, H), "ffn_in": (H, I),
+            "ffn_out": (I, H)}[epi]
+    w = tuple(u.to(cuda) for u in i8_weight(t(K, N, s=0.05).cpu()))
+    b = t(N, s=0.1)
+    if epi in ("qkv", "ffn_in"):
+        a = t(M, K, d=dt if epi == "qkv" else torch.float32)
+        aq, rf = layer.quant_rows(a.float())
+        want = layer._mm_codes(aq, rf, *w) + b
+        if epi == "qkv":
+            got = layer._gemm_i8(aq, w, b, 0, dt=dt, rf=rf)
+            assert got.dtype == dt
+            assert torch.equal(got, want.to(dt))
+            return
+        got, part = layer._gemm_i8(aq, w, b, 1, dt=dt, rf=rf)
+        assert got.dtype == torch.float32 and part.shape == (M, N // 128)
+        want = 0.5 * want * (1.0 + ffn.erf_poly(want * 2.0 ** -0.5))
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+        assert torch.equal(part, got.abs().reshape(M, -1, 128).amax(dim=-1))
+        return
+    a = t(M, K)
+    resid = t(M, N, d=dt if epi == "attn_out" else torch.float32)
+    ln_s, ln_b = t(N, s=0.1, base=1.0), t(N, s=0.1)
+    aq, rf = layer.quant_rows(a)
+    want = layer_norm(layer._mm_codes(aq, rf, *w) + b + resid.float(), ln_s,
+                      ln_b, 1e-12)
+    if epi == "attn_out":
+        got, got_q, got_rf = layer._gemm_i8(
+            aq, w, b, 2, dt=dt, rf=rf, resid=resid, ln_s=ln_s, ln_b=ln_b)
+        want_q, want_rf = layer.quant_rows(got)
+        assert torch.equal(got_q, want_q)
+        assert torch.equal(got_rf.view(torch.int32), want_rf.view(torch.int32))
+        assert got.dtype == torch.float32
+    else:
+        part = a.abs().reshape(M, -1, 128).amax(dim=-1)
+        got = layer._gemm_i8(a, w, b, 2, dt=dt, part=part, resid=resid,
+                             ln_s=ln_s, ln_b=ln_b)
+        assert got.dtype == dt
+    assert torch.isfinite(got).all()
+    assert float(_row_cos(got, want, N).min()) >= 0.9999
 
 
 def _gemm_want(a, w, b, epi, resid, ln_s, ln_b):

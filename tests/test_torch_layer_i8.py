@@ -2,8 +2,9 @@
 
 The reference's fused_bert_layer_i8 runs its Pallas kernel in interpret
 mode on the CPU; the port gets the same seeded numpy inputs, its weights
-quantized by `quant_cols` (the reference quantizes the same f32 matrices
-inside its call). Bounds: per-token cosine on unmasked tokens >= 0.99995
+quantized by `quant_cols` and laid out (N, K) by `i8_weight`, as the
+model builds them (the reference quantizes the same f32 matrices inside
+its call). Bounds: per-token cosine on unmasked tokens >= 0.99995
 in f32 and >= 0.9999 in bf16 for one layer; the whole encoder on K4's
 route >= 0.9999 against the reference's encoder on the same route and
 > 0.999 against the reference's f32 XLA encoder (its own bound,
@@ -24,6 +25,7 @@ from dawnsearch_tpu.ops.layer import fused_bert_layer_i8 as ref_layer_i8
 from dawnsearch_tpu_torch.models import bert
 from dawnsearch_tpu_torch.models.weights import params_from_numpy
 from dawnsearch_tpu_torch.ops import layer
+from dawnsearch_tpu_torch.ops.vector import layer_norm
 
 torch.set_num_threads(2)
 
@@ -55,10 +57,10 @@ def _inputs(B, S, H, I, seed):
 
 def _port_weights(weights):
     """The twelve f32 operands as the port's K4 takes them: the four
-    matrices as (codes, scales) pairs."""
+    matrices as (codes (N, K), scales) pairs."""
     out = [torch.from_numpy(w) for w in weights]
     for i in (0, 2, 6, 8):
-        out[i] = layer.quant_cols(out[i])
+        out[i] = layer.i8_weight(out[i])
     return out
 
 
@@ -88,6 +90,109 @@ def test_quant_cols_bit_equal_to_reference(shape):
     ulps = np.abs(scales.numpy().view(np.int32).astype(np.int64)
                   - np.asarray(jit_s)[0].view(np.int32))
     assert ulps.max() <= 1
+
+
+@pytest.mark.parametrize("shape", [(128, 384), (384, 1536), (1536, 384)])
+def test_i8_weight_is_quant_cols_transposed(shape):
+    """The (N, K) codes K4 reads are quant_cols' (K, N) codes transposed,
+    bit for bit, and contiguous; the scales are quant_cols'."""
+    rng = np.random.default_rng(shape[1])
+    w = torch.from_numpy(rng.standard_normal(shape, np.float32) * 0.05)
+    codes, scales = layer.i8_weight(w)
+    want_q, want_s = layer.quant_cols(w)
+    assert codes.shape == shape[::-1] and codes.is_contiguous()
+    assert torch.equal(codes, want_q.t())
+    assert torch.equal(scales.view(torch.int32), want_s.view(torch.int32))
+
+
+def test_model_build_holds_the_transposed_codes():
+    """BertModel on K4's route keeps each matrix as i8_weight's (N, K)
+    codes: the transpose of quant_cols' codes of the f32 parameter."""
+    H, I = 128, 256
+    tree = _tree(np.random.default_rng(3), H, I)
+    cfg = bert.BertConfig(vocab_size=VOCAB, hidden_size=H, num_layers=L,
+                          num_heads=4, intermediate_size=I,
+                          max_position_embeddings=P, layer_impl="layer_i8")
+    model = bert.BertModel(cfg, params_from_numpy(tree), device="cpu")
+    for i, lay in enumerate(model.layers):
+        for name in bert.BertLayer.MATRICES:
+            codes, scales = lay.i8(name)
+            want_q, want_s = layer.quant_cols(
+                torch.from_numpy(tree["layers"][name][i]))
+            assert torch.equal(codes, want_q.t())
+            assert torch.equal(scales, want_s)
+
+
+def _old_layout_twin(monkeypatch):
+    """The previous twin's arithmetic: (K, N) codes multiplied as they
+    lie."""
+    def mm_codes_kn(aq, rf, wq, ws):
+        acc = (aq.double() @ wq.double()).float()
+        return acc * rf.reshape(-1, 1) * ws.float()
+    monkeypatch.setattr(layer, "_mm_codes", mm_codes_kn)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,nh,I", SHAPES)
+def test_plain_layer_on_the_new_layout_equals_the_old(B, S, H, nh, I, dtype,
+                                                      monkeypatch):
+    """The twin on i8_weight's (N, K) codes gives, bit for bit, what it
+    gave on quant_cols' (K, N) codes (the exact f64 product does not see
+    the layout). The new layout is
+    held against the reference kernel by
+    test_plain_layer_matches_reference_kernel."""
+    x, _, bias, weights = _inputs(B, S, H, I, seed=H + S + 1)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    xt, bt = torch.from_numpy(x).to(tdt), torch.from_numpy(bias)
+    new = layer.bert_layer_i8_plain(xt, bt, *_port_weights(weights), nh=nh)
+    old_w = [torch.from_numpy(w) for w in weights]
+    for i in (0, 2, 6, 8):
+        old_w[i] = layer.quant_cols(old_w[i])
+    _old_layout_twin(monkeypatch)
+    old = layer.bert_layer_i8_plain(xt, bt, *old_w, nh=nh)
+    assert torch.equal(new.float().view(torch.int32),
+                       old.float().view(torch.int32))
+
+
+def _fused_row_quant(a32, parts):
+    """Row quantization as K4's GEMMs gather it (csrc/gemm.cuh: x1 in the
+    attention-out LayerNorm epilogue over its H / 128 CTAs, h in the
+    FFN-out GEMM's prologue from the GELU epilogue's I / 128 partials):
+    each CTA's 128-column chunk's absmax alone, their max in rank order,
+    then quant_rows_kernel's arithmetic on every element."""
+    M, K = a32.shape
+    amax = a32.abs().reshape(M, parts, K // parts).amax(dim=-1)
+    m = amax[:, 0]
+    for p in range(1, parts):
+        m = torch.maximum(m, amax[:, p])
+    s = m.clamp_min(1e-6).reshape(M, 1)
+    aq = torch.round(a32 * torch.div(torch.full_like(s, 127.0), s))
+    return aq.to(torch.int8), (s * layer.INV127).reshape(-1)
+
+
+@pytest.mark.parametrize("H,parts", [(128, 1), (384, 3), (768, 6),
+                                     (1024, 8), (1536, 12), (3072, 24)])
+def test_fused_row_quantization_is_quant_rows(H, parts):
+    """Codes as K4's GEMMs make them, from each CTA's absmax gathered in
+    rank order (_fused_row_quant), are quant_rows' codes and factors, bit
+    for bit, on LayerNorm output rows with an outlier, a constant row (all
+    zero after the LayerNorm: the 1e-6 floor) and a row whose absmax lies
+    in the last chunk: the twin quantizes x1 and h with quant_rows."""
+    rng = np.random.default_rng(H)
+    att = rng.standard_normal((64, H), np.float32) * 2.0
+    att[3, 7] = 40.0
+    att[5] = 1.5
+    att[9, -1] = -30.0
+    att = torch.from_numpy(att)
+    ln_s = torch.from_numpy(1.0 + rng.standard_normal(H, np.float32) * 0.1)
+    ln_b = torch.zeros(H)
+    x1 = layer_norm(att, ln_s, ln_b, 1e-12)
+    got_q, got_rf = _fused_row_quant(x1, parts)
+    want_q, want_rf = layer.quant_rows(x1)
+    assert got_q.dtype == torch.int8 and got_rf.shape == (64,)
+    assert torch.equal(got_q, want_q)
+    assert torch.equal(got_rf.view(torch.int32), want_rf.view(torch.int32))
+    assert float(got_rf[5]) == pytest.approx(1e-6 / 127)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

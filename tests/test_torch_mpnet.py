@@ -188,7 +188,7 @@ def test_k4_plain_with_rel_matches_reference_kernel(dtype):
         nh=NH, eps=1e-5, rel_bias=jnp.asarray(rel))).astype(np.float32)
     pw = [torch.from_numpy(a) for a in w]
     for i in (0, 2, 6, 8):
-        pw[i] = layer.quant_cols(pw[i])
+        pw[i] = layer.i8_weight(pw[i])
     got = layer.bert_layer_i8_plain(
         torch.from_numpy(x).to(tdt), torch.from_numpy(bias), *pw, nh=NH,
         eps=1e-5, rel_bias=torch.from_numpy(rel))
@@ -205,7 +205,7 @@ def test_zero_rel_equals_no_rel_and_wrappers_launch_nothing(fn):
     args = [torch.from_numpy(a) for a in w]
     if fn == "bert_layer_i8_plain":
         for i in (0, 2, 6, 8):
-            args[i] = layer.quant_cols(args[i])
+            args[i] = layer.i8_weight(args[i])
     plain = getattr(layer, fn)
     wrapper = {"bert_layer_plain": layer.fused_bert_layer,
                "bert_layer_i8_plain": layer.fused_bert_layer_i8}[fn]

@@ -261,3 +261,133 @@ def test_search_select_guards_the_i4_tile_and_the_query_type(data_i4, rows_q):
     with pytest.raises(ValueError, match="qi8=False"):
         ss.search_select(torch.from_numpy(rows).bfloat16(), None,
                          torch.from_numpy(q), COUNT, 10, qi8=True)
+
+
+@pytest.mark.parametrize("B", [1, 8, 9, 16, 17, 64, 100, 1024])
+@pytest.mark.parametrize("N,count", [(16384, 16384), (524288, 270000),
+                                     (1 << 20, (1 << 20) - 1000),
+                                     (1 << 26, 1 << 26), (1 << 26, 100000),
+                                     (524288, 0)])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_select_plan_covers_every_block_once(B, N, count, sms):
+    """The CUDA kernel's launch plan: the query tile holds B (or is 64),
+    s is a power of two that divides a tile's 128 window blocks and its 64
+    packed i4 blocks, and the s CTAs' shares cover every block of a tile
+    exactly once. s grows only while the live tiles leave the card short
+    of two CTAs an SM, and never past the grid's limit (an i4 index at its
+    64M-row capacity with few live tiles, as after a load)."""
+    qb, s = ss.plan_select(B, N, count, sms)
+    assert qb in ss.QUERY_TILES and (B <= qb or qb == 64)
+    assert s & (s - 1) == 0 and 1 <= s <= ss.MAX_SPLIT
+    tiles = N // ss.DEFAULT_TN
+    assert tiles * s <= ss.MAX_GRID_Y
+    for blocks in (ss.W, ss.W // 2):
+        assert blocks % s == 0
+        seen = [b for q in range(s) for b in ss.split_blocks(s, q, blocks)]
+        assert sorted(seen) == list(range(blocks))
+    live = -(-count // ss.DEFAULT_TN)
+    work = -(-B // qb) * live
+    if s > 1:
+        assert work * (s // 2) < 2 * sms
+    assert (work * s >= 2 * sms or s == ss.MAX_SPLIT or live == 0
+            or tiles * s * 2 > ss.MAX_GRID_Y)
+
+
+def test_select_plan_spreads_a_node_query_over_the_card():
+    """A B = 1 query over the node's index (capacity 524,288, 270,000
+    rows: 17 live tiles) runs 8-query tiles split 16 ways: 272 CTAs hold
+    live rows, two an SM on 132 SMs."""
+    assert ss.plan_select(1, 524288, 270_000, 132) == (8, 16)
+    assert ss.plan_select(8, 524288, 270_000, 132) == (8, 16)
+    assert ss.plan_select(1024, 1 << 20, (1 << 20) - 1000, 132) == (64, 1)
+    # a searcher's batch of 32 takes the 64-query tile
+    assert ss.plan_select(32, 524288, 270_000, 132) == (64, 16)
+
+
+def _split_select(keys, count, s, blocks_per_tile, nb):
+    """The kernel's fold written out over full (B, T, 128 w, 128 r) keys:
+    CTA q of each tile folds only its live staged blocks (a block is live
+    while its first row is below count), folds its skipped blocks in as
+    the key (+inf | first skipped w), and the s CTAs' minima combine; a
+    tile with no live row stores (+inf, w = 0)."""
+    Bq, T = keys.shape[:2]
+    out = np.empty((Bq, T, ss.W), np.int32)
+    for t in range(T):
+        left = count - t * ss.DEFAULT_TN
+        live_blocks = 0 if left <= 0 else min(blocks_per_tile,
+                                              -(-left // ss.W))
+        if live_blocks == 0:
+            out[:, t] = 0x7F800000
+            continue
+        best = np.full((Bq, ss.W), np.iinfo(np.int32).max, np.int32)
+        for q in range(s):
+            blk = ss.split_blocks(s, q, blocks_per_tile)
+            live1 = min(blk.stop, max(blk.start, live_blocks))
+            part = np.full((Bq, ss.W), np.iinfo(np.int32).max, np.int32)
+            if live1 < blk.stop:
+                part[:] = 0x7F800000 | live1
+            for b in range(blk.start, live1):
+                for h in range(nb):
+                    part = np.minimum(part, keys[:, t, b + 64 * h])
+            best = np.minimum(best, part)
+        out[:, t] = best
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["i8", "i4"])
+@pytest.mark.parametrize("count", [30000, 16384, 16383, 100, 1, 0])
+@pytest.mark.parametrize("s", [1, 2, 16])
+def test_split_and_skipped_blocks_fold_to_the_plain_result(data, data_i4,
+                                                           fmt, count, s):
+    """Splitting a tile's blocks over s CTAs, skipping blocks and tiles
+    wholly past count and folding the skipped ones in as (+inf | first
+    skipped w) gives select_candidates_plain's packed keys bit for bit,
+    for i8 (128 blocks a tile) and packed i4 (64 packed blocks, each the
+    windows w and w + 64)."""
+    codes, scales, q = data if fmt == "i8" else data_i4
+    ct, st = torch.from_numpy(codes), torch.from_numpy(scales)
+    qq, qs = ss.quantize_queries(torch.from_numpy(q))
+    want_v, want_i = ss.select_candidates_plain(qq, qs, ct, st, count)
+    x = quant.unpack_i4(ct, quant.I4_BLOCK) if fmt == "i4" else ct
+    db = 2.0 - (qq.float() @ x.float().T) * qs.reshape(-1, 1) \
+        * st.reshape(1, -1)
+    rows = torch.arange(N)
+    db = torch.where(rows < count, db, torch.inf)
+    keys = ((db.view(torch.int32) & ~0x7F).reshape(B, -1, ss.W, ss.W)
+            | torch.arange(ss.W, dtype=torch.int32).reshape(1, 1, ss.W, 1))
+    blocks, nb = (ss.W, 1) if fmt == "i8" else (ss.W // 2, 2)
+    best = _split_select(keys.numpy(), count, s, blocks, nb)
+    want_best = (want_v.reshape(B, -1, ss.W) + 1.0).view(torch.int32)
+    np.testing.assert_array_equal(best & ~0x7F, want_best.numpy())
+    T = N // ss.DEFAULT_TN
+    ids = (np.arange(T)[None, :, None] * ss.DEFAULT_TN + (best & 0x7F) * ss.W
+           + np.arange(ss.W)[None, None, :])
+    vals = (best & ~0x7F).view(np.float32) - np.float32(1.0)
+    ids = np.where(np.isfinite(vals), ids, -1)
+    np.testing.assert_array_equal(ids.reshape(B, -1), want_i.numpy())
+
+
+@pytest.mark.parametrize("count", [16384, 100, 0])
+@pytest.mark.parametrize("fmt,qi8", [("i8", True), ("i8", False),
+                                     ("i4", True), ("bf16", False)])
+def test_tiles_past_count_are_the_empty_result(rows_q, data, data_i4, count,
+                                               fmt, qi8):
+    """A tile wholly past count gives (+inf, -1) in every column of the
+    plain twin, in every variant: what the kernel stores there without
+    reading its codes."""
+    rows, q = rows_q
+    if fmt == "i8":
+        codes, scales = (torch.from_numpy(a) for a in data[:2])
+    elif fmt == "i4":
+        codes, scales = (torch.from_numpy(a) for a in data_i4[:2])
+    else:
+        codes, scales = torch.from_numpy(rows).bfloat16(), None
+    qt = torch.from_numpy(q)
+    qq, qs = ss.quantize_queries(qt) if qi8 else (qt.bfloat16(), None)
+    vals, ids = ss.select_candidates_plain(qq, qs, codes, scales, count)
+    first_dead = -(-count // ss.DEFAULT_TN)
+    assert first_dead < N // ss.DEFAULT_TN
+    dead = slice(first_dead * ss.W, None)
+    assert bool(torch.isinf(vals[:, dead]).all())
+    assert bool((vals[:, dead] > 0).all())
+    assert bool((ids[:, dead] == -1).all())
