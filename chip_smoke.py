@@ -63,10 +63,14 @@ Phases, each printing one progress line; any failure exits non-zero:
             (64, 128) and (8, 512); then each at its first two shapes in
             f32; timed beside torch's scaled_dot_product_attention in the
             same dtype (the library yardstick)
-  ffn       K7 vs ffn_plain at 8192 rows for MiniLM (384/1536), BERT-base
-            (768/3072) and TinyBERT (312/1200) widths, and at 128 rows (one
-            query) at MiniLM width; in f32 at 8192 rows of MiniLM and
-            BERT-base and at 128 rows; timed
+  ffn       K7 (two launches of the GEMM ring, csrc/ffn.cu + csrc/gemm.cuh)
+            vs ffn_plain at 8192 rows for MiniLM (384/1536), BERT-base
+            (768/3072) and TinyBERT (312/1200: ragged tiles) widths, and at
+            128 rows (one query) at MiniLM and BERT-base widths; in f32
+            (3xTF32, W as tf32_pair pairs) at 8192 rows of MiniLM and
+            BERT-base and at 128 rows of both; timed beside the PyTorch
+            composition of the same function (addmm, GELU, addmm, + x,
+            layer_norm: five calls in the entry's dtype, TF32 off)
   pool      K8 vs mean_pool_plain at (64, 128, 384) and (8, 512, 384),
             masked and include_padding; timed
   recall    FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
@@ -197,10 +201,11 @@ K5_SHAPES = ((384, 12, 64, 128), (384, 12, 8, 512), (384, 12, 64, 16),
              (768, 12, 64, 128))
 K6_SHAPES = ((312, 12, 64, 128), (312, 12, 8, 512), *K5_SHAPES)
 K5_F32_SHAPES, K6_F32_SHAPES = K5_SHAPES[:2], K6_SHAPES[:2]
-# (rows, H, I): a B=64, S=128 batch at three widths, and one B=1 query
+# (rows, H, I): a B=64, S=128 batch at three widths, and one B=1 query at
+# MiniLM width and at BERT-base width (a query on an MPNet per-op node)
 FFN_SHAPES = ((64 * 128, 384, 1536), (64 * 128, 768, 3072),
-              (64 * 128, 312, 1200), (128, 384, 1536))
-FFN_F32_SHAPES = (FFN_SHAPES[0], FFN_SHAPES[1], FFN_SHAPES[3])
+              (64 * 128, 312, 1200), (128, 384, 1536), (128, 768, 3072))
+FFN_F32_SHAPES = (*FFN_SHAPES[:2], *FFN_SHAPES[3:])
 POOL_SHAPES = ((64, 128, 384), (8, 512, 384))
 TINYBERT = dict(hidden_size=312, num_heads=12, intermediate_size=1200,
                 num_layers=4)
@@ -493,8 +498,8 @@ def _peak(dtype) -> str:
 
 
 def _k1_form(weights: list) -> list:
-    """K1's weights as its kernel takes them: at f32 each (in, out)
-    matrix as its (W_hi, W_lo) pair (ops/layer.py::tf32_pair), as the
+    """K1's (and K7's) weights as its kernel takes them: at f32 each (in,
+    out) matrix as its (W_hi, W_lo) pair (ops/layer.py::tf32_pair), as the
     model holds them on the card; bf16 and the plain twin take them as
     they are."""
     from dawnsearch_tpu_torch.ops.layer import tf32_pair
@@ -1384,7 +1389,8 @@ def phase_ffn(results: list) -> None:
     """K7 at 64 x 128 rows for three widths and at one query's 128 rows in
     bf16, and at MiniLM and BERT-base widths and one query in f32 (its f32
     instance); no single PyTorch call computes the fused FFN + residual +
-    LayerNorm."""
+    LayerNorm, so library_ms is null and the composition of five calls is
+    timed beside it (composition_ms)."""
     rng = np.random.default_rng(12)
     dev = torch.device("cuda")
     results.append(ffn_entry(rng, dev, FFN_SHAPES, torch.bfloat16))
@@ -1392,33 +1398,52 @@ def phase_ffn(results: list) -> None:
     results.append(ffn_entry(rng, dev, FFN_F32_SHAPES, torch.float32))
 
 
+def ffn_composition(x, w1, b1, w2, b2, g, be, eps: float = 1e-12):
+    """The FFN + residual + LayerNorm as five PyTorch calls in x's dtype:
+    addmm, GELU (erf), addmm, the residual add, layer_norm. K7's
+    yardstick only; the port never calls it."""
+    F = torch.nn.functional
+    h = F.gelu(torch.addmm(b1, x, w1))
+    return F.layer_norm(torch.addmm(b2, h, w2) + x, (x.shape[1],), g, be, eps)
+
+
 def ffn_entry(rng: np.random.Generator, dev, ffn_shapes, dtype) -> dict:
+    """K7 (at f32 its matrices as tf32_pair pairs, as the model holds
+    them) against ffn_plain on the (in, out) matrices, timed beside the
+    plain twin and ffn_composition."""
     from dawnsearch_tpu_torch.ops import ffn
     shapes = []
     for M, H, I in ffn_shapes:
         x = torch.from_numpy(rng.standard_normal((M, H), np.float32)
                              ).to(dev, dtype)
         weights = _layer_weights(rng, H, I, dev, dtype)[6:]
-        got = ffn.fused_ffn(x, *weights)
+        kw = _k1_form(weights)
+        comp = [t.to(dtype) for t in weights]
+        got = ffn.fused_ffn(x, *kw)
         want = ffn.ffn_plain(x, *weights)
+        comp_out = ffn_composition(x, *comp)
         torch.cuda.synchronize()
         err, cos, ok = _per_op_check(got, want, H)
-        ms = graph_ms(lambda: ffn.fused_ffn(x, *weights))
+        comp_cos = float(_row_cos(comp_out, want, H).min())
+        ms = graph_ms(lambda: ffn.fused_ffn(x, *kw))
         plain_ms = graph_ms(lambda: ffn.ffn_plain(x, *weights))
+        comp_ms = graph_ms(lambda: ffn_composition(x, *comp))
         bd = bound(4 * M * H * I, _peak(x.dtype),
                    2 * nbytes(x) + nbytes(*weights))
         shape = f"M={M} H={H} I={I} {_tag(dtype)}"
         say(f"phase ffn {shape}: max|d|={err:.3e} min row cos={cos:.7f} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms composition "
+            f"{comp_ms:.4f} ms (min row cos vs plain {comp_cos:.5f}) bound "
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         if not ok:
             raise AssertionError(f"K7 disagrees with ffn_plain at {shape}")
         shapes.append({"shape": shape, "max_abs_err": err, "min_row_cos": cos,
                        "ms": ms, "plain_ms": plain_ms, **bd,
-                       "library_ms": None})
+                       "library_ms": None, "composition_ms": comp_ms})
     f32 = dtype == torch.float32
     return {"name": "ffn" + ("_f32" if f32 else ""), "route": "cuda",
-            "source": "dawnsearch_tpu_torch/csrc/ffn.cu",
+            "source": "dawnsearch_tpu_torch/csrc/ffn.cu + "
+                      "dawnsearch_tpu_torch/csrc/gemm.cuh",
             "replaces": "dawnsearch_tpu/ops/ffn.py:89"
                         + (" (f32)" if f32 else ""),
             **shapes[0], "other_shapes": shapes[1:]}

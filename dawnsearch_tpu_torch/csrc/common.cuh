@@ -1,5 +1,5 @@
-// Device helpers shared by the encoder kernels (layer.cu, layer_i8.cu,
-// ffn.cu, attention.cu). Each includer gets its own copy (internal
+// Device helpers shared by the encoder kernels (gemm.cuh, so layer.cu and
+// layer_i8.cu, and attention.cu). Each includer gets its own copy (internal
 // linkage); the GELU's erf is the reference's, rounded as its twin is.
 #pragma once
 

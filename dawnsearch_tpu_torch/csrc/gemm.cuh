@@ -19,18 +19,27 @@
 //                  weight codes prepared as (N, K), since 8-bit wgmma reads
 //                  both operands K-major
 // Rows past M read zeros (TMA's out-of-bounds fill) and are masked on the
-// store. Tensor maps are encoded on the host at every call and passed as
+// store. N need not be a multiple of 128 (K7 takes every N % 8 == 0, f32
+// N % 4 == 0): the RAGGED instances' grid has ceil(N / 128) column tiles,
+// W's columns past N read zeros through the same fill (a bf16 box wholly
+// past N reads only zeros), and the bias, LayerNorm parameters, resid and
+// the store are masked at c < N. The masks are compiled only into RAGGED
+// instances, which only K7's bf16 and f32 GELU and LayerNorm launches take
+// (never s8): compiled into every instance they slowed K1's and K4's GEMMs
+// by 2-40% on an H100 (PERF.md §6). Tensor maps are encoded on the host at every call and passed as
 // __grid_constant__ parameters, so a CUDA graph that captured a launch
 // keeps valid maps. BM = 128 where 128-row tiles give the card a full
 // wave (>= 132 CTAs), else 64.
 //
 // Epilogues: + bias (EPI_BIAS), + bias -> GELU (EPI_GELU), + bias + resid
 // -> LayerNorm (EPI_LN). The LayerNorm needs whole rows: a thread-block
-// cluster of N/128 CTAs spans one BM-row block; each CTA writes per-row
-// partial sums of its 128 columns to shared memory, reads every CTA's
+// cluster of ceil(N/128) CTAs spans one BM-row block; each CTA writes
+// per-row partial sums of its valid columns (the last CTA's may be fewer
+// than 128) to shared memory, reads every CTA's
 // partials through distributed shared memory in cluster-rank order after
 // a cluster barrier (so every CTA gets the same mean), then does the same
-// for Σ(v − mean)², and normalises its own columns. The cluster shape is
+// for Σ(v − mean)² over its valid columns (the mean and the variance
+// divide by N), and normalises its own columns. The cluster shape is
 // checked with cudaOccupancyMaxActiveClusters and refused, never shrunk.
 //
 // W8A8 (T = int8_t, K4's contract): the s32 sums are dequantized as
@@ -386,20 +395,22 @@ __device__ __forceinline__ void quantize_a(const GemmArgs& g, int m0,
   sm90::cluster_sync();
 }
 
-// grid (N / 128, ceil(M / BM)); EPI_LN: clusters of (N / 128, 1, 1), so
+// grid (ceil(N / 128), ceil(M / BM)); EPI_LN: clusters of (ceil(N / 128),
+// 1, 1), so
 // a cluster is one row block and blockIdx.x its rank (cx CTAs). A of type
 // T; resid R and out O (K1: both T). T = bf16: map_w covers the (K, N)
 // matrix; float: map_w and map_wl its (N, K) hi and lo halves; int8_t:
 // map_w the (N, K) codes. A consumer thread holds acc[4j + 2h + e] =
 // C[row0 + 8h, n0 + 8j + 2(lane % 4) + e], row0 = m0 + 64·wg + 16·(warp %
 // 4) + lane / 4 (wgmma's accumulator layout, the same for every type).
-template <int BM, int EPI, typename T, typename R, typename O>
+template <int BM, int EPI, typename T, typename R, typename O, bool RAGGED>
 __global__ void __launch_bounds__(Tile<BM, T>::THREADS)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ CUtensorMap map_w,
             const __grid_constant__ CUtensorMap map_wl, const GemmArgs g) {
   using L = Tile<BM, T>;
   using Acc = typename std::conditional<L::I8, int, float>::type;
+  static_assert(!(L::I8 && RAGGED), "K4's widths are N % 128 == 0");
   // QA and QOUT (s8 LayerNorm GEMMs only; QOUT with f32 out): the
   // launcher checks them
   const bool qa = L::I8 && EPI == EPI_LN && g.a32 != nullptr;
@@ -482,13 +493,15 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int c = c0 + j * 8;
-      const float b[2] = {g.bias[c], g.bias[c + 1]};
+      // columns past N (a ragged last tile) are zeros: their W read zeros
+      const bool live = !RAGGED || c < N;
+      const float b[2] = {live ? g.bias[c] : 0.0f, live ? g.bias[c + 1] : 0.0f};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e;
         if constexpr (L::I8)
-          v[i] = dequant(acc[i], rfs[rl + 8 * (e / 2)], g.ws[c + e % 2],
-                         b[e % 2]);
+          v[i] = dequant(acc[i], rfs[rl + 8 * (e / 2)],
+                         g.ws[c + e % 2], b[e % 2]);
         else
           v[i] = acc[i] + b[e % 2];
       }
@@ -510,7 +523,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           v0 = gelu_as(v0);
           v1 = gelu_as(v1);
         }
-        if (r < M) store2(out + (size_t)r * N + c, v0, v1);
+        if (r < M && (!RAGGED || c < N))
+          store2(out + (size_t)r * N + c, v0, v1);
         amax[h] = fmaxf(amax[h], fmaxf(fabsf(v0), fabsf(v1)));
       }
     }
@@ -536,6 +550,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int c = c0 + j * 8;
+      if (RAGGED && c >= N) continue;      // past a ragged N: not in the row
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + rl + 8 * h;
@@ -565,12 +580,14 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     mean[0] = tot.x / N;
     mean[1] = tot.y / N;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < 16; ++j) {
+      if (RAGGED && c0 + j * 8 >= N) continue;  // past a ragged N
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float d = v[4 * j + e] - mean[e / 2];
         part[e / 2] += d * d;
       }
+    }
   }
   part[0] = quad_sum(part[0]);
   part[1] = quad_sum(part[1]);
@@ -606,6 +623,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int c = c0 + j * 8;
+      if (RAGGED && c >= N) continue;      // past a ragged N
       const float s0 = g.ln_s[c], s1 = g.ln_s[c + 1];
       const float b0 = g.ln_b[c], b1 = g.ln_b[c + 1];
 #pragma unroll
@@ -662,13 +680,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 // Whether clusters of cx CTAs of `kernel` fit the card (cached per
 // instance: the answer depends only on the kernel and cx). A refusal is an
 // error, never a smaller cluster.
-template <int BM, int EPI, typename T, typename R, typename O>
+template <int BM, int EPI, typename T, typename R, typename O, bool RAGGED>
 cudaError_t cluster_fits(const cudaLaunchConfig_t& cfg, int cx) {
   static signed char fits[MAX_CLUSTER + 1] = {};
   signed char& f = fits[cx];
   if (f == 0) {
     int n = 0;
-    auto kernel = gemm_kernel<BM, EPI, T, R, O>;
+    auto kernel = gemm_kernel<BM, EPI, T, R, O, RAGGED>;
     const cudaError_t err = cudaOccupancyMaxActiveClusters(
         &n, reinterpret_cast<const void*>(kernel), &cfg);
     if (err != cudaSuccess) return err;
@@ -679,7 +697,7 @@ cudaError_t cluster_fits(const cudaLaunchConfig_t& cfg, int cx) {
 
 // a: A's matrix (QA: the codes the prologue writes, g.aq); w: bf16 the
 // (K, N) matrix, f32 W_hi (N, K) with w_lo its W_lo, s8 the (N, K) codes
-template <int BM, int EPI, typename T, typename R, typename O>
+template <int BM, int EPI, typename T, typename R, typename O, bool RAGGED>
 cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
                         GemmArgs g, cudaStream_t stream) {
   using L = Tile<BM, T>;
@@ -697,7 +715,7 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
   } else {
     map_wl = map_w;  // unread
   }
-  auto kernel = gemm_kernel<BM, EPI, T, R, O>;
+  auto kernel = gemm_kernel<BM, EPI, T, R, O, RAGGED>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L::bytes);
   if (err == cudaSuccess && EPI == EPI_LN)
@@ -705,7 +723,8 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   // LN: one row block a cluster
-  g.cx = EPI == EPI_LN ? N / BN : 1;
+  const int nt = (N + BN - 1) / BN;
+  g.cx = EPI == EPI_LN ? nt : 1;
   if (g.cx > MAX_CLUSTER) return cudaErrorInvalidValue;
   // K4's s8 GEMMs take their hooks as the layer runs them: the GELU one
   // writes PART; a LayerNorm one is the attention-out form (QOUT, f32 out)
@@ -719,7 +738,7 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
                        : g.a32 && g.part;
   if (!hooks_ok) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / BN, (M + BM - 1) / BM);
+  cfg.gridDim = dim3(nt, (M + BM - 1) / BM);
   cfg.blockDim = dim3(L::THREADS);
   cfg.dynamicSmemBytes = L::bytes;
   cfg.stream = stream;
@@ -731,7 +750,7 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cluster_fits<BM, EPI, T, R, O>(cfg, g.cx);
+    err = cluster_fits<BM, EPI, T, R, O, RAGGED>(cfg, g.cx);
     if (err != cudaSuccess) return err;
   }
   void* args[] = {&map_a, &map_w, &map_wl, &g};
@@ -740,13 +759,15 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
   return cudaGetLastError();
 }
 
-// BM = 128 where its tiles fill a wave of the card's 132 SMs, else 64
-template <int EPI, typename T, typename R, typename O>
+// BM = 128 where its tiles fill a wave of the card's 132 SMs, else 64.
+// N % 128 != 0 needs a RAGGED instance; the others refuse it.
+template <int EPI, typename T, typename R, typename O, bool RAGGED = false>
 cudaError_t launch_gemm_bm(const void* a, const void* w, const void* w_lo,
                            const GemmArgs& g, cudaStream_t s) {
-  if ((long long)((g.M + 127) / 128) * (g.N / BN) >= 132)
-    return launch_gemm<128, EPI, T, R, O>(a, w, w_lo, g, s);
-  return launch_gemm<64, EPI, T, R, O>(a, w, w_lo, g, s);
+  if (!RAGGED && g.N % BN != 0) return cudaErrorInvalidValue;
+  if ((long long)((g.M + 127) / 128) * ((g.N + BN - 1) / BN) >= 132)
+    return launch_gemm<128, EPI, T, R, O, RAGGED>(a, w, w_lo, g, s);
+  return launch_gemm<64, EPI, T, R, O, RAGGED>(a, w, w_lo, g, s);
 }
 
 }  // namespace

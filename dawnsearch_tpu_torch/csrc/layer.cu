@@ -129,16 +129,29 @@
 
 namespace {
 
+// the RAGGED instance (the last column tile masked) only where N % 128
+// != 0, and only for K7's two launches (GELU, LayerNorm): K1's N never
+// are, and no caller takes a ragged bias GEMM
+template <int EPI, typename T>
+cudaError_t launch_n(const void* a, const void* w, const void* w_lo,
+                     const GemmArgs& g, cudaStream_t s) {
+  if constexpr (EPI != EPI_BIAS) {
+    if (g.N % BN != 0)
+      return launch_gemm_bm<EPI, T, T, T, true>(a, w, w_lo, g, s);
+  }
+  return launch_gemm_bm<EPI, T, T, T, false>(a, w, w_lo, g, s);
+}
+
 template <typename T>
 cudaError_t launch_epi(int epi, const void* a, const void* w, const void* w_lo,
                        const GemmArgs& g, cudaStream_t s) {
   switch (epi) {
     case EPI_BIAS:
-      return launch_gemm_bm<EPI_BIAS, T, T, T>(a, w, w_lo, g, s);
+      return launch_n<EPI_BIAS, T>(a, w, w_lo, g, s);
     case EPI_GELU:
-      return launch_gemm_bm<EPI_GELU, T, T, T>(a, w, w_lo, g, s);
+      return launch_n<EPI_GELU, T>(a, w, w_lo, g, s);
     case EPI_LN:
-      return launch_gemm_bm<EPI_LN, T, T, T>(a, w, w_lo, g, s);
+      return launch_n<EPI_LN, T>(a, w, w_lo, g, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -152,8 +165,11 @@ extern "C" {
 // cluster of N / 128 CTAs. f32 = 0: a, resid and out bf16, w the bf16
 // (K, N) matrix, w_lo unread; f32 = 1: a, resid and out f32, w and w_lo
 // the (N, K) f32 W_hi and W_lo of the (K, N) matrix (3xTF32; ops/layer.py::
-// tf32_pair). Needs N % 128 == 0, N <= 2048 for the LayerNorm, K a
-// multiple of 16 bytes of elements, 16-byte aligned a, w and w_lo;
+// tf32_pair). Also K7's two launches (csrc/ffn.cu::dawn_ffn). Needs K a
+// multiple of 16 bytes of elements (K % 8 bf16, K % 4 f32); N likewise at
+// epi 1 and 2 (a last column tile past N is masked; K1 itself keeps
+// N % 128 == 0) and N % 128 == 0 at epi 0; N <= 2048 for the LayerNorm
+// (a cluster of ceil(N / 128) CTAs); 16-byte aligned a, w and w_lo;
 // resid/ln_* are read only for epi 2. Returns a cudaError_t: a tensor
 // map, shared-memory size or cluster shape the card refuses is an error,
 // never a smaller launch.
@@ -161,8 +177,9 @@ int dawn_bert_gemm(const void* a, const void* w, const void* w_lo,
                    const void* bias, const void* resid, const void* ln_s,
                    const void* ln_b, void* out, int M, int N, int K, int epi,
                    float eps, int f32, void* stream) {
-  if (M <= 0 || N % BN != 0 || K <= 0 || K % (f32 ? 4 : 8) != 0 ||
-      (f32 && w_lo == nullptr))
+  const int vec = f32 ? 4 : 8;  // elements in 16 bytes
+  if (M <= 0 || N <= 0 || N % vec != 0 || K <= 0 || K % vec != 0 ||
+      (epi == EPI_BIAS && N % BN != 0) || (f32 && w_lo == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   GemmArgs g = {};

@@ -34,10 +34,12 @@ LayerNorm parameters and embeddings in f32, as the reference casts them.
 A layer on K4's route stores its matrices only as i8 codes, (out, in) as
 K4's s8 wgmma reads them, and f32 per-column scales, quantized once from
 the f32 parameters (the reference quantizes the same f32 matrices on
-every call, ops/layer.py:344-347). A
-layer on K1's route at f32 on a card stores each matrix only as the
-(W_hi, W_lo) pair K1's 3xTF32 GEMM reads (ops/layer.py::tf32_pair), made
-once here: twice the f32 matrices' memory.
+every call, ops/layer.py:344-347). At f32 on a card, a layer stores each
+matrix a 3xTF32 GEMM reads only as its (W_hi, W_lo) pair
+(ops/layer.py::tf32_pair), made once here: on K1's route all four, on the
+per-op route the two FFN matrices K7 reads (the QKV and output
+projections stay f32 for torch's matmul). Each pair takes twice its
+matrix's f32 memory.
 """
 
 from __future__ import annotations
@@ -185,20 +187,21 @@ def _layer_fwd(x: torch.Tensor, layer: "BertLayer", cfg: BertConfig,
             i8("ffn_in_w"), layer.ffn_in_b, i8("ffn_out_w"), layer.ffn_out_b,
             layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
             eps=cfg.layer_norm_eps, rel_bias=pos_bias)
+    mat = layer.matrix
     if route == "layer":
-        k1 = layer.k1
         return fused_bert_layer(
-            x.to(cfg.dtype), bias, k1("qkv_w"), layer.qkv_b, k1("attn_out_w"),
-            layer.attn_out_b, layer.attn_ln_scale, layer.attn_ln_bias,
-            k1("ffn_in_w"), layer.ffn_in_b, k1("ffn_out_w"), layer.ffn_out_b,
+            x.to(cfg.dtype), bias, mat("qkv_w"), layer.qkv_b,
+            mat("attn_out_w"), layer.attn_out_b, layer.attn_ln_scale,
+            layer.attn_ln_bias, mat("ffn_in_w"), layer.ffn_in_b,
+            mat("ffn_out_w"), layer.ffn_out_b,
             layer.ffn_ln_scale, layer.ffn_ln_bias, nh=cfg.num_heads,
             eps=cfg.layer_norm_eps, rel_bias=pos_bias)
     attn = _attention(x, layer, cfg, bias, pos_bias)
     x = _layer_norm(x + attn, layer.attn_ln_scale, layer.attn_ln_bias,
                     cfg.layer_norm_eps)
     B, S, H = x.shape
-    y = fused_ffn(x.reshape(B * S, H).to(cfg.dtype), layer.ffn_in_w,
-                  layer.ffn_in_b, layer.ffn_out_w, layer.ffn_out_b,
+    y = fused_ffn(x.reshape(B * S, H).to(cfg.dtype), mat("ffn_in_w"),
+                  layer.ffn_in_b, mat("ffn_out_w"), layer.ffn_out_b,
                   layer.ffn_ln_scale, layer.ffn_ln_bias, eps=cfg.layer_norm_eps)
     return y.reshape(B, S, H)
 
@@ -211,9 +214,9 @@ def _frozen(t, device, dtype=torch.float32) -> nn.Parameter:
 class BertLayer(nn.Module):
     """One post-LN layer's weights; forward is `_layer_fwd`. On K4's route
     each matrix `m` is held only as `m_codes` (i8, laid out (out, in) by
-    i8_weight) and `m_scales` (f32 per column); on K1's route at f32 on a
-    card only as `m_hi` and `m_lo` (tf32_pair); otherwise in the compute
-    dtype."""
+    i8_weight) and `m_scales` (f32 per column); at f32 on a card, on K1's
+    route and for K7's two matrices on the per-op route, only as `m_hi`
+    and `m_lo` (tf32_pair); otherwise in the compute dtype."""
 
     MATRICES = ("qkv_w", "attn_out_w", "ffn_in_w", "ffn_out_w")
     VECTORS = ("qkv_b", "attn_out_b", "attn_ln_scale", "attn_ln_bias",
@@ -223,14 +226,16 @@ class BertLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         route = layer_route(cfg)
-        k1_tf32 = (route == "layer" and cfg.dtype == torch.float32
-                   and torch.device(device).type == "cuda")
+        paired = ()
+        if cfg.dtype == torch.float32 and torch.device(device).type == "cuda":
+            paired = {"layer": self.MATRICES,
+                      "ops": ("ffn_in_w", "ffn_out_w")}.get(route, ())
         for name in self.MATRICES:
             if route == "layer_i8":
                 codes, scales = i8_weight(torch.as_tensor(layer[name]).float())
                 setattr(self, name + "_codes", _frozen(codes, device, torch.int8))
                 setattr(self, name + "_scales", _frozen(scales, device))
-            elif k1_tf32:
+            elif name in paired:
                 pair = tf32_pair(torch.as_tensor(layer[name]).to(device))
                 for part, t in zip(("_hi", "_lo"), pair):
                     setattr(self, name + part, _frozen(t, device))
@@ -243,9 +248,9 @@ class BertLayer(nn.Module):
         """Matrix `name` as K4 takes it: (i8 codes (N, K), f32 scales)."""
         return getattr(self, name + "_codes"), getattr(self, name + "_scales")
 
-    def k1(self, name: str):
-        """Matrix `name` as K1 takes it: (W_hi, W_lo) where the layer holds
-        the pair, else the matrix."""
+    def matrix(self, name: str):
+        """Matrix `name` as K1 and K7 take it: (W_hi, W_lo) where the
+        layer holds the pair, else the matrix."""
         if hasattr(self, name + "_hi"):
             return getattr(self, name + "_hi"), getattr(self, name + "_lo")
         return getattr(self, name)

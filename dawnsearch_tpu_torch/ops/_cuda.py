@@ -31,6 +31,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
+# N <= 16·128: the GEMM ring's LayerNorm spans a cluster of ceil(N / 128)
+# CTAs, at most 16 (csrc/gemm.cuh, MAX_CLUSTER)
+MAX_LN_WIDTH = 2048
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None  # wall time of this process's build, if it built
@@ -151,10 +155,9 @@ def lib() -> ctypes.CDLL:
             cdll.dawn_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, ll,
                                             ll, ll, ll, ll, ll, f, i, i, i, p]
             cdll.dawn_attention.restype = i
-            cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+            cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                      i, f, i, p]
             cdll.dawn_ffn.restype = i
-            cdll.dawn_ffn_block_rows.argtypes = [i, i, i]
-            cdll.dawn_ffn_block_rows.restype = i
             cdll.dawn_mean_pool.argtypes = [p, p, p, i, i, i, i, p]
             cdll.dawn_mean_pool.restype = i
             cdll.dawn_error_string.argtypes = [i]
@@ -185,6 +188,24 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
             f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             f"{'' if t.is_contiguous() else ' (non-contiguous)'}")
+
+
+def check_matrix(what: str, name: str, w, k: int, n: int, dt, device) -> None:
+    """Raise unless w is kernel `what`'s matrix `name` of the (in, out)
+    shape (k, n) in the form its GEMMs read: at bf16 the (k, n) matrix; at
+    f32 the (W_hi, W_lo) pair of ops/layer.py::tf32_pair, each (n, k) f32
+    (3xTF32 on the TMA + wgmma ring, which reads TF32 operands K-major)."""
+    import torch
+    if dt != torch.float32:
+        check_tensor(w, f"{what} {name}", dt, (k, n), device)
+        return
+    if not (isinstance(w, tuple) and len(w) == 2):
+        got = (f"{w.dtype} {tuple(w.shape)}" if isinstance(w, torch.Tensor)
+               else type(w).__name__)
+        raise ValueError(f"{what} {name}: at f32 the kernel takes the (W_hi, "
+                         f"W_lo) pair of ops.layer.tf32_pair, got {got}")
+    for part, t in zip(("hi", "lo"), w):
+        check_tensor(t, f"{what} {name} {part}", dt, (n, k), device)
 
 
 def count(launches: dict, name: str) -> None:

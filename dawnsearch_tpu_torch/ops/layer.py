@@ -57,7 +57,8 @@ import math
 import torch
 
 from dawnsearch_tpu_torch.ops import _cuda
-from dawnsearch_tpu_torch.ops._cuda import check_tensor
+from dawnsearch_tpu_torch.ops._cuda import (MAX_LN_WIDTH, check_matrix,
+                                           check_tensor)
 from dawnsearch_tpu_torch.ops.ffn import erf_poly
 from dawnsearch_tpu_torch.ops.vector import layer_norm
 
@@ -68,7 +69,6 @@ launches = {f"kernel_bert_layer{k}{r}{f}": 0 for k in ("", "_i8")
             for r in ("", "_rel") for f in ("", "_f32")}
 
 MAX_SEQ = 512
-MAX_LN_WIDTH = 2048   # H <= 16·128: the LayerNorm GEMMs' cluster limit
 INV127 = 1.0 / 127.0  # folded to f32(1/127) in f32 products, as the reference
 
 
@@ -187,21 +187,6 @@ def _counter(base: str, rel, x) -> str:
             + ("_f32" if x.dtype == torch.float32 else ""))
 
 
-def _check_matrix(name: str, w, k: int, n: int, dt, dev) -> None:
-    """K1's matrix `name` of the (in, out) shape (k, n): bf16 in bf16; at
-    f32 the (W_hi, W_lo) pair of tf32_pair, each (n, k) f32."""
-    if dt != torch.float32:
-        check_tensor(w, f"K1 {name}", dt, (k, n), dev)
-        return
-    if not (isinstance(w, tuple) and len(w) == 2):
-        got = (f"{w.dtype} {tuple(w.shape)}" if isinstance(w, torch.Tensor)
-               else type(w).__name__)
-        raise ValueError(f"K1 {name}: at f32 the kernel takes the (W_hi, "
-                         f"W_lo) pair of ops.layer.tf32_pair, got {got}")
-    for part, t in zip(("hi", "lo"), w):
-        check_tensor(t, f"K1 {name} {part}", torch.float32, (n, k), dev)
-
-
 def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
                 b2, fln_s, fln_b, *, nh: int, eps: float,
                 rel_bias) -> torch.Tensor:
@@ -213,7 +198,7 @@ def _layer_cuda(x, bias, qkv_w, qkv_b, ao_w, ao_b, aln_s, aln_b, w1, b1, w2,
     for name, w, (k, n) in (("qkv_w", qkv_w, (H, 3 * H)),
                             ("ao_w", ao_w, (H, H)), ("w1", w1, (H, I)),
                             ("w2", w2, (I, H))):
-        _check_matrix(name, w, k, n, dt, dev)
+        check_matrix("K1", name, w, k, n, dt, dev)
     _check_vectors("K1", dev, H, I, qkv_b=qkv_b, ao_b=ao_b, aln_s=aln_s,
                    aln_b=aln_b, b1=b1, b2=b2, fln_s=fln_s, fln_b=fln_b)
     mats = [t for w in (qkv_w, ao_w, w1, w2)
@@ -253,8 +238,11 @@ def _gemm(a, w, bias, epi: int, resid=None, ln_s=None, ln_b=None,
     the TMA + wgmma kernel): (M, K) a · the (K, N) matrix + bias, then epi
     0: nothing, 1: the GELU, 2: + the (M, N) resid and LayerNorm(ln_s,
     ln_b, eps); out (M, N) in a's dtype. w: bf16, the (K, N) matrix; f32,
-    its (W_hi, W_lo) pair (tf32_pair, each (N, K)), multiplied 3xTF32. a,
-    w and resid contiguous in a's dtype, 16-byte aligned, the vectors f32:
+    its (W_hi, W_lo) pair (tf32_pair, each (N, K)), multiplied 3xTF32. N a
+    multiple of 128 at epi 0; at epi 1 and 2 a multiple of 8 (bf16) or 4
+    (f32): the last column tile of an N that is not a multiple of 128 is
+    masked (K7's widths). a, w and resid
+    contiguous in a's dtype, 16-byte aligned, the vectors f32:
     the caller checks them (_layer_cuda; chip_smoke.py and the card tests
     time and hold each projection alone). Counts nothing: K1 counts its
     layer."""

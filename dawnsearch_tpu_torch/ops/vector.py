@@ -32,22 +32,19 @@ def layer_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def layer_norm_from_partials(y: torch.Tensor, scale: torch.Tensor,
-                             bias: torch.Tensor, eps: float,
-                             parts: int) -> torch.Tensor:
-    """`layer_norm` with its sums in the order of K1's cluster epilogue
-    (csrc/layer.cu): the row is cut into `parts` equal chunks, one per CTA
-    of the cluster; the chunks' Σy, added in chunk order, give the mean,
-    then the chunks' Σ(y - mean)², added likewise, the variance. Same
-    two-pass LayerNorm, f32 sums in another order."""
+                             bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """`layer_norm` with its sums in the order of the GEMM ring's cluster
+    LayerNorm epilogue (csrc/gemm.cuh): the row is cut into chunks of 128
+    columns, one per CTA of the cluster, the last holding what is left (a
+    ragged N: 312 = 128 + 128 + 56); the chunks' Σy, added in chunk order,
+    give the mean, then the chunks' Σ(y - mean)², added likewise, the
+    variance. Same two-pass LayerNorm, f32 sums in another order."""
     n = y.shape[-1]
-    if n % parts:
-        raise ValueError(f"{n} columns do not split into {parts} chunks")
 
     def chunk_sum(t):
-        sums = t.reshape(*t.shape[:-1], parts, n // parts).sum(dim=-1)
-        total = sums[..., 0]
-        for p in range(1, parts):
-            total = total + sums[..., p]
+        total = t[..., :128].sum(dim=-1)
+        for c in range(128, n, 128):
+            total = total + t[..., c:c + 128].sum(dim=-1)
         return total[..., None]
     mean = chunk_sum(y) / n
     d = y - mean

@@ -9,12 +9,13 @@ package, so it also runs on a machine that has only torch:
 Every encoder kernel runs at bf16 and at f32 (compute_dtype = "f32": the
 kernels' f32 instances, counted under `_f32` names; K1's GEMM and the K1,
 K5 and K6 attention take every product 3xTF32 on the tensor cores, K4's
-attention keeps its fixed order, K7 runs CUDA-core FMAs). At f32, against
+attention keeps its fixed order, K7 runs on K1's GEMM ring in 3xTF32
+with its matrices as (W_hi, W_lo) pairs). At f32, against
 the twin run at f32 with TF32 off: K1 within max |d| 1e-4 and per-token
 cosine 0.99999, K4 at per-token cosine 0.99995 (its f32 CPU bound), K5,
 K6 and K7 within 1e-5 of the output's scale and per-row cosine 0.99999;
 an f32 input never reaches a plain twin, a dtype mix is refused, and K1
-at f32 refuses a matrix that is not its (W_hi, W_lo) pair. K2 (i8
+and K7 at f32 refuse a matrix that is not its (W_hi, W_lo) pair. K2 (i8
 queries) and K3 (i8 queries) must be bit-equal to their
 plain twin, also at B = 1 and 8 over 32 tiles with count mid-tile and
 whole tiles past it; the bf16-query variants agree within two key steps (3.1e-5) on the
@@ -30,7 +31,9 @@ cosine >= 0.9999, a zero rel_bias changes no bit, and a rel_bias of the
 wrong shape, dtype, device or layout raises. The per-op
 kernels K5 and K6 (which pass a null rel_bias through the same C entry)
 and K7 agree with their plain twins at per-row cosine
-> 0.9999 (the same bf16 rounding points, f32 sums in another order); K8,
+> 0.9999 (the same bf16 rounding points, f32 sums in another order), K7
+at ragged widths (312/1200, 128/256) and at widths whose h a shared-memory
+design could not hold (1024/8192); K8,
 all f32, within 1e-5. K1's GEMM (TMA + wgmma, its LayerNorm over a
 thread-block cluster) is held at rows that are not a multiple of its
 tiles at every cluster width up to a non-portable 10, each epilogue alone
@@ -39,7 +42,9 @@ at M = 128 and 8192), and in a CUDA-graph replay (f32: equal to the eager
 call); the mma.sync attention at S of 16 to 512 and every head dim it
 pads (16 to 128, and 26), on 16-byte aligned and misaligned inputs, in
 K5, K6 and K1 with rel_bias, and at f32 with rel at hd 26, with whole
-key tiles masked and with every key of a sequence masked; a bf16 input
+key tiles masked and with every key of a sequence masked; the GEMM's
+ragged last column tile (EPI_LN at N = 312, EPI_GELU at N = 1200) against
+the same products; a bf16 input
 never reaches a plain twin either. The profiler names the kernels each
 route runs: K1 f32 the TMA + wgmma GEMM and the 3xTF32 attention, K4 (at
 either dtype) the fixed-order attention.
@@ -113,9 +118,9 @@ def _k1_args(rng, B, S, cuda, dtype, H=384, I=1536):
 
 
 def _k1_form(w):
-    """K1's weights as its kernel takes them: at f32 each (in, out)
-    matrix as its (W_hi, W_lo) pair (layer.tf32_pair), as the model holds
-    them on a card; the plain twin takes w as it is."""
+    """K1's (and K7's) weights as its kernel takes them: at f32 each (in,
+    out) matrix as its (W_hi, W_lo) pair (layer.tf32_pair), as the model
+    holds them on a card; the plain twin takes w as it is."""
     return [layer.tf32_pair(t) if t.ndim == 2 and t.dtype == torch.float32
             else t for t in w]
 
@@ -576,13 +581,17 @@ def _ffn_args(rng, M, H, I, cuda, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("M,H,I", [(100, 384, 1536), (64, 312, 1200),
-                                   (40, 768, 3072), (16, 128, 256)])
+                                   (40, 768, 3072), (16, 128, 256),
+                                   (128, 768, 3072), (64, 1024, 8192)])
 def test_k7_matches_plain(cuda, M, H, I, dtype):
+    """K7 (two launches of the GEMM ring; at f32 its matrices as
+    tf32_pair pairs, as the model holds them) against ffn_plain on the
+    (in, out) matrices, at ragged widths and at 1024/8192."""
     dt = DTYPES[dtype]
     args = _ffn_args(np.random.default_rng(H), M, H, I, cuda, dt)
     name = "kernel_ffn" + ("_f32" if dtype == "f32" else "")
     before = dict(ffn.launches)
-    got = ffn.fused_ffn(*args)
+    got = ffn.fused_ffn(args[0], *_k1_form(args[1:]))
     assert got.dtype == dt
     assert ffn.launches == {**before, name: before[name] + 1}
     want = ffn.ffn_plain(*args)
@@ -651,9 +660,12 @@ def test_per_op_kernels_refuse_what_they_do_not_take(cuda):
     odd = _ffn_args(rng, 16, 100, 256, cuda)                   # H % 8 != 0
     with pytest.raises(ValueError, match="multiples of 8"):
         ffn.fused_ffn(*odd)
-    wide = _ffn_args(rng, 16, 1024, 8192, cuda)                # h is 262 KB
-    with pytest.raises(ValueError, match="shared memory"):
+    wide = _ffn_args(rng, 16, 2176, 256, cuda)                 # 17 CTAs
+    with pytest.raises(ValueError, match="H <= 2048"):
         ffn.fused_ffn(*wide)
+    w1 = layer.tf32_pair(args32[1])                             # plain f32 W2
+    with pytest.raises(ValueError, match=r"K7 w2: at f32 .*\(W_hi, W_lo\)"):
+        ffn.fused_ffn(args32[0], w1, *args32[2:])
 
     hidden = torch.zeros((2, 32, 384), device=cuda)
     mask = torch.ones((2, 32), dtype=torch.int32, device=cuda)
@@ -771,7 +783,7 @@ def test_f32_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
     heads = q.reshape(2, 32, 12, 32).transpose(1, 2).contiguous()
     assert attention.fused_attention(heads, heads, heads, bias, 12).dtype == f32
     args = _ffn_args(rng, 64, 384, 1536, cuda, f32)
-    assert ffn.fused_ffn(*args).dtype == f32
+    assert ffn.fused_ffn(args[0], *_k1_form(args[1:])).dtype == f32
 
 
 # -- K1's TMA + wgmma GEMM and the mma.sync attention -----------------------
@@ -930,6 +942,53 @@ def test_k1_f32_gemm_epilogues_match_the_f64_product(cuda, M, K, N, epi):
     assert float((got.double() - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
     assert float(_row_cos(got, want, N).min()) >= 0.99999
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("M,K,N,epi", [(200, 1200, 312, 2), (200, 312, 1200, 1),
+                                       (16, 312, 1200, 1)])
+def test_gemm_ragged_last_column_tile(cuda, M, K, N, epi, dtype):
+    """ops/layer.py::_gemm at an N that is not a multiple of 128, as K7
+    runs it at TinyBERT's width: the LayerNorm over a cluster of 3 CTAs
+    (312 = 128 + 128 + 56) and the GELU GEMM's 10th tile of 48 columns,
+    rows ragged too. Against the same products with the epilogue in f32
+    (bf16: rounded once, per-row cosine >= 0.9999 and max |d| within 2^-7
+    of the scale) or f64 (f32, 3xTF32: max |d| within 1e-5 of the scale,
+    cosine >= 0.99999)."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(M + K + N)
+
+    def t(*shape, s=1.0, base=0.0, dtype=None):
+        return torch.from_numpy((base + s * rng.standard_normal(shape)
+                                 ).astype(np.float32)).to(cuda, dtype)
+    a, w, b = t(M, K, dtype=dt), t(K, N, s=0.05, dtype=dt), t(N, s=0.1)
+    resid, ln_s, ln_b = ((t(M, N, dtype=dt), t(N, s=0.1, base=1.0),
+                          t(N, s=0.1)) if epi == 2 else (None, None, None))
+    kw = layer.tf32_pair(w) if dt == torch.float32 else w
+    got = layer._gemm(a, kw, b, epi, resid, ln_s, ln_b)
+    assert got.dtype == dt and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    if dt == torch.float32:
+        want = _gemm_want_f64(a, w, b, epi, resid, ln_s, ln_b)
+        assert float((got.double() - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+        assert float(_row_cos(got, want, N).min()) >= 0.99999
+    else:
+        want = _gemm_want(a, w, b, epi, resid, ln_s, ln_b).to(dt).float()
+        got = got.float()
+        assert float(_row_cos(got, want, N).min()) >= 0.9999
+        assert float((got - want).abs().max()) <= 2 ** -7 * float(
+            want.abs().max())
+
+
+def test_gemm_refuses_a_ragged_bias_gemm(cuda):
+    """The ragged last column tile is built for the GELU and LayerNorm
+    epilogues only (K7's two launches): a bias GEMM at N = 312 is refused
+    (CUDA's invalid-value error)."""
+    a = torch.zeros((16, 256), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((256, 312), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        layer._gemm(a, w, torch.zeros(312, device=cuda), 0)
 
 
 def test_k1_f32_replays_in_a_cuda_graph(cuda):

@@ -1,12 +1,15 @@
-"""K1's cluster LayerNorm order and its build key, on the CPU.
+"""The GEMM ring's cluster LayerNorm order and its build key, on the CPU.
 
-The bf16 GEMM's LayerNorm epilogue (csrc/layer.cu) spreads a row over a
-cluster of N / 128 CTAs: each CTA sums its own columns, and the row's mean
-and variance come from the CTAs' partial sums added in rank order.
-`ops/vector.py::layer_norm_from_partials` writes that order out in plain
-torch; here it is held against `layer_norm` (the twins' LayerNorm) for the
-cluster sizes K1 runs: 3 (MiniLM), 6 (BERT-base), 8 (BERT-large) and 16
-(the largest cluster, H = 2048). Tolerance: max |d| <= 1e-5 on the
+The GEMM ring's LayerNorm epilogue (csrc/gemm.cuh) spreads a row over a
+cluster of ceil(N / 128) CTAs: each CTA sums its own columns, and the
+row's mean and variance come from the CTAs' partial sums added in rank
+order. `ops/vector.py::layer_norm_from_partials` writes that order out in
+plain torch; here it is held against `layer_norm` (the twins' LayerNorm)
+for the cluster sizes K1 runs: 3 (MiniLM), 6 (BERT-base), 8 (BERT-large)
+and 16 (the largest cluster, H = 2048), and at the ragged widths K7 runs
+on the same epilogue, chunks of 128 columns with a short last one: 312
+(TinyBERT, 128 + 128 + 56), 1200 (9 x 128 + 48) and 2040 (15 x 128 +
+120). Tolerance: max |d| <= 1e-5 on the
 normalised rows, and both within 1e-5 of an f64 LayerNorm. The two differ
 only in the order of f32 sums over at most 2048 terms (relative error
 about 1e-7 of the sum), far below one bf16 step (3.9e-3) of K1's output.
@@ -30,17 +33,20 @@ from dawnsearch_tpu_torch.ops.vector import layer_norm, layer_norm_from_partials
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("parts", [3, 6, 8, 16])
-def test_cluster_order_layer_norm_matches_layer_norm(parts):
-    rng = np.random.default_rng(parts)
-    n = 128 * parts
-    # rows with a large common offset, as the residual sum gives them
+def _rows(rng, n):
+    """64 rows with a large common offset, as the residual sum gives them,
+    and LayerNorm parameters."""
     y = torch.from_numpy((3.0 + 2.0 * rng.standard_normal((64, n))
                           ).astype(np.float32))
     scale = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(n)
                               ).astype(np.float32))
     bias = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(np.float32))
-    got = layer_norm_from_partials(y, scale, bias, 1e-12, parts)
+    return y, scale, bias
+
+
+def _check_bound(got, y, scale, bias):
+    """max |d| <= 1e-5 against layer_norm, and both within 1e-5 of an f64
+    LayerNorm."""
     want = layer_norm(y, scale, bias, 1e-12)
     assert got.dtype == torch.float32 and got.shape == y.shape
     assert float((got - want).abs().max()) <= 1e-5
@@ -50,9 +56,25 @@ def test_cluster_order_layer_norm_matches_layer_norm(parts):
         -1, keepdim=True) + 1e-12) * scale.double() + bias.double())
     assert float((got.double() - exact).abs().max()) <= 1e-5
     assert float((want.double() - exact).abs().max()) <= 1e-5
-    with pytest.raises(ValueError, match="do not split"):
-        layer_norm_from_partials(y[:, :-1], scale[:-1], bias[:-1], 1e-12,
-                                 parts)
+
+
+@pytest.mark.parametrize("parts", [3, 6, 8, 16])
+def test_cluster_order_layer_norm_matches_layer_norm(parts):
+    rng = np.random.default_rng(parts)
+    y, scale, bias = _rows(rng, 128 * parts)
+    got = layer_norm_from_partials(y, scale, bias, 1e-12)
+    _check_bound(got, y, scale, bias)
+
+
+@pytest.mark.parametrize("n,last", [(312, 56), (1200, 48), (2040, 120)])
+def test_ragged_cluster_layer_norm_matches_layer_norm(n, last):
+    """A ragged N: ceil(n / 128) CTAs, the last with `last` columns; each
+    CTA's partials cover its valid columns and the mean divides by n."""
+    rng = np.random.default_rng(n)
+    y, scale, bias = _rows(rng, n)
+    assert n - 128 * (n // 128) == last
+    got = layer_norm_from_partials(y, scale, bias, 1e-12)
+    _check_bound(got, y, scale, bias)
 
 
 @pytest.mark.parametrize("header", ["sm90.cuh", "common.cuh"])
