@@ -71,8 +71,15 @@ Phases, each printing one progress line; any failure exits non-zero:
             BERT-base and at 128 rows of both; timed beside the PyTorch
             composition of the same function (addmm, GELU, addmm, + x,
             layer_norm: five calls in the entry's dtype, TF32 off)
-  pool      K8 vs mean_pool_plain at (64, 128, 384) and (8, 512, 384),
-            masked and include_padding; timed
+  pool      K8 vs mean_pool_plain in bf16 and f32 with the encoder's
+            int32 mask at (B, S, H) = (64, 128, 384) (also
+            include_padding), (1, 128, 384), (8, 128, 384), (8, 512, 384),
+            (8, 512, 1024) and (8, 512, 2048): its bf16 result bit-equal to
+            its f32 one on the upcast input, two calls bit-equal; timed
+            beside the pool_impl="xla" composition and a launch floor; then
+            encode_batch's pool stage on a bf16 (B, 128, 384) last hidden
+            state at B = 1, 8, 64: K8 alone, the cast route (casts + K8
+            f32) and the xla route, device and host time
   recall    FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
             recall@10 raw and after the f32 re-rank of k+30 candidates
   recall_i4 FlatIndex i4 at 2,097,152 rows built through host-packed adds
@@ -86,8 +93,9 @@ Phases, each printing one progress line; any failure exits non-zero:
             busy share and top kernels from torch.profiler
   ops       the encoder end to end through SentenceEncoder on the smoke
             texts, each run against the same encoder on the CPU: MiniLM
-            width with layer_impl="layer_i8" (K4) and "ops" (pool "fused"
-            and "xla") and with attn_impl="xla", TinyBERT width (H=312,
+            width with layer_impl="layer" (K1; pool "xla" and "fused"),
+            "layer_i8" (K4) and "ops" (pool "fused" and "xla") and with
+            attn_impl="xla", TinyBERT width (H=312,
             12 heads, I=1200, 4 layers) with layer_impl="layer", which must
             fall back to K6 + K7, and all-mpnet-base-v2's width (2 layers)
             with layer_impl="ops", which must run K7 and never K5 or K6
@@ -96,7 +104,8 @@ Phases, each printing one progress line; any failure exits non-zero:
             fallback (K6 + K7 f32), within the f32 atol 1e-4 of the CPU;
             the counters each run raised (every other encoder counter must
             stay 0); encode ms
-            at B=1, 8, 64 (S=128) on the K1 and the per-op paths, bf16 and
+            at B=1, 8, 64 (S=128) on the K1 path (both pools) and the
+            per-op paths, bf16 and
             f32, as device time (CUDA-graph replays) and as host time over
             6 alternating rounds (median [min, max])
   node      `python -m dawnsearch_tpu_torch` over a 270,000-page store
@@ -206,7 +215,13 @@ K5_F32_SHAPES, K6_F32_SHAPES = K5_SHAPES[:2], K6_SHAPES[:2]
 FFN_SHAPES = ((64 * 128, 384, 1536), (64 * 128, 768, 3072),
               (64 * 128, 312, 1200), (128, 384, 1536), (128, 768, 3072))
 FFN_F32_SHAPES = (*FFN_SHAPES[:2], *FFN_SHAPES[3:])
-POOL_SHAPES = ((64, 128, 384), (8, 512, 384))
+# K8 alone (B, S, H): a B=64 batch (the entry's headline), the node's
+# query buckets, its ingest buckets of 128 and 256 (one CTA a sequence),
+# long sequences at MiniLM's width, BERT-large's and 2048
+POOL_SHAPES = ((64, 128, 384), (1, 128, 384), (8, 128, 384),
+               (128, 128, 384), (256, 128, 384), (8, 512, 384),
+               (8, 512, 1024), (8, 512, 2048))
+POOL_STAGE_BATCHES = (1, 8, 64)  # encode_batch's pool stage, S = 128
 TINYBERT = dict(hidden_size=312, num_heads=12, intermediate_size=1200,
                 num_layers=4)
 ENCODE_BATCHES, ENCODE_ROUNDS = (1, 8, 64), 6
@@ -222,7 +237,7 @@ NODE_TIERS = ("i8", "i4", "bf16")
 PROFILE_BATCHES, PROFILE_K = (1, 8, 64), 50
 COS_MIN = 0.999          # bf16 bound of the reference (test_pallas_kernels.py)
 # K5-K7 vs their plain twins: the same bf16 rounding points, f32 sums in
-# another order; K8 is f32 throughout
+# another order; K8 sums in f32 in either dtype
 KERNEL_COS_MIN, POOL_ERR_MAX = 0.9999, 1e-5
 # the f32 instances vs their twins run at f32 with TF32 off: f32 sums in
 # another order. K1: max |d| and per-token cosine; K4: per-token cosine at
@@ -1449,41 +1464,102 @@ def ffn_entry(rng: np.random.Generator, dev, ffn_shapes, dtype) -> dict:
             **shapes[0], "other_shapes": shapes[1:]}
 
 
+def _pool_stages(hidden, mask):
+    """encode_batch's pool stage on a bf16 last hidden state and the
+    encoder's int32 mask, three ways: K8 as this route runs it (no cast),
+    the cast route (the hidden state and the mask cast to f32, then K8's
+    f32 instance), and pool_impl="xla" (the cast, then mean_pool and
+    normalize)."""
+    from dawnsearch_tpu_torch.models.bert import mean_pool
+    from dawnsearch_tpu_torch.ops import attention as at
+    from dawnsearch_tpu_torch.ops.vector import normalize
+    return {"fused": lambda: at.fused_mean_pool(hidden, mask),
+            "cast_fused": lambda: at.fused_mean_pool(hidden.float(),
+                                                     mask.float()),
+            "xla": lambda: normalize(mean_pool(hidden.float(), mask),
+                                     eps=1e-12)}
+
+
 def phase_pool(results: list) -> None:
-    """K8 on f32 hidden states with an int mask, as encode_batch calls it;
-    no single PyTorch call computes the masked mean + normalize."""
+    """K8 on bf16 and f32 hidden states with the encoder's int32 mask,
+    against mean_pool_plain; its bf16 result bit-equal to its f32 result
+    on the upcast input and two calls bit-equal; timed beside the
+    pool_impl="xla" composition (no single PyTorch call computes the
+    masked mean + normalize) and beside a launch floor (K8 at B = S = 1,
+    H = 8). Then encode_batch's pool stage at MiniLM's width (the K1
+    route's last hidden state, bf16) at the node's buckets and B = 64,
+    device and host time."""
     from dawnsearch_tpu_torch.ops import attention as at
     rng = np.random.default_rng(13)
     dev = torch.device("cuda")
+    tiny = torch.ones((1, 1, 8), dtype=torch.bfloat16, device=dev)
+    one = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    floor_ms = graph_ms(lambda: at.fused_mean_pool(tiny, one))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say(f"phase pool: launch floor (K8 at B=1 S=1 H=8) {floor_ms:.4f} ms")
     shapes = []
-    for B, S, H in POOL_SHAPES:
-        hidden = torch.from_numpy(rng.standard_normal((B, S, H), np.float32)
-                                  ).to(dev)
-        mask = _ragged(rng, B, S, dev)[0].int()
-        for pad in (False, True):
-            got = at.fused_mean_pool(hidden, mask, pad)
-            want = at.mean_pool_plain(hidden, mask, pad)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            norm_err = float((got.norm(dim=-1) - 1).abs().max())
-            ok = err <= POOL_ERR_MAX and norm_err <= POOL_ERR_MAX
-            ms = graph_ms(lambda: at.fused_mean_pool(hidden, mask, pad))
-            plain_ms = graph_ms(lambda: at.mean_pool_plain(hidden, mask, pad))
-            bd = bound(2 * B * S * H, "f32",
-                       nbytes(hidden, got) + (0 if pad else nbytes(mask)))
-            shape = f"B={B} S={S} H={H} f32{' include_padding' if pad else ''}"
-            say(f"phase pool {shape}: max|d|={err:.3e} max|norm-1|="
-                f"{norm_err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-            if not ok:
-                raise AssertionError(f"K8 disagrees with mean_pool_plain at "
-                                     f"{shape} (bound {POOL_ERR_MAX})")
-            shapes.append({"shape": shape, "max_abs_err": err, "ms": ms,
-                           "plain_ms": plain_ms, **bd, "library_ms": None})
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H in POOL_SHAPES:
+            hidden = torch.from_numpy(rng.standard_normal(
+                (B, S, H), np.float32)).to(dev, dtype)
+            mask = _ragged(rng, B, S, dev)[0].int()
+            stages = _pool_stages(hidden, mask)
+            for pad in (False, True) if (B, S, H) == POOL_SHAPES[0] else \
+                    (False,):
+                got = at.fused_mean_pool(hidden, mask, pad)
+                want = at.mean_pool_plain(hidden, mask, pad)
+                same = (torch.equal(got, at.fused_mean_pool(hidden, mask, pad))
+                        and torch.equal(got, at.fused_mean_pool(
+                            hidden.float(), mask, pad)))
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                norm_err = float((got.norm(dim=-1) - 1).abs().max())
+                ok = err <= POOL_ERR_MAX and norm_err <= POOL_ERR_MAX and same
+                ms = graph_ms(lambda: at.fused_mean_pool(hidden, mask, pad))
+                plain_ms = graph_ms(lambda: at.mean_pool_plain(hidden, mask,
+                                                               pad))
+                comp_ms = None if pad else graph_ms(stages["xla"])
+                bd = bound(2 * B * S * H, "f32",
+                           nbytes(hidden, got) + (0 if pad else nbytes(mask)))
+                shape = (f"B={B} S={S} H={H} {_tag(dtype)}"
+                         f"{' include_padding' if pad else ''}")
+                say(f"phase pool {shape}: plan {at.plan_pool(B, S, H, sms)}"
+                    f" max|d|={err:.3e} max|norm-1|={norm_err:.3e} bits "
+                    f"{'equal' if same else 'DIFFER'} (two calls, f32 of the "
+                    f"same values) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                    f"composition {comp_ms} ms bound {bd['bound_ms']:.4f} ms "
+                    f"({bd['bound_by']})")
+                if not ok:
+                    raise AssertionError(
+                        f"K8 disagrees with mean_pool_plain at {shape} (bound "
+                        f"{POOL_ERR_MAX}) or its bits moved: {err}, "
+                        f"{norm_err}, {same}")
+                shapes.append({"shape": shape, "max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, **bd, "library_ms": None,
+                               "composition_ms": comp_ms})
+    stages_out = []
+    for B in POOL_STAGE_BATCHES:
+        hidden = torch.from_numpy(rng.standard_normal(
+            (B, 128, 384), np.float32)).to(dev, torch.bfloat16)
+        mask = _ragged(rng, B, 128, dev)[0].int()
+        stages = _pool_stages(hidden, mask)
+        outs = {k: f() for k, f in stages.items()}
+        err = max(float((o - outs["xla"]).abs().max()) for o in outs.values())
+        if err > POOL_ERR_MAX:
+            raise AssertionError(f"pool stages disagree at B={B}: {err}")
+        row = {"B": B, "S": 128, "H": 384, "max_abs_err": err}
+        for k, f in stages.items():
+            row[k + "_ms"] = graph_ms(f)
+            row[k + "_host_ms"] = _host_ms(f)
+        say(f"phase pool stage B={B} S=128 H=384 bf16: " + "; ".join(
+            f"{k} device {row[k + '_ms']:.4f} ms host "
+            f"{row[k + '_host_ms']:.4f} ms" for k in stages))
+        stages_out.append(row)
     results.append({"name": "mean_pool", "route": "cuda",
                     "source": "dawnsearch_tpu_torch/csrc/pool.cu",
                     "replaces": "dawnsearch_tpu/ops/attention.py:241",
-                    **shapes[0], "other_shapes": shapes[1:]})
+                    **shapes[0], "launch_floor_ms": floor_ms,
+                    "pool_stage": stages_out, "other_shapes": shapes[1:]})
 
 
 def _unit_rows(n: int, g: torch.Generator, dev, dim: int = 384) -> torch.Tensor:
@@ -1779,6 +1855,9 @@ def phase_ops(counts: dict) -> None:
     k1, k4 = "kernel_bert_layer", "kernel_bert_layer_i8"
     runs = (
         ("minilm layer", dict(minilm), {k1}),
+        # K1's route with K8 as its pool: K8 reads the bf16 last hidden state
+        ("minilm layer+fused pool", dict(minilm, pool_impl="fused"),
+         {k1, "kernel_mean_pool"}),
         ("minilm layer_i8", dict(minilm, layer_impl="layer_i8"), {k4}),
         ("minilm ops+fused pool", dict(minilm, layer_impl="ops",
                                        pool_impl="fused"),
@@ -1833,7 +1912,8 @@ def phase_ops(counts: dict) -> None:
             raise AssertionError(f"ops {label}: cos {cos} (bound {COS_MIN}), "
                                  f"max|d| {err} or a wrong route: {ran}")
         embs[label], encoders[label] = emb, enc
-    for label in ("minilm layer_i8", "minilm ops+fused pool", "minilm ops",
+    for label in ("minilm layer+fused pool", "minilm layer_i8",
+                  "minilm ops+fused pool", "minilm ops",
                   "minilm attn_impl=xla"):
         cos = float(np.min(np.sum(embs[label] * embs["minilm layer"], axis=1)))
         say(f"phase ops {label} vs the K1 path: min cos {cos:.6f}")
@@ -1843,9 +1923,9 @@ def phase_ops(counts: dict) -> None:
     # encode_batch (CUDA-graph replays, no host work in it), and host time
     # of _encode (host-to-device copy included) in ENCODE_ROUNDS rounds
     # that alternate the paths' order, as median [min, max] of the rounds
-    labels = ("minilm layer", "minilm ops+fused pool", "minilm ops",
-              "minilm attn_impl=xla", "minilm layer f32",
-              "minilm ops+fused pool f32")
+    labels = ("minilm layer", "minilm layer+fused pool",
+              "minilm ops+fused pool", "minilm ops", "minilm attn_impl=xla",
+              "minilm layer f32", "minilm ops+fused pool f32")
     for B in ENCODE_BATCHES:
         texts = [TEXTS[j % len(TEXTS)] for j in range(B)]
         enc = encoders["minilm layer"]

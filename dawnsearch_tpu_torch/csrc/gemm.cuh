@@ -677,24 +677,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   sm90::cluster_wait();
 }
 
-// Whether clusters of cx CTAs of `kernel` fit the card (cached per
-// instance: the answer depends only on the kernel and cx). A refusal is an
-// error, never a smaller cluster.
-template <int BM, int EPI, typename T, typename R, typename O, bool RAGGED>
-cudaError_t cluster_fits(const cudaLaunchConfig_t& cfg, int cx) {
-  static signed char fits[MAX_CLUSTER + 1] = {};
-  signed char& f = fits[cx];
-  if (f == 0) {
-    int n = 0;
-    auto kernel = gemm_kernel<BM, EPI, T, R, O, RAGGED>;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &n, reinterpret_cast<const void*>(kernel), &cfg);
-    if (err != cudaSuccess) return err;
-    f = n > 0 ? 1 : -1;
-  }
-  return f > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
-
 // a: A's matrix (QA: the codes the prologue writes, g.aq); w: bf16 the
 // (K, N) matrix, f32 W_hi (N, K) with w_lo its W_lo, s8 the (N, K) codes
 template <int BM, int EPI, typename T, typename R, typename O, bool RAGGED>
@@ -750,7 +732,7 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* w_lo,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cluster_fits<BM, EPI, T, R, O, RAGGED>(cfg, g.cx);
+    err = sm90::cluster_fits(reinterpret_cast<const void*>(kernel), cfg);
     if (err != cudaSuccess) return err;
   }
   void* args[] = {&map_a, &map_w, &map_wl, &g};

@@ -411,22 +411,6 @@ select_kernel(const __grid_constant__ CUtensorMap map,
   if (s > 1) sm90::cluster_sync();  // no CTA leaves while a peer reads it
 }
 
-// Whether clusters of s CTAs of `kernel` fit the card (cached per
-// instance and s). A refusal is an error, never a smaller split.
-template <int FMT, bool QI8, int QN>
-cudaError_t split_fits(const cudaLaunchConfig_t& cfg, int s) {
-  static signed char fits[MAX_SPLIT + 1] = {};
-  signed char& f = fits[s];
-  if (f == 0) {
-    int n = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &n, reinterpret_cast<const void*>(select_kernel<FMT, QI8, QN>), &cfg);
-    if (err != cudaSuccess) return err;
-    f = n > 0 ? 1 : -1;
-  }
-  return f > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
-
 template <int FMT, bool QI8, int QN>
 int launch(const void* q, const void* qs, const void* codes,
            const void* scales, long long count, void* vals, void* ids, int B,
@@ -459,7 +443,7 @@ int launch(const void* q, const void* qs, const void* codes,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = split_fits<FMT, QI8, QN>(cfg, s);
+    err = sm90::cluster_fits(reinterpret_cast<const void*>(kernel), cfg);
     if (err != cudaSuccess) return (int)err;
   }
   const float* qs_p = static_cast<const float*>(qs);

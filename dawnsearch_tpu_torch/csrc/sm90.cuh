@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 namespace sm90 {
 
@@ -473,6 +475,41 @@ __device__ __forceinline__ int ld_dsmem(const int* local, uint32_t rank) {
                : "r"(smem_u32(local)), "r"(rank));
   asm volatile("ld.shared::cluster.s32 %0, [%1];" : "=r"(v) : "r"(remote));
   return v;
+}
+
+// Host: whether `kernel`'s clusters, as `cfg` launches them (its cluster
+// attribute, block and dynamic shared memory), fit the card. A refusal is
+// an error, never a smaller cluster. The occupancy query costs a few
+// microseconds, so each (kernel, cluster size, block, shared memory) is
+// asked once; the answers of this includer's kernels share one table.
+inline cudaError_t cluster_fits(const void* kernel,
+                                const cudaLaunchConfig_t& cfg) {
+  struct Seen {
+    const void* kernel;
+    unsigned n, threads;
+    size_t smem;
+    bool fits;
+  };
+  static std::mutex mu;
+  static Seen seen[256];
+  static int count = 0;
+  unsigned n = 1;
+  for (unsigned i = 0; i < cfg.numAttrs; ++i)
+    if (cfg.attrs[i].id == cudaLaunchAttributeClusterDimension)
+      n = cfg.attrs[i].val.clusterDim.x * cfg.attrs[i].val.clusterDim.y *
+          cfg.attrs[i].val.clusterDim.z;
+  const unsigned threads = cfg.blockDim.x * cfg.blockDim.y * cfg.blockDim.z;
+  std::lock_guard<std::mutex> hold(mu);
+  for (int i = 0; i < count; ++i)
+    if (seen[i].kernel == kernel && seen[i].n == n &&
+        seen[i].threads == threads && seen[i].smem == cfg.dynamicSmemBytes)
+      return seen[i].fits ? cudaSuccess : cudaErrorInvalidConfiguration;
+  int k = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&k, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (count < 256)
+    seen[count++] = {kernel, n, threads, cfg.dynamicSmemBytes, k > 0};
+  return k > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 }  // namespace sm90

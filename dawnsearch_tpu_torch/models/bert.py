@@ -22,10 +22,12 @@ routed condition for condition as `_layer_fwd` does (bert.py:125-126,
 The reference's ffn_impl="xla" (two dense calls, bert.py:199-213) is set
 only by its tests and no node setting reaches it, so it is not carried.
 
-pool_impl="fused" pools and normalizes with K8 (ops/attention.py). The
-reference's parity flags stay: `mask_padding=False` attends over padding
-like the reference model (model.rs:325-347) and `include_padding=True`
-pools over it (embedding_service.rs:126-128). The key mask is an additive
+pool_impl="fused" pools and normalizes with K8 (ops/attention.py), which
+reads the last hidden state in the compute dtype and the int32 mask as
+they are, with no cast launch before it. The reference's parity flags
+stay: `mask_padding=False` attends over padding like the reference model
+(model.rs:325-347) and `include_padding=True` pools over it
+(embedding_service.rs:126-128). The key mask is an additive
 -1e30 bias (bert.py:254-257).
 
 Parameters never require gradients; encode_batch runs under
@@ -286,9 +288,11 @@ class EncoderStack(nn.Module):
     def encode_embeddings(self, x: torch.Tensor,
                           attention_mask: torch.Tensor | None,
                           mask_padding: bool,
-                          pos_bias: torch.Tensor | None = None) -> torch.Tensor:
+                          pos_bias: torch.Tensor | None = None,
+                          cast: bool = True) -> torch.Tensor:
         """Summed (B, S, H) f32 embeddings -> LayerNorm -> every layer ->
-        (B, S, H) f32 last hidden state."""
+        (B, S, H) last hidden state: f32, or with cast=False in the
+        compute dtype (encode_batch's K8 route, which reads it as it is)."""
         x = _layer_norm(x, self.emb_ln_scale, self.emb_ln_bias,
                         self.cfg.layer_norm_eps).to(self.cfg.dtype)
         bias = None
@@ -296,12 +300,13 @@ class EncoderStack(nn.Module):
             bias = torch.where(attention_mask.bool(), 0.0, -1e30).float()
         for layer in self.layers:
             x = layer(x, bias, pos_bias)
-        return x.float()
+        return x.float() if cast else x
 
 
 class BertModel(EncoderStack):
     """Token ids -> (B, S, H) f32 last hidden state (reference
-    BertModel::forward, model.rs:528-571)."""
+    BertModel::forward, model.rs:528-571); cast=False leaves it in the
+    compute dtype."""
 
     def __init__(self, cfg: BertConfig, params: Params, *, device):
         super().__init__(cfg, params, device=device)
@@ -309,11 +314,12 @@ class BertModel(EncoderStack):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor | None = None,
-                mask_padding: bool = True) -> torch.Tensor:
+                mask_padding: bool = True, cast: bool = True) -> torch.Tensor:
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)
         x = self.word[input_ids] + self.position[pos][None] + self.token_type[0]
-        return self.encode_embeddings(x, attention_mask, mask_padding)
+        return self.encode_embeddings(x, attention_mask, mask_padding,
+                                      cast=cast)
 
 
 def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor | None = None,
@@ -335,9 +341,13 @@ def encode_batch(model: EncoderStack, input_ids: torch.Tensor,
     (B, H) f32 on the model's device (reference calculate_embedding,
     embedding_service.rs:97-139, minus tokenization). The model's class
     carries its family (the reference routes on cfg.model_type,
-    bert.py:312-318); the pool follows the model's pool_impl."""
-    hidden = model(input_ids, attention_mask, mask_padding=mask_padding)
-    if model.cfg.pool_impl == "fused":
+    bert.py:312-318); the pool follows the model's pool_impl. K8 reads
+    the last hidden state in the compute dtype (the reference casts it to
+    f32 first, and K8's bf16 -> f32 conversion is exact)."""
+    fused = model.cfg.pool_impl == "fused"
+    hidden = model(input_ids, attention_mask, mask_padding=mask_padding,
+                   cast=not fused)
+    if fused:
         return fused_mean_pool(hidden, attention_mask,
                                include_padding=include_padding)
     pooled = mean_pool(hidden, attention_mask, include_padding=include_padding)

@@ -92,8 +92,9 @@ def mpnet_position_ids(input_ids: torch.Tensor, pad_id: int) -> torch.Tensor:
 
 class MPNetModel(EncoderStack):
     """Token ids -> (B, S, H) f32 last hidden state (HF MPNetModel, minus
-    the unused pooler; reference mpnet_forward, mpnet.py:92-116). `params`
-    is the stacked tree with the (num_buckets, nh) table at "rel_bias"."""
+    the unused pooler; reference mpnet_forward, mpnet.py:92-116); cast=False
+    leaves it in the compute dtype. `params` is the stacked tree with the
+    (num_buckets, nh) table at "rel_bias"."""
 
     def __init__(self, cfg: BertConfig, params: Params, *, device):
         super().__init__(cfg, params, device=device)
@@ -101,7 +102,7 @@ class MPNetModel(EncoderStack):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor | None = None,
-                mask_padding: bool = True) -> torch.Tensor:
+                mask_padding: bool = True, cast: bool = True) -> torch.Tensor:
         cfg = self.cfg
         pos = mpnet_position_ids(input_ids, cfg.pad_token_id)
         x = self.word[input_ids] + self.position[pos]
@@ -109,4 +110,4 @@ class MPNetModel(EncoderStack):
                                  cfg.num_heads,
                                  cfg.relative_attention_num_buckets)
         return self.encode_embeddings(x, attention_mask, mask_padding,
-                                      pos_bias)
+                                      pos_bias, cast=cast)

@@ -158,7 +158,8 @@ def lib() -> ctypes.CDLL:
             cdll.dawn_ffn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
                                       i, f, i, p]
             cdll.dawn_ffn.restype = i
-            cdll.dawn_mean_pool.argtypes = [p, p, p, i, i, i, i, p]
+            cdll.dawn_mean_pool.argtypes = [p, p, p, i, i, i, i, i, ll, ll,
+                                            i, i, i, i, i, p]
             cdll.dawn_mean_pool.restype = i
             cdll.dawn_error_string.argtypes = [i]
             cdll.dawn_error_string.restype = ctypes.c_char_p

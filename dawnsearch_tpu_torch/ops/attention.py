@@ -6,8 +6,8 @@ Counterparts of dawnsearch_tpu/ops/attention.py:
 - `fused_attention_packed` (K5): q, k, v (B, S, H) with the heads packed
   on the feature axis, H = nh·hd, 128 % hd == 0 and H % 128 == 0;
 - `fused_attention` (K6): q, k, v (B, nh, S, hd), any head dim;
-- `fused_mean_pool` (K8): masked (or plain) mean over S of f32 hidden
-  states, then L2 normalize with eps 1e-12.
+- `fused_mean_pool` (K8): masked (or plain) mean over S of bf16 or f32
+  hidden states, then L2 normalize with eps 1e-12, f32 out.
 
 K5 and K6 compute softmax(q·kᵀ/√hd + bias)·v with the reference's
 rounding points (attention.py:63-77, :157-174): scores and softmax in f32,
@@ -22,8 +22,11 @@ Each wrapper launches its kernel for a CUDA tensor and runs its plain twin
 (`attention_packed_plain`, `attention_plain`, `mean_pool_plain`) for a
 CPU tensor. There is no fallback between the two: a CUDA input the kernel
 does not take raises. On CUDA, K5 and K6 take bf16 or f32, S % 16 == 0
-and S <= 512 (the encoder's buckets); K8 takes f32 hidden states, as the
-encoder returns them.
+and S <= 512 (the encoder's buckets); K8 takes contiguous bf16 or f32
+hidden states of any S and any H up to POOL_MAX_H, and a bool, int32,
+int64 or f32 mask of any strides, each read in its own dtype (the encoder
+hands it its last hidden state and its int32 mask uncast), spread over
+the card by plan_pool.
 """
 
 from __future__ import annotations
@@ -40,6 +43,21 @@ launches = {"kernel_attention_packed": 0, "kernel_attention": 0,
             "kernel_mean_pool": 0}
 
 MAX_SEQ = 512
+
+# K8's launch (csrc/pool.cu): a thread owns 8 columns; a CTA at most 512
+# threads (at most 128 registers each: 512 threads fill an SM's register
+# file); a sequence a cluster of at most 16 CTAs, so H <= 16 · 512 · 8.
+# plan_pool spreads a small batch over clusters of at most 8 CTAs (the
+# portable size: a batch of 16-CTA clusters waits on the card to place
+# them, and reads twice the partials over DSMEM), each row range keeping
+# at least 32 rows, while the batch's CTAs take at most half the SMs (a
+# split of a batch past that costs more in its exchange than it saves:
+# scripts/pool_ab.py's sweep of plans on an H100).
+POOL_VEC, POOL_MAX_LANES, POOL_MAX_CLUSTER = 8, 512, 16
+POOL_MAX_H = POOL_MAX_CLUSTER * POOL_MAX_LANES * POOL_VEC
+POOL_SPREAD, POOL_MIN_ROWS = 8, 32
+POOL_MASKS = {torch.bool: 0, torch.int32: 1, torch.int64: 2,
+              torch.float32: 3}
 
 
 def attention_plain(q, k, v, bias, nh: int) -> torch.Tensor:
@@ -118,34 +136,69 @@ def fused_attention(q, k, v, bias, nh: int) -> torch.Tensor:
     return out
 
 
+def plan_pool(B: int, S: int, H: int, sms: int
+              ) -> tuple[int, int, int, int]:
+    """K8's launch for B sequences of S rows of width H on a card of `sms`
+    SMs -> (cc, r, lanes, p): each sequence is a cluster of cc column
+    chunks of `lanes` · 8 columns times r row ranges, and a CTA has p row
+    lanes of `lanes` threads. Chunks start as wide as a CTA takes (512
+    lanes); then, while doubling the cluster keeps the batch's CTAs on at
+    most half the SMs and the cluster at most POOL_SPREAD CTAs, a range of
+    at least 2 · 32 rows splits in two, else, in a sequence too short to
+    split its rows, a chunk of at least 32 lanes does. A CTA takes as many row lanes as its range has rows, up to its
+    share of 512 threads where the batch puts several CTAs on an SM, so
+    that they all run in one wave. The plan depends on the shape alone,
+    so the kernel's order of sums does too."""
+    groups = -(-H // POOL_VEC)
+    cc, r = -(-groups // POOL_MAX_LANES), 1
+    while B * cc * r * 2 <= sms // 2 and cc * r * 2 <= POOL_SPREAD:
+        if S // (r * 2) >= POOL_MIN_ROWS:
+            r *= 2
+        elif r == 1 and -(-groups // cc) >= 32:
+            cc *= 2
+        else:
+            break
+    lanes = -(-groups // cc)
+    per_sm = -(-B * cc * r // sms)
+    p = max(1, min(POOL_MAX_LANES // per_sm // lanes, -(-S // r)))
+    return cc, r, lanes, p
+
+
 def fused_mean_pool(hidden, mask, include_padding: bool = False
                     ) -> torch.Tensor:
-    """K8: (B, S, H) f32 hidden + (B, S) mask -> (B, H) f32 unit rows; the
-    kernel for a CUDA tensor, mean_pool_plain for a CPU tensor."""
+    """K8: (B, S, H) bf16 or f32 hidden + (B, S) mask -> (B, H) f32 unit
+    rows; the kernel for a CUDA tensor, mean_pool_plain for a CPU tensor.
+    The kernel reads both in their own dtype: no cast runs here."""
     if not hidden.is_cuda:
         return mean_pool_plain(hidden, mask, include_padding)
     B, S, H = hidden.shape
-    if hidden.dtype != torch.float32 or not hidden.is_contiguous():
-        raise ValueError(f"K8 takes contiguous f32 hidden states, got "
-                         f"{hidden.dtype}"
+    if hidden.dtype not in (torch.bfloat16, torch.float32) or \
+            not hidden.is_contiguous():
+        raise ValueError(f"K8 takes contiguous bf16 or f32 hidden states, "
+                         f"got {hidden.dtype}"
                          f"{'' if hidden.is_contiguous() else ' (non-contiguous)'}")
-    if H > 1024:
-        raise ValueError(f"K8 keeps 8 partial rows of H f32 in shared "
-                         f"memory: H={H} is over 1024")
-    w = None
+    if H > POOL_MAX_H:
+        raise ValueError(f"K8 spreads a row over at most {POOL_MAX_CLUSTER} "
+                         f"CTAs of {POOL_MAX_LANES} threads, {POOL_VEC} "
+                         f"columns each: H={H} is over {POOL_MAX_H}")
+    mask_type, strides = 0, (0, 0)
     if not include_padding:
         if mask is None or tuple(mask.shape) != (B, S) or \
                 mask.device != hidden.device:
             raise ValueError(f"K8 needs a (B, S) = {(B, S)} mask on "
                              f"{hidden.device}")
-        w = mask.to(torch.float32).contiguous()
+        if mask.dtype not in POOL_MASKS:
+            raise ValueError(f"K8 reads a bool, int32, int64 or f32 mask, "
+                             f"got {mask.dtype}")
+        mask_type, strides = POOL_MASKS[mask.dtype], mask.stride()
     out = torch.empty((B, H), dtype=torch.float32, device=hidden.device)
-    lib = _cuda.lib()
-    _cuda.check(lib.dawn_mean_pool(hidden.data_ptr(),
-                                   None if w is None else w.data_ptr(),
-                                   out.data_ptr(), B, S, H,
-                                   int(include_padding),
-                                   _cuda.stream_handle(hidden)), "K8 pool")
+    plan = plan_pool(B, S, H, torch.cuda.get_device_properties(
+        hidden.device).multi_processor_count)
+    _cuda.check(_cuda.lib().dawn_mean_pool(
+        hidden.data_ptr(), None if include_padding else mask.data_ptr(),
+        out.data_ptr(), B, S, H, int(hidden.dtype == torch.float32),
+        mask_type, *strides, int(include_padding), *plan,
+        _cuda.stream_handle(hidden)), "K8 pool")
     _cuda.count(launches, "kernel_mean_pool")
     return out
 

@@ -33,8 +33,10 @@ kernels K5 and K6 (which pass a null rel_bias through the same C entry)
 and K7 agree with their plain twins at per-row cosine
 > 0.9999 (the same bf16 rounding points, f32 sums in another order), K7
 at ragged widths (312/1200, 128/256) and at widths whose h a shared-memory
-design could not hold (1024/8192); K8,
-all f32, within 1e-5. K1's GEMM (TMA + wgmma, its LayerNorm over a
+design could not hold (1024/8192); K8
+within 1e-5 in bf16 and f32 at widths 312 to 4096 and S = 7 to 512, its
+bf16 result bit-equal to its f32 one on the upcast input, two calls bit-
+equal, every mask dtype it reads giving the same bits. K1's GEMM (TMA + wgmma, its LayerNorm over a
 thread-block cluster) is held at rows that are not a multiple of its
 tiles at every cluster width up to a non-portable 10, each epilogue alone
 against the f32 product rounded to bf16 (bf16) or the f64 product (f32,
@@ -598,18 +600,98 @@ def test_k7_matches_plain(cuda, M, H, I, dtype):
     _per_op_bound(got, want, H, dt)
 
 
-@pytest.mark.parametrize("include_padding", [False, True])
-@pytest.mark.parametrize("B,S", [(3, 16), (2, 512)])
-def test_k8_matches_plain(cuda, B, S, include_padding):
-    rng = np.random.default_rng(S)
-    hidden = torch.from_numpy(rng.standard_normal((B, S, 384), np.float32)).to(cuda)
+def _pool_inputs(rng, B, S, H, cuda, dtype=torch.float32):
+    hidden = torch.from_numpy(rng.standard_normal((B, S, H), np.float32))
     mask = (_bias(rng, B, S, cuda) == 0).int()
+    return hidden.to(cuda, dtype), mask
+
+
+@pytest.mark.parametrize("include_padding", [False, True])
+@pytest.mark.parametrize("H", [312, 384, 1024, 1536, 2048, 4096])
+@pytest.mark.parametrize("B,S", [(1, 128), (8, 128), (3, 16), (2, 512),
+                                 (5, 7)])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_k8_matches_plain(cuda, dtype, B, S, H, include_padding):
+    """K8 in either dtype, at ragged widths (312: scalar loads), widths
+    past the old 1024 cap, and S not a multiple of 16; one launch."""
+    hidden, mask = _pool_inputs(np.random.default_rng(S + H), B, S, H, cuda,
+                                DTYPES[dtype])
     before = attention.launches["kernel_mean_pool"]
     got = attention.fused_mean_pool(hidden, mask, include_padding)
     assert attention.launches["kernel_mean_pool"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, H)
     want = attention.mean_pool_plain(hidden, mask, include_padding)
     assert float((got - want).abs().max()) <= 1e-5
     assert float((got.norm(dim=-1) - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("include_padding", [False, True])
+@pytest.mark.parametrize("B", [128, 256])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_k8_one_cta_a_sequence_matches_plain(cuda, dtype, B,
+                                             include_padding):
+    """The node's ingest buckets of 128 and 256 sequences fill the card
+    alone: plan_pool gives each sequence one CTA, launched with no
+    cluster, which reads its own shared memory."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cc, r = attention.plan_pool(B, 128, 384, sms)[:2]
+    assert cc * r == 1
+    hidden, mask = _pool_inputs(np.random.default_rng(B), B, 128, 384, cuda,
+                                DTYPES[dtype])
+    got = attention.fused_mean_pool(hidden, mask, include_padding)
+    want = attention.mean_pool_plain(hidden, mask, include_padding)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((got.norm(dim=-1) - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("B,S,H", [(1, 128, 384), (8, 512, 1024),
+                                   (5, 7, 312), (2, 512, 4096)])
+def test_k8_bf16_is_bit_equal_to_f32_of_the_same_values(cuda, B, S, H):
+    """bf16 -> f32 is exact and the order of K8's sums depends on the
+    plan alone, so the bf16 instance gives the f32 instance's bits on the
+    upcast input."""
+    hidden, mask = _pool_inputs(np.random.default_rng(H), B, S, H, cuda,
+                                torch.bfloat16)
+    for pad in (False, True):
+        assert torch.equal(attention.fused_mean_pool(hidden, mask, pad),
+                           attention.fused_mean_pool(hidden.float(), mask,
+                                                     pad))
+
+
+@pytest.mark.parametrize("B,S,H", [(1, 8, 65536), (2, 16, 12288)])
+def test_k8_widest_rows(cuda, B, S, H):
+    """Wide rows take several column chunks: 6 at H = 12,288, and 16 (a
+    non-portable cluster) at H = 65,536, the widest K8 takes."""
+    hidden, mask = _pool_inputs(np.random.default_rng(H), B, S, H, cuda,
+                                torch.bfloat16)
+    got = attention.fused_mean_pool(hidden, mask)
+    want = attention.mean_pool_plain(hidden, mask)
+    assert float((got - want).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="over 65536"):
+        attention.fused_mean_pool(torch.zeros((1, 1, 65544), device=cuda),
+                                  mask[:1, :1])
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_k8_is_deterministic(cuda, dtype):
+    """One launch, fixed-order sums over the cluster, no atomics: two
+    calls give the same bits."""
+    hidden, mask = _pool_inputs(np.random.default_rng(9), 8, 512, 2048,
+                                cuda, DTYPES[dtype])
+    first = attention.fused_mean_pool(hidden, mask)
+    assert torch.equal(first, attention.fused_mean_pool(hidden, mask))
+
+
+def test_k8_reads_every_mask_dtype_and_layout(cuda):
+    """bool, int32, int64 and f32 masks, and a strided view, read in place
+    with no cast: the same bits."""
+    hidden, mask = _pool_inputs(np.random.default_rng(4), 8, 128, 384, cuda,
+                                torch.bfloat16)
+    want = attention.fused_mean_pool(hidden, mask)
+    wide = torch.zeros((8, 256), dtype=torch.int64, device=cuda)
+    wide[:, ::2] = mask
+    for m in (mask.bool(), mask.long(), mask.float(), wide[:, ::2]):
+        assert torch.equal(attention.fused_mean_pool(hidden, m), want)
 
 
 def test_per_op_kernels_refuse_what_they_do_not_take(cuda):
@@ -669,8 +751,10 @@ def test_per_op_kernels_refuse_what_they_do_not_take(cuda):
 
     hidden = torch.zeros((2, 32, 384), device=cuda)
     mask = torch.ones((2, 32), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="f32"):
-        attention.fused_mean_pool(hidden.bfloat16(), mask)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        attention.fused_mean_pool(hidden.half(), mask)
+    with pytest.raises(ValueError, match="int64 or f32 mask"):
+        attention.fused_mean_pool(hidden, mask.half())
     with pytest.raises(ValueError, match="non-contiguous"):
         attention.fused_mean_pool(hidden.transpose(0, 1).contiguous()
                                   .transpose(0, 1), mask)
@@ -768,6 +852,7 @@ def test_f32_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
                       (layer, "attention_f32_plain"),
                       (attention, "attention_plain"),
                       (attention, "attention_packed_plain"),
+                      (attention, "mean_pool_plain"),
                       (ffn, "ffn_plain")):
         monkeypatch.setattr(mod, name, boom)
     f32 = torch.float32
@@ -784,6 +869,7 @@ def test_f32_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
     assert attention.fused_attention(heads, heads, heads, bias, 12).dtype == f32
     args = _ffn_args(rng, 64, 384, 1536, cuda, f32)
     assert ffn.fused_ffn(args[0], *_k1_form(args[1:])).dtype == f32
+    assert attention.fused_mean_pool(x, (bias == 0).int()).dtype == f32
 
 
 # -- K1's TMA + wgmma GEMM and the mma.sync attention -----------------------
@@ -1249,7 +1335,8 @@ def test_bf16_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
         raise AssertionError("a plain twin ran on CUDA tensors")
     for mod, name in ((layer, "bert_layer_plain"),
                       (attention, "attention_plain"),
-                      (attention, "attention_packed_plain")):
+                      (attention, "attention_packed_plain"),
+                      (attention, "mean_pool_plain")):
         monkeypatch.setattr(mod, name, boom)
     bf = torch.bfloat16
     rng = np.random.default_rng(10)
@@ -1265,3 +1352,5 @@ def test_bf16_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
     heads = q.reshape(2, 32, 12, 32).transpose(1, 2).contiguous()
     assert attention.fused_attention(heads, heads, heads, bias,
                                      12).dtype == bf
+    assert attention.fused_mean_pool(x, (bias == 0).int()).dtype == \
+        torch.float32
