@@ -11,8 +11,11 @@
 
 Phases, each printing one progress line; any failure exits non-zero:
   device    card name and power limit (nvidia-smi); fails without CUDA
-  build     nvcc builds csrc/*.cu into dawnsearch_tpu_torch/_build/ (one
-            nvcc per source, in parallel) and prints ptxas' registers
+  build     g++ builds the native library (native/*.cpp: the WordPiece
+            and byte-level BPE tokenizers) and nvcc builds csrc/*.cu (one
+            nvcc per source, in parallel), both into
+            dawnsearch_tpu_torch/_build/; prints each build's time and
+            ptxas' registers
   k1        whole-layer kernel vs bert_layer_plain, bf16, ragged masks: at
             MiniLM width (H=384, hd 32) at (B, S) = (64, 128), (8, 512) and
             (64, 16: short queries), at BERT-base width (H=768, hd 64,
@@ -88,9 +91,11 @@ Phases, each printing one progress line; any failure exits non-zero:
   i4_scale  a 67,108,864-row i4 index (12.9 GB of codes) filled by device
             adds, searched at B=1 and B=1024, a planted row at rank 1
   profile   where a text query's time goes on the node's default path
-            (FusedQueryPath over 270,000 i8 rows): host-timed tokenize,
-            encode, select and whole query at B=1, 8, 64, and the device
-            busy share and top kernels from torch.profiler
+            (FusedQueryPath over 270,000 i8 rows): host-timed tokenize (the
+            node's native tokenizer, beside the pure-Python one on the same
+            texts, ids equal), encode, select and whole query at B=1, 8,
+            64, and the device busy share and top kernels from
+            torch.profiler
   ops       the encoder end to end through SentenceEncoder on the smoke
             texts, each run against the same encoder on the CPU: MiniLM
             width with layer_impl="layer" (K1; pool "xla" and "fused"),
@@ -99,7 +104,9 @@ Phases, each printing one progress line; any failure exits non-zero:
             12 heads, I=1200, 4 layers) with layer_impl="layer", which must
             fall back to K6 + K7, and all-mpnet-base-v2's width (2 layers)
             with layer_impl="ops", which must run K7 and never K5 or K6
-            (einsum attention under the position bias); then in f32 the
+            (einsum attention under the position bias), and
+            all-distilroberta-v1's width (2 layers, its byte-level BPE
+            tokenizer, native) with layer_impl="layer" (K1); then in f32 the
             MiniLM K1 and per-op (K8 pool) routes and the TinyBERT
             fallback (K6 + K7 f32), within the f32 atol 1e-4 of the CPU;
             the counters each run raised (every other encoder counter must
@@ -116,14 +123,19 @@ Phases, each printing one progress line; any failure exits non-zero:
             then on a seeded 12-layer BERT-base checkpoint written to a
             DAWNSEARCH_MODEL_DIR, on K1 and on K4, and on a seeded 12-layer
             all-mpnet-base-v2 checkpoint (its config.json, a 30527-line
-            MPNet-layout vocab) on K1 and on K4, both with rel_bias; then
+            MPNet-layout vocab) on K1 and on K4, both with rel_bias, and on
+            a seeded 6-layer all-distilroberta-v1 checkpoint (its
+            config.json, vocab.json + merges.txt spelling the smoke texts'
+            words) on K1 and on K4; then
             with DAWNSEARCH_COMPUTE_DTYPE=f32 on MiniLM K1 (with
             DAWNSEARCH_WARMUP=true), K4 and the per-op path and on the
             MPNet checkpoint's K1: 32 pages through /api/insert, 8 of them
             queried back through /api/search at rank 1 (the first query's
             server time printed beside the others'), the route's encoder
             kernel counters (every other encoder counter at 0) and the
-            tier's select counter read from /api/metrics
+            tier's select counter read from /api/metrics; every run's log
+            must name the native tokenizer (WordPiece, or BPE for RoBERTa)
+            in its "encoder ready" line
 
 The last two lines of a full run are a JSON line of per-kernel results
 and {"ok": true, "device": {...}}. Times are CUDA-event medians of 10
@@ -202,6 +214,19 @@ MPNET_CONFIG = {
     "max_position_embeddings": 514, "model_type": "mpnet",
     "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 1,
     "relative_attention_num_buckets": 32, "vocab_size": 30527}
+# sentence-transformers/all-distilroberta-v1's config.json (HF hub), the
+# node runs' RoBERTa checkpoint; the weights are seeded, its 6 layers at
+# full width
+ROBERTA_CONFIG = {
+    "architectures": ["RobertaModel"], "attention_probs_dropout_prob": 0.1,
+    "bos_token_id": 0, "eos_token_id": 2, "gradient_checkpointing": False,
+    "hidden_act": "gelu", "hidden_dropout_prob": 0.1, "hidden_size": 768,
+    "initializer_range": 0.02, "intermediate_size": 3072,
+    "layer_norm_eps": 1e-05, "max_position_embeddings": 514,
+    "model_type": "roberta", "num_attention_heads": 12,
+    "num_hidden_layers": 6, "pad_token_id": 1,
+    "position_embedding_type": "absolute", "type_vocab_size": 1,
+    "vocab_size": 50265}
 MPNET_EPS = MPNET_CONFIG["layer_norm_eps"]
 REL_BUCKETS = MPNET_CONFIG["relative_attention_num_buckets"]
 # (H, nh, B, S); the first of each is the entry's headline shape: K5's
@@ -297,8 +322,8 @@ WARMUP_ENV = {"DAWNSEARCH_WARMUP": "true"}
 PER_OP = ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool")
 # (label, tier, extra environment, encoder counters that must rise (every
 # other encoder counter must stay 0), model: None for the node's seeded
-# MiniLM weights, "base" / "mpnet" for the seeded BERT-base /
-# all-mpnet-base-v2 checkpoint)
+# MiniLM weights, "base" / "mpnet" / "roberta" for the seeded BERT-base /
+# all-mpnet-base-v2 / all-distilroberta-v1 checkpoint)
 NODE_RUNS = (
     *((t, t, {}, ("kernel_bert_layer",), None) for t in NODE_TIERS),
     ("i8-ops", "i8", PER_OP_ENV, PER_OP, None),
@@ -307,6 +332,8 @@ NODE_RUNS = (
     ("base-k4", "i8", K4_ENV, ("kernel_bert_layer_i8",), "base"),
     ("mpnet", "i8", {}, ("kernel_bert_layer_rel",), "mpnet"),
     ("mpnet-k4", "i8", K4_ENV, ("kernel_bert_layer_i8_rel",), "mpnet"),
+    ("roberta", "i8", {}, ("kernel_bert_layer",), "roberta"),
+    ("roberta-k4", "i8", K4_ENV, ("kernel_bert_layer_i8",), "roberta"),
     # compute_dtype = "f32": the f32 instance of each route's kernels; the
     # first also warms the encoder's bucket grid up before it serves
     ("f32", "i8", {**F32_ENV, **WARMUP_ENV}, ("kernel_bert_layer_f32",), None),
@@ -411,6 +438,16 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     from dawnsearch_tpu_torch.ops import _cuda
+    from dawnsearch_tpu_torch.utils import nativelib
+    t0 = time.perf_counter()
+    path = nativelib.build()  # raises with g++'s output if it fails
+    if nativelib.get() is None:
+        raise RuntimeError(f"native library did not load: "
+                           f"{nativelib.build_error()}")
+    built = nativelib.BUILD_SECONDS
+    say(f"phase build: {os.path.relpath(path, HERE)} ready in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({'g++ ' + format(built, '.1f') + ' s' if built else 'cached'})")
     t0 = time.perf_counter()
     path = _cuda.build()
     _cuda.lib()
@@ -1718,17 +1755,28 @@ def _host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def phase_profile() -> None:
     """Split a text query on the node's default path (make_encoder,
     make_index_factory, FusedQueryPath) into host-timed stages, and read
-    the device busy share and the top kernels from torch.profiler."""
+    the device busy share and the top kernels from torch.profiler. The
+    node's tokenizer must be the native one; its stage is timed beside the
+    pure-Python tokenizer on the same texts, whose ids it must equal."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dawnsearch_tpu_torch.config import Config
+    from dawnsearch_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from dawnsearch_tpu_torch.models.tokenizer_native import \
+        NativeWordPieceTokenizer
     from dawnsearch_tpu_torch.node import make_encoder, make_index_factory
     from dawnsearch_tpu_torch.ops import scan_select as ss
     from dawnsearch_tpu_torch.serving.fused import FusedQueryPath, _encode
     dev = torch.device("cuda")
     cfg = Config()
     enc = make_encoder(cfg)
+    if not isinstance(enc.tokenizer, NativeWordPieceTokenizer):
+        raise AssertionError(f"the node tokenizes with "
+                             f"{type(enc.tokenizer).__name__}, not the "
+                             f"native tokenizer")
+    py_tok = WordPieceTokenizer(enc.tokenizer.vocab)
+    max_seq = enc.seq_buckets[-1]
     index = make_index_factory(cfg)()
     g = torch.Generator(device=dev).manual_seed(5)
     for s in range(0, NODE_PAGES, 1 << 16):
@@ -1742,6 +1790,11 @@ def phase_profile() -> None:
     for B in PROFILE_BATCHES:
         texts = [TEXTS[j % len(TEXTS)] for j in range(B)]
         ids, mask = enc.pad_batch(enc.tokenize_texts(texts))
+        py_ids, _ = enc.pad_batch([py_tok.encode(x, max_len=max_seq)
+                                   for x in texts])
+        if not np.array_equal(ids, py_ids):
+            raise AssertionError(f"native and Python token ids differ at "
+                                 f"B={B}")
         emb = _encode(enc, ids, mask)
 
         def query():
@@ -1753,6 +1806,8 @@ def phase_profile() -> None:
         t = {"query": _host_ms(query),
              "tokenize": _host_ms(lambda: enc.pad_batch(
                  enc.tokenize_texts(texts))),
+             "tokenize_python": _host_ms(lambda: enc.pad_batch(
+                 [py_tok.encode(x, max_len=max_seq) for x in texts])),
              "encode": _host_ms(lambda: _encode(enc, ids, mask)),
              "select": _host_ms(lambda: ss.search_select(
                  index._codes, index._scales, emb, index.count, PROFILE_K))}
@@ -1796,7 +1851,8 @@ def _zero_counters() -> None:
 def _encoder_tree(rng: np.random.Generator, cfg) -> dict:
     """Seeded weights in the reference's stacked layout for cfg's family:
     matrices with std 0.05, biases and LayerNorm parameters away from their
-    init, MPNet's relative-position table with std 0.5."""
+    init, MPNet's relative-position table with std 0.5, RoBERTa's position
+    table a random walk (std 0.05)."""
     H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
     def w(*shape):
@@ -1808,8 +1864,16 @@ def _encoder_tree(rng: np.random.Generator, cfg) -> dict:
     mpnet = cfg.model_type == "mpnet"  # no token types, a (32, nh) table
     emb = {"word": w(cfg.vocab_size, H),
            "position": w(cfg.max_position_embeddings, H)}
+    if cfg.model_type == "roberta":
+        # a trained RoBERTa's position table changes slowly from one
+        # position to the next, so shifting a text by one token (the "\n"
+        # after a page's empty title) moves its embedding little; the
+        # seeded table keeps that as a random walk along the positions
+        walk = np.cumsum(emb["position"], axis=0)
+        emb["position"] = ((walk - walk.mean(0)) / walk.std() * 0.05
+                           ).astype(np.float32)
     if not mpnet:
-        emb["token_type"] = w(2, H)
+        emb["token_type"] = w(cfg.type_vocab_size, H)
     tree = {
         "embeddings": {**emb, "ln_scale": v(H, base=1.0), "ln_bias": v(H)},
         "layers": {"qkv_w": w(L, H, 3 * H), "qkv_b": v(L, 3 * H),
@@ -1835,6 +1899,8 @@ def phase_ops(counts: dict) -> None:
     from dawnsearch_tpu_torch.models.mpnet import MPNET_BASE
     from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
                                                        build_vocab_from_corpus)
+    from dawnsearch_tpu_torch.models.tokenizer_bpe_native import \
+        NativeByteLevelBPETokenizer
     from dawnsearch_tpu_torch.models.weights import params_from_numpy
     from dawnsearch_tpu_torch.serving.fused import _encode
     dev = torch.device("cuda")
@@ -1843,12 +1909,16 @@ def phase_ops(counts: dict) -> None:
     vocab = build_vocab_from_corpus(corpus, size=4096)
     mp_vocab = _mpnet_layout(sorted(vocab, key=vocab.get))
     toks = {"bert": WordPieceTokenizer(vocab), "mpnet": WordPieceTokenizer(
-        {t: i for i, t in enumerate(mp_vocab)})}
+        {t: i for i, t in enumerate(mp_vocab)}),
+        "roberta": NativeByteLevelBPETokenizer(*bpe_vocab(TEXTS))}
     minilm = dict(vocab_size=len(vocab), dtype=torch.bfloat16)
     tiny = dict(minilm, **TINYBERT)
     # all-mpnet-base-v2's width and family at 2 layers
     mpnet = dict(dataclasses.asdict(MPNET_BASE), vocab_size=len(mp_vocab),
                  num_layers=2, dtype=torch.bfloat16)
+    # all-distilroberta-v1's width and family at 2 layers
+    roberta = dict(dataclasses.asdict(roberta_config(num_layers=2)),
+                   dtype=torch.bfloat16)
     f32 = dict(dtype=torch.float32)
     # (label, config, counters that must rise; every other encoder counter
     # must stay 0)
@@ -1871,6 +1941,8 @@ def phase_ops(counts: dict) -> None:
         # under MPNet's position bias the per-op path takes einsum
         # attention, never K5 or K6 (as the reference does), and K7
         ("mpnet ops", dict(mpnet, layer_impl="ops"), {"kernel_ffn"}),
+        # RoBERTa: BERT's layer on K1, offset position ids, byte-level BPE
+        ("roberta layer", dict(roberta), {k1}),
         # compute_dtype = "f32": the f32 instances of the same routes
         ("minilm layer f32", dict(minilm, **f32), {k1 + "_f32"}),
         ("minilm ops+fused pool f32", dict(minilm, layer_impl="ops",
@@ -1995,17 +2067,70 @@ def _mpnet_layout(body: list) -> list:
     return ["<s>", "<pad>", "</s>", "<unk>", *body, "<mask>"]
 
 
+def roberta_config(**kw):
+    """all-distilroberta-v1's shape (ROBERTA_CONFIG) as the port's
+    BertConfig; kw overrides fields (depth, compute policy)."""
+    from dawnsearch_tpu_torch.models.bert import BertConfig
+    c = ROBERTA_CONFIG
+    shape = dict(vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+                 num_layers=c["num_hidden_layers"],
+                 num_heads=c["num_attention_heads"],
+                 intermediate_size=c["intermediate_size"],
+                 max_position_embeddings=c["max_position_embeddings"],
+                 type_vocab_size=c["type_vocab_size"],
+                 layer_norm_eps=c["layer_norm_eps"], model_type="roberta",
+                 pad_token_id=c["pad_token_id"])
+    return BertConfig(**{**shape, **kw})
+
+
+def bpe_vocab(texts) -> tuple[dict, list]:
+    """A byte-level BPE vocab and merge list in all-distilroberta-v1's
+    layout for `texts` (lowercase ASCII words between single spaces):
+    <s> <pad> </s> <unk>, the 256 byte symbols, each pre-token's
+    left-to-right merge chain, <mask> last. The chains of the `Ġword`
+    pre-tokens (a word after a space) rank first, so each of them is one
+    token; a text's bare first word follows. Built by construction,
+    because train_bpe needs the `regex` module."""
+    from dawnsearch_tpu_torch.models.tokenizer_bpe import byte_to_unicode
+    b2u = byte_to_unicode()
+    for text in texts:
+        if set(text) - set(string.ascii_lowercase + " ") or "  " in text:
+            raise ValueError(f"not lowercase words between single spaces: "
+                             f"{text!r}")
+    words = [text.split(" ") for text in texts]
+    pieces = ([b2u[ord(" ")] + w for ws in words for w in ws[1:]]
+              + [ws[0] for ws in words])
+    symbols = ["<s>", "<pad>", "</s>", "<unk>"] + [b2u[b] for b in range(256)]
+    known, merges = set(symbols), []
+    for piece in pieces:
+        left = piece[0]
+        for ch in piece[1:]:
+            if left + ch not in known:
+                merges.append((left, ch))
+                symbols.append(left + ch)
+                known.add(left + ch)
+            left += ch
+    symbols.append("<mask>")
+    return {t: i for i, t in enumerate(symbols)}, merges
+
+
 def write_checkpoint(model_dir: str, family: str, seed: int = 15) -> None:
     """A checkpoint as a user drops one into model_dir: the published
     config.json (bert-base-uncased's for "base", all-mpnet-base-v2's for
-    "mpnet"), model.safetensors (12 seeded layers at full width, written
-    by the port's own writer) and a vocab.txt of the config's size in the
-    family's layout, holding the smoke texts' words."""
+    "mpnet", all-distilroberta-v1's for "roberta"), model.safetensors
+    (seeded layers at full width, 12, or RoBERTa's 6, written by the port's
+    own writer) and the family's vocab: a vocab.txt of the config's size in
+    the family's layout holding the smoke texts' words, or for "roberta"
+    vocab.json + merges.txt from bpe_vocab."""
     from dawnsearch_tpu_torch.models.bert import BertConfig
     from dawnsearch_tpu_torch.models.mpnet import MPNET_BASE
+    from dawnsearch_tpu_torch.models.tokenizer_bpe import ByteLevelBPETokenizer
     from dawnsearch_tpu_torch.models.weights import (params_from_numpy,
                                                      save_safetensors)
-    if family == "mpnet":
+    vocab = None
+    if family == "roberta":
+        c, cfg = ROBERTA_CONFIG, roberta_config()
+    elif family == "mpnet":
         c, cfg = MPNET_CONFIG, MPNET_BASE
         vocab = _mpnet_layout(_bert_vocab(c["vocab_size"] - 5))
     else:
@@ -2016,13 +2141,16 @@ def write_checkpoint(model_dir: str, family: str, seed: int = 15) -> None:
                          num_heads=c["num_attention_heads"],
                          intermediate_size=c["intermediate_size"])
         vocab = _bert_vocab(c["vocab_size"])
-    assert len(vocab) == c["vocab_size"]
     os.makedirs(model_dir, exist_ok=True)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(c, f, indent=2)
     save_safetensors(params_from_numpy(_encoder_tree(
         np.random.default_rng(seed), cfg)),
         os.path.join(model_dir, "model.safetensors"), cfg)
+    if vocab is None:
+        ByteLevelBPETokenizer(*bpe_vocab(TEXTS)).save(model_dir)
+        return
+    assert len(vocab) == c["vocab_size"]
     with open(os.path.join(model_dir, "vocab.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(vocab) + "\n")
 
@@ -2030,9 +2158,11 @@ def write_checkpoint(model_dir: str, family: str, seed: int = 15) -> None:
 def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
     """Run the node once per entry of `runs`, each on a copy of a seeded
     store as wide as its encoder (a copy holds no index snapshot, so each
-    run builds its own index); the BERT-base and MPNet runs serve a
-    checkpoint of their family, each written once. Returns every kernel
-    counter's increase, summed over runs."""
+    run builds its own index); the BERT-base, MPNet and RoBERTa runs serve
+    a checkpoint of their family, each written once. Every run must
+    tokenize natively: its log's "encoder ready" line names the C++
+    tokenizer's class. Returns every kernel counter's increase, summed
+    over runs."""
     work = tempfile.mkdtemp(prefix="dawn-node-")
     try:
         stores: dict = {}
@@ -2058,7 +2188,10 @@ def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
                     f"{time.perf_counter() - t0:.1f} s")
             data_dir = os.path.join(work, label)
             shutil.copytree(stores[dim], data_dir)
-            for name, n in run_node(data_dir, label, tier, env, up).items():
+            tok = ("NativeByteLevelBPETokenizer" if model == "roberta"
+                   else "NativeWordPieceTokenizer")
+            for name, n in run_node(data_dir, label, tier, env, up,
+                                    tok).items():
                 total[name] = total.get(name, 0) + n
             shutil.rmtree(data_dir, ignore_errors=True)
         return total
@@ -2067,14 +2200,14 @@ def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
 
 
 def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
-             up: tuple, start_timeout: float = 600.0) -> dict:
+             up: tuple, tokenizer: str, start_timeout: float = 600.0) -> dict:
     """Start the node as a user would on `data_dir` with index_dtype
     `tier` and the extra environment, insert, query, read the kernel
-    counters, stop. Returns the counters' increase; fails unless the
-    encoder counters `up` and the tier's select ran and every other
-    encoder counter did not. Prints the server time of the first query
-    beside the median of the others (a node without warmup builds and
-    loads lazily on its first requests)."""
+    counters, stop. Returns the counters' increase; fails unless its log
+    names `tokenizer` as the encoder's, the encoder counters `up` and the
+    tier's select ran and every other encoder counter did not. Prints the
+    server time of the first query beside the median of the others (a
+    node without warmup builds and loads lazily on its first requests)."""
     from dawnsearch_tpu_torch.ops.scan_select import VARIANTS
     work = os.path.dirname(data_dir)
     t0 = time.perf_counter()
@@ -2103,6 +2236,12 @@ def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
                 time.sleep(1.0)
         say(f"phase node {label}: up in {time.perf_counter() - t0:.1f} s, "
             f"{stats['pages_indexed']} pages, capacity {stats['index_capacity']}")
+        with open(log_path, encoding="utf-8") as f:
+            ready = [line.strip() for line in f if "encoder ready" in line]
+        say(f"phase node {label}: {ready[0] if ready else 'no encoder line'}")
+        if len(ready) != 1 or f"tokenizer={tokenizer})" not in ready[0]:
+            raise AssertionError(f"the node's encoder does not tokenize "
+                                 f"with {tokenizer}: {ready}")
         names = (*ENCODER_COUNTERS, *VARIANTS.values())
         before = _http(base + "/api/metrics")
         # only a warmed-up node has launched kernels, its route's encoder

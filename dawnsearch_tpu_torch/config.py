@@ -33,8 +33,9 @@ class Config:
     # --- engine section ---
     # torch device the encoder and index live on; "cuda" needs a GPU
     device: str = "cuda"
-    # a bert-family HF checkpoint: config.json + model.safetensors +
-    # vocab.txt (none: MiniLM width, seeded weights)
+    # a bert-, mpnet- or roberta-family HF checkpoint: config.json +
+    # model.safetensors + vocab.txt, or vocab.json + merges.txt for
+    # roberta (none: MiniLM width, seeded weights)
     model_dir: str | None = None
     embed_batch_size: int = 64  # cross-request batching cap
     embed_max_wait_ms: float = 5.0  # batcher flush deadline

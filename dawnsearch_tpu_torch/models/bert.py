@@ -2,8 +2,9 @@
 
 Port of dawnsearch_tpu/models/bert.py: embeddings + LayerNorm
 (bert.py:232-251), the layer stack, mean-pool and L2 normalize
-(bert.py:275-325). The layer stack is shared with the MPNet family
-(models/mpnet.py), which adds one (nh, S, S) relative-position score bias
+(bert.py:275-325). The RoBERTa family (model_type "roberta") is this
+model with offset position ids (bert.py:234-240). The layer stack is
+shared with the MPNet family (models/mpnet.py), which adds one (nh, S, S) relative-position score bias
 to every layer (`pos_bias`). A layer runs one of the reference's paths,
 routed condition for condition as `_layer_fwd` does (bert.py:125-126,
 :139, :180-195):
@@ -74,12 +75,13 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
-    # "bert" | "mpnet": mpnet (models/mpnet.py) swaps the embedding recipe
-    # (offset position ids, no token types) and adds the shared
+    # "bert" | "roberta" | "mpnet": roberta takes offset position ids;
+    # mpnet (models/mpnet.py) also drops token types and adds the shared
     # relative-position score bias; the layer stack is the same
     model_type: str = "bert"
-    # the vocab's pad id (config.json; mpnet checkpoints use 1); the node
-    # checks its tokenizer's
+    # the vocab's pad id (config.json; mpnet and roberta checkpoints use 1,
+    # from which their position ids are offset); the node checks its
+    # tokenizer's
     pad_token_id: int = 0
     relative_attention_num_buckets: int = 32  # mpnet only
     # compute dtype of the projections; softmax and LayerNorm stay f32
@@ -305,8 +307,9 @@ class EncoderStack(nn.Module):
 
 class BertModel(EncoderStack):
     """Token ids -> (B, S, H) f32 last hidden state (reference
-    BertModel::forward, model.rs:528-571); cast=False leaves it in the
-    compute dtype."""
+    BertModel::forward, model.rs:528-571, and bert_forward, bert.py:218-258,
+    for the bert and roberta families); cast=False leaves it in the compute
+    dtype."""
 
     def __init__(self, cfg: BertConfig, params: Params, *, device):
         super().__init__(cfg, params, device=device)
@@ -315,9 +318,16 @@ class BertModel(EncoderStack):
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor | None = None,
                 mask_padding: bool = True, cast: bool = True) -> torch.Tensor:
-        S = input_ids.shape[1]
-        pos = torch.arange(S, device=input_ids.device)
-        x = self.word[input_ids] + self.position[pos][None] + self.token_type[0]
+        if self.cfg.model_type == "roberta":
+            # RoBERTa's positions are offset from the pad id and padding
+            # sits at it (HF create_position_ids_from_input_ids), as MPNet's
+            from dawnsearch_tpu_torch.models.mpnet import mpnet_position_ids
+            pos = self.position[mpnet_position_ids(input_ids,
+                                                   self.cfg.pad_token_id)]
+        else:
+            S = input_ids.shape[1]
+            pos = self.position[torch.arange(S, device=input_ids.device)][None]
+        x = self.word[input_ids] + pos + self.token_type[0]
         return self.encode_embeddings(x, attention_mask, mask_padding,
                                       cast=cast)
 

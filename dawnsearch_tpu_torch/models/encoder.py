@@ -6,7 +6,9 @@ Sequence lengths and batch sizes are bucketed to the same small grids,
 and padding rows are a bare [CLS][SEP] (`<s></s>` in an MPNet vocab;
 encoder.py:129-133), so both packages see identical (input_ids, mask)
 arrays for the same texts. The model is the config's family: MPNetModel
-for model_type "mpnet", BertModel otherwise.
+for model_type "mpnet", BertModel otherwise (bert, roberta). The tokenizer
+is any of the four with the same encode contract: WordPiece or byte-level
+BPE, in Python or native (models/tokenizer*.py).
 """
 
 from __future__ import annotations
@@ -21,16 +23,24 @@ from dawnsearch_tpu_torch.models.bert import (
     MINILM_L6, BertConfig, BertModel, Params, encode_batch)
 from dawnsearch_tpu_torch.models.mpnet import MPNetModel
 from dawnsearch_tpu_torch.models.tokenizer import WordPieceTokenizer
+from dawnsearch_tpu_torch.models.tokenizer_bpe import ByteLevelBPETokenizer
+from dawnsearch_tpu_torch.models.tokenizer_bpe_native import \
+    NativeByteLevelBPETokenizer
+from dawnsearch_tpu_torch.models.tokenizer_native import \
+    NativeWordPieceTokenizer
 from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
 
 log = service_logger("Encoder")
+
+Tokenizer = (WordPieceTokenizer | NativeWordPieceTokenizer
+             | ByteLevelBPETokenizer | NativeByteLevelBPETokenizer)
 
 
 class SentenceEncoder:
     def __init__(
         self,
         params: Params,
-        tokenizer: WordPieceTokenizer,
+        tokenizer: Tokenizer,
         cfg: BertConfig = MINILM_L6,
         seq_buckets: Sequence[int] = (16, 32, 64, 128, 256, 512),
         batch_buckets: Sequence[int] = (1, 8, 32, 64, 128, 256, 512, 1024),

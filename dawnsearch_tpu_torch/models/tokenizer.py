@@ -102,6 +102,15 @@ def special_id(vocab: dict[str, int], tok: str) -> int:
     raise ValueError(f"vocab missing special token {tok}/{alias}")
 
 
+def read_vocab(path: str) -> dict[str, int]:
+    """vocab.txt -> {token: line number}."""
+    vocab: dict[str, int] = {}
+    with open(path, encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            vocab[line.rstrip("\r\n")] = i
+    return vocab
+
+
 class WordPieceTokenizer:
     def __init__(self, vocab: dict[str, int], lowercase: bool = True):
         self.vocab = vocab
@@ -114,11 +123,7 @@ class WordPieceTokenizer:
 
     @classmethod
     def from_vocab_file(cls, path: str, lowercase: bool = True) -> "WordPieceTokenizer":
-        vocab: dict[str, int] = {}
-        with open(path, encoding="utf-8") as f:
-            for i, line in enumerate(f):
-                vocab[line.rstrip("\r\n")] = i
-        return cls(vocab, lowercase=lowercase)
+        return cls(read_vocab(path), lowercase=lowercase)
 
     def save_vocab(self, path: str) -> None:
         with open(path, "w", encoding="utf-8") as f:

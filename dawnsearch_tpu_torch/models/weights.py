@@ -1,9 +1,9 @@
 """Encoder parameters: seeded random init, the bridge from the reference's
 parameter tree, and HF checkpoints (safetensors + config.json).
 
-Port of dawnsearch_tpu/models/weights.py for the `bert` and `mpnet`
-families: init_params (:26-61), from_hf_tensors / to_hf_tensors (:76-155,
-:247-297), config_from_hf (:169-211), load_params (:214-240) and
+Port of dawnsearch_tpu/models/weights.py for the `bert`, `roberta` and
+`mpnet` families: init_params (:26-61), from_hf_tensors / to_hf_tensors
+(:76-155, :247-297), config_from_hf (:169-211), load_params (:214-240) and
 load_safetensors / save_safetensors (:158-166, :300-310). Both packages
 use one layout, the reference's stacked tree:
 
@@ -14,7 +14,8 @@ use one layout, the reference's stacked tree:
                 "ffn_out_b", "ffn_ln_scale", "ffn_ln_bias"},
      "rel_bias" (num_buckets, nh)}      # mpnet only, which has no token_type
 
-HF's MPNet names its attention `attention.attn.{q,k,v,o}` and
+RoBERTa's checkpoints use BERT's names under a `roberta.` prefix (or
+none), with a one-row token-type table. HF's MPNet names its attention `attention.attn.{q,k,v,o}` and
 `attention.LayerNorm` and keeps the relative-position table at
 `encoder.relative_attention_bias.weight`; the q/k/v linears are fused into
 qkv on import and split again on export, as for BERT.
@@ -50,12 +51,6 @@ ST_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8",
              "I32": "<i4", "I16": "<i2", "I8": "i1", "U64": "<u8",
              "U32": "<u4", "U16": "<u2", "U8": "u1", "BOOL": "?"}
 _ST_TAGS = {np.dtype(v): k for k, v in ST_DTYPES.items()}
-
-# model families of the reference this port does not serve yet, with the
-# ROADMAP.md Queue 1 item that adds each
-UNPORTED_FAMILIES = {"roberta": "item 11 (RoBERTa: the BPE tokenizer and "
-                                "offset position ids)"}
-
 
 def init_params(generator: torch.Generator,
                 cfg: BertConfig = MINILM_L6) -> Params:
@@ -166,10 +161,11 @@ def write_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
 
 # -- HF tensor names <-> the stacked tree -----------------------------------
 
-# each family's names of a layer's attention tensors
-_NAMES = {"bert": dict(q="attention.self.query", k="attention.self.key",
-                       v="attention.self.value", o="attention.output.dense",
-                       attn_ln="attention.output.LayerNorm"),
+# each family's names of a layer's attention tensors (RoBERTa's are BERT's)
+_BERT_NAMES = dict(q="attention.self.query", k="attention.self.key",
+                   v="attention.self.value", o="attention.output.dense",
+                   attn_ln="attention.output.LayerNorm")
+_NAMES = {"bert": _BERT_NAMES, "roberta": _BERT_NAMES,
           "mpnet": dict(q="attention.attn.q", k="attention.attn.k",
                         v="attention.attn.v", o="attention.attn.o",
                         attn_ln="attention.LayerNorm")}
@@ -177,10 +173,11 @@ _REL_BIAS = "encoder.relative_attention_bias.weight"
 
 
 def _strip_prefix(tensors: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """Accept `bert.`- or `mpnet.`-prefixed and bare tensor namings."""
+    """Accept `bert.`-, `roberta.`- or `mpnet.`-prefixed and bare tensor
+    namings."""
     out = {}
     for name, t in tensors.items():
-        for pre in ("bert.", "mpnet."):
+        for pre in ("bert.", "mpnet.", "roberta."):
             if name.startswith(pre):
                 name = name[len(pre):]
                 break
@@ -190,7 +187,8 @@ def _strip_prefix(tensors: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def from_hf_tensors(tensors: Mapping[str, np.ndarray],
                     cfg: BertConfig = MINILM_L6) -> Params:
-    """HF BertModel / MPNetModel tensor dict (numpy) -> stacked tree of f32
+    """HF BertModel / RobertaModel / MPNetModel tensor dict (numpy) ->
+    stacked tree of f32
     tensors. Tensors it does not use (position_ids, the pooler) are
     ignored; a checkpoint with more layers than cfg is refused."""
     t = _strip_prefix(tensors)
@@ -250,7 +248,8 @@ def from_hf_tensors(tensors: Mapping[str, np.ndarray],
 
 def to_hf_tensors(params: Params, cfg: BertConfig = MINILM_L6
                   ) -> dict[str, np.ndarray]:
-    """Stacked tree -> HF BertModel / MPNetModel tensor dict (inverse of
+    """Stacked tree -> HF BertModel / RobertaModel / MPNetModel tensor dict
+    (inverse of
     from_hf_tensors): un-stack layers, split the fused QKV, transpose back
     to torch's (out, in)."""
     def np_(x) -> np.ndarray:
@@ -302,20 +301,16 @@ def save_safetensors(params: Params, path: str,
 
 def config_from_hf(model_dir: str) -> BertConfig | None:
     """A BertConfig from model_dir/config.json (None without one), so any
-    BERT- or MPNet-family encoder loads by pointing model_dir at its
+    BERT-, RoBERTa- or MPNet-family encoder loads by pointing model_dir at its
     checkout. Refuses a non-gelu activation (every kernel computes exact erf
-    GELU), a family this port does not serve yet, and an unknown family."""
+    GELU) and an unknown family."""
     path = os.path.join(model_dir, "config.json")
     if not os.path.exists(path):
         return None
     with open(path) as f:
         hf = json.load(f)
     model_type = hf.get("model_type", "bert")
-    if model_type in UNPORTED_FAMILIES:
-        raise ValueError(f"{path}: model_type={model_type!r} is not ported yet "
-                         f"(ROADMAP.md Queue 1 "
-                         f"{UNPORTED_FAMILIES[model_type]})")
-    if model_type not in ("bert", "mpnet"):
+    if model_type not in ("bert", "mpnet", "roberta"):
         raise ValueError(f"{path}: model_type={model_type!r} is not a "
                          "supported encoder family (bert, mpnet, roberta)")
     act = hf.get("hidden_act", "gelu")
@@ -334,7 +329,8 @@ def config_from_hf(model_dir: str) -> BertConfig | None:
         type_vocab_size=hf.get("type_vocab_size", 2),
         layer_norm_eps=hf.get("layer_norm_eps", 1e-12),
         model_type=model_type,
-        pad_token_id=hf.get("pad_token_id", 1 if model_type == "mpnet" else 0),
+        pad_token_id=hf.get("pad_token_id",
+                            1 if model_type in ("mpnet", "roberta") else 0),
         relative_attention_num_buckets=hf.get(
             "relative_attention_num_buckets", 32),
     )

@@ -3,9 +3,9 @@
 Port of dawnsearch_tpu/node.py (the reference's main-binary bootstrap,
 the reference's src/bin/dawnsearch.rs:37-154) for what this package
 serves: text search and page insert over HTTP, on one device. The
-encoder is the checkpoint in model_dir (a `bert`- or `mpnet`-family HF
-checkpoint: config.json, model.safetensors, vocab.txt) or seeded
-MiniLM-width weights, in bf16 or, for compute_dtype="f32", in f32 (the
+encoder is the checkpoint in model_dir (a `bert`-, `roberta`- or
+`mpnet`-family HF checkpoint: config.json, model.safetensors, and vocab.txt
+or, for RoBERTa, vocab.json + merges.txt) or seeded MiniLM-width weights, in bf16 or, for compute_dtype="f32", in f32 (the
 f32 instance of every encoder kernel). It runs the whole-layer kernel
 (K1) by default, its W8A8 twin (K4) for layer_impl="layer_i8", or the
 per-op path
@@ -86,17 +86,22 @@ def check_config(cfg: Config) -> None:
 def make_encoder(cfg: Config):
     """SentenceEncoder on cfg.device, on the layer, attention and pool
     routes of the config (dawnsearch_tpu/node.py:33-97): the family and
-    shape from model_dir/config.json, the weights from model.safetensors
-    and the WordPiece vocab from vocab.txt (BERT's [PAD]/[CLS]/[SEP] or
+    shape from model_dir/config.json, the weights from model.safetensors,
+    and the tokenizer from vocab.json + merges.txt (byte-level BPE,
+    RoBERTa) or else vocab.txt (WordPiece: BERT's [PAD]/[CLS]/[SEP] or
     MPNet's <pad>/<s>/</s>); without model_dir (or without those files)
     MiniLM width, weights from a seeded generator and a self-contained
-    vocab."""
+    vocab. Each tokenizer is the native one when the library builds
+    (models/tokenizer_native.py, tokenizer_bpe_native.py)."""
     import torch
 
     from dawnsearch_tpu_torch.models.bert import BertConfig
     from dawnsearch_tpu_torch.models.encoder import SentenceEncoder
-    from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
-                                                       build_vocab_from_corpus)
+    from dawnsearch_tpu_torch.models.tokenizer import (build_vocab_from_corpus,
+                                                       read_vocab)
+    from dawnsearch_tpu_torch.models.tokenizer_bpe_native import \
+        best_bpe_tokenizer
+    from dawnsearch_tpu_torch.models.tokenizer_native import best_tokenizer
     from dawnsearch_tpu_torch.models.weights import load_params
 
     base_cfg = BertConfig(
@@ -105,29 +110,40 @@ def make_encoder(cfg: Config):
         layer_impl=cfg.layer_impl)
     params, pretrained, bert_cfg = load_params(cfg.model_dir, cfg=base_cfg,
                                                seed=WEIGHT_SEED)
-    vocab_path = (os.path.join(cfg.model_dir, "vocab.txt")
-                  if cfg.model_dir else None)
-    if vocab_path and os.path.exists(vocab_path):
-        tok = WordPieceTokenizer.from_vocab_file(vocab_path)
-        if pretrained and tok.pad_id != bert_cfg.pad_token_id:
-            # the encoder pads with the tokenizer's pad id; a checkpoint
-            # whose config disagrees has mismatched files
-            raise ValueError(
-                f"tokenizer pad id {tok.pad_id} != config.json pad_token_id "
-                f"{bert_cfg.pad_token_id}: mismatched checkpoint files in "
-                f"{cfg.model_dir}")
+    def in_model_dir(name: str) -> str | None:
+        path = os.path.join(cfg.model_dir, name) if cfg.model_dir else None
+        return path if path and os.path.exists(path) else None
+
+    bpe_files = (in_model_dir("vocab.json"), in_model_dir("merges.txt"))
+    vocab_path = in_model_dir("vocab.txt")
+    if all(bpe_files):
+        tok = best_bpe_tokenizer(*bpe_files)
+    elif vocab_path:
+        tok = best_tokenizer(read_vocab(vocab_path))
     else:
         corpus = [string.ascii_lowercase, string.digits,
                   "the quick brown fox jumps over the lazy dog"]
-        tok = WordPieceTokenizer(build_vocab_from_corpus(corpus, size=4096))
+        tok = best_tokenizer(build_vocab_from_corpus(corpus, size=4096))
         if pretrained:
-            log.warning("pretrained weights but no vocab.txt: tokenization "
-                        "will not match the checkpoint")
+            log.warning("pretrained weights but no vocab.txt or vocab.json + "
+                        "merges.txt: tokenization will not match the "
+                        "checkpoint")
+    if pretrained and (all(bpe_files) or vocab_path) and \
+            tok.pad_id != bert_cfg.pad_token_id:
+        # the encoder pads with the tokenizer's pad id, and RoBERTa's and
+        # MPNet's position ids are offset from config.json's: a checkpoint
+        # whose files disagree is refused
+        raise ValueError(
+            f"tokenizer pad id {tok.pad_id} != config.json pad_token_id "
+            f"{bert_cfg.pad_token_id}: mismatched checkpoint files in "
+            f"{cfg.model_dir}")
     log.info("encoder ready (%s, pretrained=%s, device=%s, hidden=%d, "
-             "layers=%d, layer_impl=%s, attn_impl=%s, pool_impl=%s)",
+             "layers=%d, layer_impl=%s, attn_impl=%s, pool_impl=%s, "
+             "tokenizer=%s)",
              bert_cfg.model_type, pretrained, cfg.device,
              bert_cfg.hidden_size, bert_cfg.num_layers,
-             bert_cfg.layer_impl, bert_cfg.attn_impl, bert_cfg.pool_impl)
+             bert_cfg.layer_impl, bert_cfg.attn_impl, bert_cfg.pool_impl,
+             type(tok).__name__)
     return SentenceEncoder(params, tok, cfg=bert_cfg,
                            seq_buckets=tuple(cfg.seq_buckets),
                            device=cfg.device)

@@ -10,8 +10,9 @@ reference's loader, the `safetensors` package and HF transformers.
 - every dtype the reference's numpy reader reads round-trips; BF16 is
   refused by the tensor's name;
 - the reference's refusals hold (hidden_act, an unknown model_type, a
-  checkpoint deeper than its config.json), and roberta is refused by name
-  with its ROADMAP item (mpnet loads: tests/test_torch_mpnet*.py);
+  checkpoint deeper than its config.json); a roberta config.json loads
+  (mpnet and roberta end to end: tests/test_torch_mpnet*.py,
+  tests/test_torch_roberta.py);
 - HF's BertModel stays the third oracle: the port's make_encoder on a
   synthesized MiniLM-shape model_dir in f32 gives HF's sentence embeddings
   within atol 2e-5 (tests/test_real_checkpoint_layout.py:170).
@@ -196,13 +197,23 @@ def test_bf16_tensor_is_refused_by_name(tmp_path):
 
 @pytest.mark.parametrize("change,match", [
     (dict(hidden_act="gelu_new"), "hidden_act"),
-    (dict(model_type="roberta"), "not ported yet .ROADMAP.md Queue 1 item 11"),
     (dict(model_type="gpt2"), "not a supported encoder family"),
     (dict(num_hidden_layers=1), "layers beyond the configured 1")])
 def test_loader_refusals(tmp_path, change, match):
     _write_model_dir(tmp_path, SMALL, seed=2, **change)
     with pytest.raises(ValueError, match=match):
         weights.load_params(str(tmp_path))
+
+
+def test_roberta_config_loads(tmp_path):
+    """model_type="roberta" loads: its pad id 1 and eps 1e-5, BERT's
+    tensor names, the tree bit-equal to what was written."""
+    tree = _write_model_dir(tmp_path, SMALL, seed=2, model_type="roberta",
+                            pad_token_id=1, layer_norm_eps=1e-5)
+    params, pretrained, cfg = weights.load_params(str(tmp_path))
+    assert pretrained and cfg.model_type == "roberta"
+    assert (cfg.pad_token_id, cfg.layer_norm_eps) == (1, 1e-5)
+    _assert_trees_bit_equal(params, tree)
 
 
 def test_compute_policy_survives_config_json(tmp_path):
