@@ -6,16 +6,19 @@
     python3 chip_smoke.py --phases k3,k2bf16,recall_i4,i4_scale
     python3 chip_smoke.py --phases attn,ffn,pool,ops   # the per-op encoder
     python3 chip_smoke.py --phases build,k1,k4,attn,ffn,node  # f32 entries
+    python3 chip_smoke.py --phases build,swarm   # ingest and the UDP swarm
     python3 chip_smoke.py --phases build,k1,attn,ops,node \
         --node-runs f32,f32-k4,f32-ops,mpnet-f32          # the f32 routes
 
 Phases, each printing one progress line; any failure exits non-zero:
   device    card name and power limit (nvidia-smi); fails without CUDA
   build     g++ builds the native library (native/*.cpp: the WordPiece
-            and byte-level BPE tokenizers) and nvcc builds csrc/*.cu (one
-            nvcc per source, in parallel), both into
-            dawnsearch_tpu_torch/_build/; prints each build's time and
-            ptxas' registers
+            and byte-level BPE tokenizers, the HTML extractor and the
+            English filter) and, apart, the WARC parser (native/warc.cpp,
+            -lz; a failure there is printed and leaves ingest the Python
+            reader), and nvcc builds csrc/*.cu (one nvcc per source, in
+            parallel), all into dawnsearch_tpu_torch/_build/; prints each
+            build's time and ptxas' registers
   k1        whole-layer kernel vs bert_layer_plain, bf16, ragged masks: at
             MiniLM width (H=384, hd 32) at (B, S) = (64, 128), (8, 512) and
             (64, 16: short queries), at BERT-base width (H=768, hd 64,
@@ -136,6 +139,26 @@ Phases, each printing one progress line; any failure exits non-zero:
             tier's select counter read from /api/metrics; every run's log
             must name the native tokenizer (WordPiece, or BPE for RoBERTa)
             in its "encoder ready" line
+  swarm     P2P search and Common Crawl ingest, as users start them: `python
+            -m dawnsearch_tpu_torch track` on 127.0.0.1, then two nodes on a
+            seeded all-MiniLM-L6-v2 checkpoint (its config.json, 6 layers at
+            full width, a word vocab; bf16, i8 index) with udp: node B on a
+            copy of the 270,000-page store with index_cc over 2 gzip WARC
+            files of 20,000 English HTML pages (write_warc; 1-4 KB each, a
+            topic and an opening sentence of their own) and 2 extraction
+            workers, node A on an empty data dir. B must ingest exactly the
+            pages the port's iter_pages keeps (K1 at the ingest batches, up
+            to B = 1024 and S = 512; pages/s and each ingest stage printed,
+            its log naming the native tokenizer and the WARC, HTML and
+            language readers); A and B each warm up with one query over
+            their own HTTP (A's first remote query printed), then 24
+            ingested pages are queried from A and each must come back at
+            rank 1 from B, B's K2 counter rising with them and both nodes'
+            K1 counter; every process stops on SIGTERM with exit 0. Then 64
+            of B's stored embeddings against the same encoder on the plain
+            path (K1 swapped for bert_layer_plain on the card) and the
+            `sidecar` CLI's embeddings of one file against B's, each at min
+            cosine 0.999
 
 The last two lines of a full run are a JSON line of per-kernel results
 and {"ok": true, "device": {...}}. Times are CUDA-event medians of 10
@@ -148,20 +171,23 @@ input read once, each output written once) over 3.35 TB/s; f32 work is
 bound at f32 accuracy, as three TF32 products per multiply-add (3xTF32,
 495 TFLOP/s of TF32), with the CUDA cores' FMA bound beside it
 (ffma_bound_ms). A kernel's launches are counted over the runs of the
-main path that a user drives: the node runs and the ops phase's encoders,
-each started from zero. --node-runs picks the node phase's runs (a run
+main path that a user drives: the node runs, the ops phase's encoders
+and the swarm's two nodes, each started from zero. --node-runs picks the
+node phase's runs (a run
 with a subset prints no last line).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import shutil
 import signal
 import socket
+import sqlite3
 import string
 import subprocess
 import sys
@@ -175,7 +201,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
-          "pool", "recall", "recall_i4", "i4_scale", "profile", "ops", "node")
+          "pool", "recall", "recall_i4", "i4_scale", "profile", "ops", "node",
+          "swarm")
 KERNEL_PHASES = {"build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
                  "pool"}
 # layer widths (H, nh, I): all-MiniLM-L6-v2, BERT-base, BERT-large
@@ -203,6 +230,17 @@ BERT_BASE_CONFIG = {
     "max_position_embeddings": 512, "model_type": "bert",
     "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 0,
     "position_embedding_type": "absolute", "transformers_version": "4.6.0.dev0",
+    "type_vocab_size": 2, "use_cache": True, "vocab_size": 30522}
+# sentence-transformers/all-MiniLM-L6-v2's config.json (HF hub), phase
+# swarm's checkpoint; the weights are seeded, its 6 layers at full width
+MINILM_CONFIG = {
+    "architectures": ["BertModel"], "attention_probs_dropout_prob": 0.1,
+    "gradient_checkpointing": False, "hidden_act": "gelu",
+    "hidden_dropout_prob": 0.1, "hidden_size": 384, "initializer_range": 0.02,
+    "intermediate_size": 1536, "layer_norm_eps": 1e-12,
+    "max_position_embeddings": 512, "model_type": "bert",
+    "num_attention_heads": 12, "num_hidden_layers": 6, "pad_token_id": 0,
+    "position_embedding_type": "absolute", "transformers_version": "4.8.2",
     "type_vocab_size": 2, "use_cache": True, "vocab_size": 30522}
 # sentence-transformers/all-mpnet-base-v2's config.json (HF hub), the node
 # runs' MPNet checkpoint; the weights are seeded, 12 layers at full width
@@ -380,6 +418,16 @@ TEXTS = [
 ]
 QUERIED = (0, 3, 7, 12, 18, 22, 27, 31)
 
+# phase swarm: a Common Crawl-like corpus ingested by node B and searched
+# from node A through B over UDP
+SWARM_PAGES = 20_000   # English HTML pages over SWARM_FILES gzip WARC files
+SWARM_FILES = 2
+SWARM_QUERIES = 24     # ingested pages queried from A, each at rank 1 from B
+SWARM_CHECKED = 64     # ingested pages re-encoded on the plain path
+STOPWORDS = ("the", "of", "and", "a", "to", "in", "is", "was", "it", "for",
+             "on", "that", "with", "as", "by", "at", "from", "this", "are")
+CONTENT = sorted({w for t in TEXTS for w in t.split()} - set(STOPWORDS))
+
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -444,10 +492,22 @@ def phase_build() -> None:
     if nativelib.get() is None:
         raise RuntimeError(f"native library did not load: "
                            f"{nativelib.build_error()}")
-    built = nativelib.BUILD_SECONDS
+    built = nativelib.BUILD_SECONDS.get("native")
     say(f"phase build: {os.path.relpath(path, HERE)} ready in "
         f"{time.perf_counter() - t0:.1f} s "
         f"({'g++ ' + format(built, '.1f') + ' s' if built else 'cached'})")
+    # the WARC parser (zlib) builds alone: without it ingest takes the
+    # Python reader, with the same records
+    t0 = time.perf_counter()
+    if nativelib.get_warc() is None:
+        say(f"phase build: the WARC parser did not build, ingest takes the "
+            f"Python reader: {nativelib.build_error('warc')}")
+    else:
+        built = nativelib.BUILD_SECONDS.get("warc")
+        path = nativelib.library_path("warc")
+        say(f"phase build: {os.path.relpath(path, HERE)} ready in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({'g++ ' + format(built, '.1f') + ' s' if built else 'cached'})")
     t0 = time.perf_counter()
     path = _cuda.build()
     _cuda.lib()
@@ -2018,6 +2078,39 @@ def phase_ops(counts: dict) -> None:
             f"{max(host[label]):.3f}] ms" for label in labels))
 
 
+def swarm_corpus(directory: str, n_pages: int = SWARM_PAGES,
+                 n_files: int = SWARM_FILES, seed: int = 23) -> list:
+    """n_pages English HTML pages in n_files gzip WARC files written by the
+    port's write_warc, as Common Crawl serves them: unique URLs, a title,
+    1-4 KB of text opening with a sentence no other page has, then seeded
+    prose on the page's own topic (a dozen words of the smoke texts'
+    vocabulary, a third stopwords, so the English filter keeps every
+    page). Returns the files' paths."""
+    from dawnsearch_tpu_torch.ingest.warc import write_warc
+    rng = np.random.default_rng(seed)
+    content, stop = np.array(CONTENT), np.array(STOPWORDS)
+    paths = []
+    for f in range(n_files):
+        records = []
+        for i in range(f, n_pages, n_files):
+            n = int(rng.integers(180, 700))
+            topic = rng.choice(content, 12, replace=False)
+            words = np.where(rng.random(n) < 0.35, rng.choice(stop, n),
+                             rng.choice(topic, n))
+            w = rng.choice(content, 4)
+            text = (f"Page {i} tells of the {w[0]} and the {w[1]} near the "
+                    f"{w[2]} {w[3]}. " + " ".join(words) + ".")
+            body = (f"<html><head><title>{w[3]} {w[0]} {i}</title></head>"
+                    f"<body><nav><a href='/'>home</a></nav><article><p>"
+                    f"{text}</p></article></body></html>")
+            records.append((f"https://crawl{f}.example/{w[1]}/{i}",
+                            body.encode()))
+        path = os.path.join(directory, f"CC-SMOKE-{f:05d}.warc.gz")
+        write_warc(path, records)
+        paths.append(path)
+    return paths
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2116,9 +2209,10 @@ def bpe_vocab(texts) -> tuple[dict, list]:
 
 def write_checkpoint(model_dir: str, family: str, seed: int = 15) -> None:
     """A checkpoint as a user drops one into model_dir: the published
-    config.json (bert-base-uncased's for "base", all-mpnet-base-v2's for
-    "mpnet", all-distilroberta-v1's for "roberta"), model.safetensors
-    (seeded layers at full width, 12, or RoBERTa's 6, written by the port's
+    config.json (bert-base-uncased's for "base", all-MiniLM-L6-v2's for
+    "minilm", all-mpnet-base-v2's for "mpnet", all-distilroberta-v1's for
+    "roberta"), model.safetensors (seeded layers at full width, 12, or
+    MiniLM's and RoBERTa's 6, written by the port's
     own writer) and the family's vocab: a vocab.txt of the config's size in
     the family's layout holding the smoke texts' words, or for "roberta"
     vocab.json + merges.txt from bpe_vocab."""
@@ -2134,7 +2228,7 @@ def write_checkpoint(model_dir: str, family: str, seed: int = 15) -> None:
         c, cfg = MPNET_CONFIG, MPNET_BASE
         vocab = _mpnet_layout(_bert_vocab(c["vocab_size"] - 5))
     else:
-        c = BERT_BASE_CONFIG
+        c = MINILM_CONFIG if family == "minilm" else BERT_BASE_CONFIG
         cfg = BertConfig(vocab_size=c["vocab_size"],
                          hidden_size=c["hidden_size"],
                          num_layers=c["num_hidden_layers"],
@@ -2155,7 +2249,21 @@ def write_checkpoint(model_dir: str, family: str, seed: int = 15) -> None:
         f.write("\n".join(vocab) + "\n")
 
 
-def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
+def seeded_store(work: str, stores: dict, dim: int,
+                 n_pages: int = NODE_PAGES) -> str:
+    """The seeded store of `dim` dims in `work`, made once (seed_store);
+    each run starts on a copy of it."""
+    if dim not in stores:
+        stores[dim] = os.path.join(work, f"seed-{dim}")
+        os.makedirs(stores[dim])
+        t0 = time.perf_counter()
+        seed_store(stores[dim], n_pages, dim)
+        say(f"seeded {n_pages} pages of {dim} dims in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return stores[dim]
+
+
+def run_nodes(work: str, stores: dict, runs=NODE_RUNS) -> dict:
     """Run the node once per entry of `runs`, each on a copy of a seeded
     store as wide as its encoder (a copy holds no index snapshot, so each
     run builds its own index); the BERT-base, MPNet and RoBERTa runs serve
@@ -2163,40 +2271,72 @@ def run_nodes(n_pages: int, runs=NODE_RUNS) -> dict:
     tokenize natively: its log's "encoder ready" line names the C++
     tokenizer's class. Returns every kernel counter's increase, summed
     over runs."""
-    work = tempfile.mkdtemp(prefix="dawn-node-")
-    try:
-        stores: dict = {}
-        total: dict = {}
-        for label, tier, env, up, model in runs:
-            env = dict(env)
-            dim = 384
-            if model is not None:
-                model_dir = os.path.join(work, f"model-{model}")
-                if not os.path.exists(model_dir):
-                    t0 = time.perf_counter()
-                    write_checkpoint(model_dir, model)
-                    say(f"phase node: wrote a {model} checkpoint in "
-                        f"{time.perf_counter() - t0:.1f} s")
-                env["DAWNSEARCH_MODEL_DIR"] = model_dir
-                dim = 768
-            if dim not in stores:
-                stores[dim] = os.path.join(work, f"seed-{dim}")
-                os.makedirs(stores[dim])
+    total: dict = {}
+    for label, tier, env, up, model in runs:
+        env = dict(env)
+        dim = 384
+        if model is not None:
+            model_dir = os.path.join(work, f"model-{model}")
+            if not os.path.exists(model_dir):
                 t0 = time.perf_counter()
-                seed_store(stores[dim], n_pages, dim)
-                say(f"phase node: seeded {n_pages} pages of {dim} dims in "
+                write_checkpoint(model_dir, model)
+                say(f"phase node: wrote a {model} checkpoint in "
                     f"{time.perf_counter() - t0:.1f} s")
-            data_dir = os.path.join(work, label)
-            shutil.copytree(stores[dim], data_dir)
-            tok = ("NativeByteLevelBPETokenizer" if model == "roberta"
-                   else "NativeWordPieceTokenizer")
-            for name, n in run_node(data_dir, label, tier, env, up,
-                                    tok).items():
-                total[name] = total.get(name, 0) + n
-            shutil.rmtree(data_dir, ignore_errors=True)
-        return total
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+            env["DAWNSEARCH_MODEL_DIR"] = model_dir
+            dim = 768
+        data_dir = os.path.join(work, label)
+        shutil.copytree(seeded_store(work, stores, dim), data_dir)
+        tok = ("NativeByteLevelBPETokenizer" if model == "roberta"
+               else "NativeWordPieceTokenizer")
+        for name, n in run_node(data_dir, label, tier, env, up,
+                                tok).items():
+            total[name] = total.get(name, 0) + n
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return total
+
+
+def start_node(work: str, label: str, data_dir: str, env_extra: dict):
+    """`python -m dawnsearch_tpu_torch --web` as a user starts it, on
+    `data_dir` with the extra environment, its output in
+    work/node-<label>.log. Returns (process, base URL, log path, log file)
+    at once; wait_up() waits for its front end."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=HERE, **env_extra)
+    log_path = os.path.join(work, f"node-{label}.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dawnsearch_tpu_torch", "--config",
+         os.path.join(work, "absent.toml"), "--web", "--data-dir", data_dir,
+         "--listen", f"127.0.0.1:{port}"],
+        cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log_path, log
+
+
+def wait_up(proc, base: str, timeout: float = 600.0) -> dict:
+    """Poll /api/stats until it answers; returns the stats."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"node exited with {proc.returncode}")
+        try:
+            return _http(base + "/api/stats", timeout=5)
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def stop_process(proc, what: str, timeout: float = 300.0) -> None:
+    """SIGTERM, then require exit status 0."""
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=timeout)
+    if rc != 0:
+        raise RuntimeError(f"{what} exit code {rc} after SIGTERM")
+
+
+def _log_lines(log_path: str, needle: str) -> list:
+    with open(log_path, encoding="utf-8") as f:
+        return [line.strip() for line in f if needle in line]
 
 
 def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
@@ -2211,33 +2351,14 @@ def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
     from dawnsearch_tpu_torch.ops.scan_select import VARIANTS
     work = os.path.dirname(data_dir)
     t0 = time.perf_counter()
-    port = _free_port()
-    base = f"http://127.0.0.1:{port}"
-    env = dict(os.environ, DAWNSEARCH_ACCEPT_INSERT="true", PYTHONPATH=HERE,
-               DAWNSEARCH_INDEX_DTYPE=tier, **env_extra)
-    log_path = os.path.join(work, f"node-{label}.log")
-    log = open(log_path, "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "dawnsearch_tpu_torch", "--config",
-         os.path.join(work, "absent.toml"), "--web", "--data-dir", data_dir,
-         "--listen", f"127.0.0.1:{port}"],
-        cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc, base, log_path, log = start_node(
+        work, label, data_dir, {"DAWNSEARCH_ACCEPT_INSERT": "true",
+                                "DAWNSEARCH_INDEX_DTYPE": tier, **env_extra})
     try:
-        deadline = time.monotonic() + start_timeout
-        while True:
-            if proc.poll() is not None:
-                raise RuntimeError(f"node exited with {proc.returncode}")
-            try:
-                stats = _http(base + "/api/stats", timeout=5)
-                break
-            except OSError:
-                if time.monotonic() > deadline:
-                    raise
-                time.sleep(1.0)
+        stats = wait_up(proc, base, start_timeout)
         say(f"phase node {label}: up in {time.perf_counter() - t0:.1f} s, "
             f"{stats['pages_indexed']} pages, capacity {stats['index_capacity']}")
-        with open(log_path, encoding="utf-8") as f:
-            ready = [line.strip() for line in f if "encoder ready" in line]
+        ready = _log_lines(log_path, "encoder ready")
         say(f"phase node {label}: {ready[0] if ready else 'no encoder line'}")
         if len(ready) != 1 or f"tokenizer={tokenizer})" not in ready[0]:
             raise AssertionError(f"the node's encoder does not tokenize "
@@ -2280,10 +2401,7 @@ def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
                 and not any(counts[n] for n in zero)):
             raise AssertionError(f"a kernel of the path never ran, or one "
                                  f"off the path did: {counts}")
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=300)
-        if rc != 0:
-            raise RuntimeError(f"node exit code {rc} after SIGTERM")
+        stop_process(proc, "node")
         say(f"phase node {label}: stopped cleanly in "
             f"{time.perf_counter() - t0:.1f} s total")
         return counts
@@ -2297,6 +2415,274 @@ def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
             proc.kill()
             proc.wait(timeout=60)
         log.close()
+
+
+def _free_udp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _log_time(line: str) -> float:
+    """The time of a log line ("2026-01-02 03:04:05,678 ..."), in s."""
+    day, clock = line.split()[:2]
+    return time.mktime(time.strptime(f"{day} {clock[:8]}",
+                                      "%Y-%m-%d %H:%M:%S")) + \
+        int(clock[9:12]) / 1e3
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """The encoder with K1 swapped for its plain twin (bert_layer_plain,
+    the same torch ops on the same device): the plain path of an encode on
+    the card. No K1 launch is counted inside it."""
+    from dawnsearch_tpu_torch.models import bert
+    from dawnsearch_tpu_torch.ops import layer
+    k1, before = bert.fused_bert_layer, dict(layer.launches)
+    bert.fused_bert_layer = layer.bert_layer_plain
+    try:
+        yield
+    finally:
+        bert.fused_bert_layer = k1
+    if layer.launches != before:
+        raise AssertionError("a kernel ran on the plain path")
+
+
+def _cos(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def phase_swarm(work: str, stores: dict, dev: dict, counts: dict) -> None:
+    """A tracker and two nodes over loopback UDP, started as a user starts
+    them, on a seeded all-MiniLM-L6-v2 checkpoint (bf16, i8 index): node B
+    on a copy of the 270,000-page store ingests SWARM_FILES gzip WARC files
+    (index_cc, warc_source, 2 extraction workers) through K1; node A, empty,
+    answers text queries for ingested pages through B (K2 on B's index).
+    Then the embeddings B stored, and those of the sidecar CLI, against the
+    same encoder on the plain path. Adds both nodes' kernel counters to
+    `counts`."""
+    from dawnsearch_tpu_torch.config import Config
+    from dawnsearch_tpu_torch.index.provider import DB_FILE
+    from dawnsearch_tpu_torch.ingest import native
+    from dawnsearch_tpu_torch.ingest.pages import iter_pages
+    from dawnsearch_tpu_torch.ingest.sidecar import load_sidecar
+    from dawnsearch_tpu_torch.node import make_encoder
+    from dawnsearch_tpu_torch.ops.scan_select import VARIANTS
+    rng = np.random.default_rng(31)
+    t0 = time.perf_counter()
+    corpus = os.path.join(work, "swarm-warc")
+    os.makedirs(corpus)
+    paths = swarm_corpus(corpus)
+    t1 = time.perf_counter()
+    pages = {}
+    for path in paths:
+        for p in iter_pages(path):
+            pages[p.url] = (p.title, p.text)
+    say(f"phase swarm: wrote {SWARM_PAGES} pages in {len(paths)} gzip WARC "
+        f"files ({sum(os.path.getsize(p) for p in paths) / 2**20:.1f} MiB) in "
+        f"{t1 - t0:.1f} s; iter_pages keeps {len(pages)} in "
+        f"{time.perf_counter() - t1:.1f} s, readers {native.readers()}")
+    model_dir = os.path.join(work, "model-minilm")
+    write_checkpoint(model_dir, "minilm")
+    data_b = os.path.join(work, "swarm-b")
+    data_a = os.path.join(work, "swarm-a")
+    shutil.copytree(seeded_store(work, stores, 384), data_b)
+    tport = _free_udp_port()
+    peer = {"DAWNSEARCH_MODEL_DIR": model_dir, "DAWNSEARCH_UDP": "true",
+            "DAWNSEARCH_TRACKERS": f"127.0.0.1:{tport}",
+            "DAWNSEARCH_ANNOUNCE_INTERVAL_S": "2",
+            "DAWNSEARCH_ACCEPT_INSERT": "false"}
+    procs, logs = [], []
+    try:
+        t_log = open(os.path.join(work, "tracker.log"), "w")
+        logs.append(t_log)
+        tracker = subprocess.Popen(
+            [sys.executable, "-m", "dawnsearch_tpu_torch", "track",
+             "--listen", f"127.0.0.1:{tport}"], cwd=work, stdout=t_log,
+            stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONPATH=HERE))
+        procs.append(("tracker", tracker))
+        deadline = time.monotonic() + 120
+        while not _log_lines(t_log.name, "tracker on"):
+            if tracker.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("the tracker did not start")
+            time.sleep(0.2)
+        t0 = time.perf_counter()
+        b, base_b, log_b, f_b = start_node(work, "swarm-b", data_b, {
+            **peer, "DAWNSEARCH_UDP_LISTEN_ADDRESS":
+                f"127.0.0.1:{_free_udp_port()}",
+            "DAWNSEARCH_INDEX_CC": "true",
+            "DAWNSEARCH_WARC_SOURCE": os.path.join(corpus, "*.warc.gz"),
+            "DAWNSEARCH_INGEST_WORKERS": "2"})
+        procs.append(("node B", b))
+        logs.append(f_b)
+        a, base_a, log_a, f_a = start_node(work, "swarm-a", data_a, {
+            **peer, "DAWNSEARCH_UDP_LISTEN_ADDRESS":
+                f"127.0.0.1:{_free_udp_port()}"})
+        procs.append(("node A", a))
+        logs.append(f_a)
+        stats_b = wait_up(b, base_b)
+        say(f"phase swarm: node B up in {time.perf_counter() - t0:.1f} s, "
+            f"{stats_b['pages_indexed']} pages")
+        want = NODE_PAGES + len(pages)
+        deadline = time.monotonic() + 600
+        while stats_b["pages_indexed"] < want:
+            if b.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError(f"node B stopped at "
+                                   f"{stats_b['pages_indexed']} of {want}")
+            time.sleep(0.25)
+            stats_b = _http(base_b + "/api/stats")
+        ready = _log_lines(log_b, "ingest ready")
+        done = [ln for ln in _log_lines(log_b, "ingested ")
+                if f"total {len(pages)})" in ln]
+        encoder = _log_lines(log_b, "encoder ready")
+        for line in (*encoder, *ready, *_log_lines(log_b, "ingest: ")):
+            say(f"phase swarm: node B: {line}")
+        if not (len(encoder) == 1
+                and "tokenizer=NativeWordPieceTokenizer)" in encoder[0]
+                and len(ready) == 1 and "workers=2" in ready[0] and done):
+            raise AssertionError("node B's log does not name its native "
+                                 "tokenizer, its readers and 2 workers")
+        seconds = _log_time(done[0]) - _log_time(ready[0])
+        say(f"phase swarm: node B ingested {len(pages)} pages in "
+            f"{seconds:.2f} s from 'ingest ready': "
+            f"{len(pages) / seconds:.1f} pages/s ({dev['smi']})")
+        metrics = _http(base_b + "/api/metrics")
+        # per batch: tokenize (host), enqueue the encode and index write,
+        # wait for the embeddings (device), SQLite write, and the whole
+        # insert_pages call around the last three
+        for name in ("ingest_tokenize", "fused_ingest_dispatch",
+                     "fused_ingest", "ingest_store", "ingest_insert"):
+            say(f"phase swarm: node B stage {name}: p50 "
+                f"{metrics.get(name + '_p50_ms', float('nan')):.2f} ms, p99 "
+                f"{metrics.get(name + '_p99_ms', float('nan')):.2f} ms over "
+                f"{metrics.get(name + '_count', 0)} batches")
+        time.sleep(1.0)
+        if _http(base_b + "/api/stats")["pages_indexed"] != want:
+            raise AssertionError("node B ingested more than the corpus")
+        wait_up(a, base_a)
+        urls = sorted(pages)
+        sample = [urls[i] for i in rng.choice(len(urls), SWARM_QUERIES + 1,
+                                              replace=False)]
+
+        def query(base: str, url: str) -> tuple:
+            title, text = pages[url]
+            res = _http(base + "/api/search?q="
+                        + urllib.parse.quote(f"{title}\n{text}"))
+            top = res["results"][0] if res["results"] else None
+            return res, top
+
+        res, top = query(base_b, sample[0])  # B warms up on its own index
+        if top is None or top["url"] != sample[0]:
+            raise AssertionError(f"node B's own query: {top}")
+        say(f"phase swarm: node B's warm-up query {res['seconds'] * 1e3:.1f} "
+            f"ms, {res['pages_searched']} pages searched")
+        # A's first query that reaches B is its warm-up; A learns B from
+        # the tracker within an announce interval
+        for tries in range(1, 31):
+            res, top = query(base_a, sample[0])
+            if res["instances_contacted"] == 2:
+                break
+            time.sleep(0.5)
+        b_id = stats_b["instance_id"]
+        from_b = top is not None and top["instance_id"] == b_id
+        say(f"phase swarm: node A's first remote query (try {tries}): "
+            f"{res['seconds'] * 1e3:.1f} ms, rank 1 "
+            f"{top['url'] if top else None} ({'B' if from_b else 'not B'}), "
+            f"{res['instances_contacted']} instances contacted")
+        if res["instances_contacted"] != 2:
+            raise AssertionError("node A never reached node B")
+        before = _http(base_b + "/api/metrics")
+        times = []
+        for url in sample[1:]:
+            res, top = query(base_a, url)
+            times.append(res["seconds"])
+            if top is None or top["url"] != url or top["instance_id"] != b_id:
+                raise AssertionError(f"{url} not at rank 1 from node B: "
+                                     f"{res['results'][:2]}")
+        after_b = _http(base_b + "/api/metrics")
+        after_a = _http(base_a + "/api/metrics")
+        raised = (after_b.get("kernel_select", 0)
+                  - before.get("kernel_select", 0))
+        say(f"phase swarm: {len(times)} pages queried from A, each at rank 1 "
+            f"from B: {np.median(times) * 1e3:.1f} ms median "
+            f"[{min(times) * 1e3:.1f}, {max(times) * 1e3:.1f}] "
+            f"({dev['smi']}); B's kernel_select rose by {raised}")
+        names = (*ENCODER_COUNTERS, *VARIANTS.values())
+        for label, m in (("A", after_a), ("B", after_b)):
+            got = {n: m[n] for n in names if m.get(n)}
+            say(f"phase swarm: node {label} kernel launches {got}")
+            for n, c in got.items():
+                counts[n] = counts.get(n, 0) + c
+        if not (raised >= len(times) and after_a.get("kernel_bert_layer")
+                and after_b.get("kernel_bert_layer")):
+            raise AssertionError("K2 on B or K1 on a node did not run")
+        for label, proc in procs[::-1]:
+            stop_process(proc, label)
+        say(f"phase swarm: tracker and both nodes stopped cleanly, exit 0")
+        procs.clear()
+        # the sidecar CLI on one file, beside the plain-path check of B's
+        # stored embeddings
+        s_log = open(os.path.join(work, "sidecar.log"), "w")
+        logs.append(s_log)
+        sidecar = subprocess.Popen(
+            [sys.executable, "-m", "dawnsearch_tpu_torch", "--config",
+             os.path.join(work, "absent.toml"), "sidecar", paths[0]],
+            cwd=work, stdout=s_log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=HERE,
+                     DAWNSEARCH_MODEL_DIR=model_dir))
+        procs.append(("sidecar", sidecar))
+        db = sqlite3.connect(os.path.join(data_b, DB_FILE))
+        stored = {url: (title, text, np.frombuffer(e, "<f4"))
+                  for url, title, text, e in db.execute(
+                      "SELECT url, title, text, embedding FROM page "
+                      "WHERE id > ?", (NODE_PAGES,))}
+        db.close()
+        if len(stored) != len(pages) or any(
+                stored[u][:2] != pages[u] for u in pages):
+            raise AssertionError("node B's store does not hold iter_pages' "
+                                 "pages")
+        cfg = Config.load(None)  # DAWNSEARCH_* as the nodes read them
+        cfg.model_dir = model_dir
+        enc = make_encoder(cfg)
+        check = [urls[i] for i in rng.choice(len(urls), SWARM_CHECKED,
+                                             replace=False)]
+        with plain_k1():
+            plain = enc.encode([f"{stored[u][0]}\n{stored[u][1]}"
+                                for u in check])
+        cos = _cos(np.stack([stored[u][2] for u in check]), plain)
+        say(f"phase swarm: {len(check)} of B's stored embeddings (K1 at the "
+            f"ingest batches) vs the plain path: min cos {cos.min():.7f}")
+        if cos.min() < COS_MIN:
+            raise AssertionError(f"stored embeddings off the plain path: "
+                                 f"min cos {cos.min()}")
+        rc = sidecar.wait(timeout=600)
+        procs.clear()
+        if rc != 0:
+            raise RuntimeError(f"sidecar CLI exit code {rc}")
+        emb, s_urls = load_sidecar(paths[0].rsplit(".warc", 1)[0]
+                                   + ".sidecar.npz")[:2]
+        cos = _cos(emb, np.stack([stored[str(u)][2] for u in s_urls]))
+        say(f"phase swarm: sidecar CLI wrote {len(s_urls)} pages of "
+            f"{os.path.basename(paths[0])}; vs B's stored embeddings min cos "
+            f"{cos.min():.7f}")
+        if len(s_urls) != sum(u.startswith("https://crawl0.") for u in pages) \
+                or cos.min() < COS_MIN:
+            raise AssertionError("the sidecar does not hold B's embeddings")
+    except BaseException:
+        for f in logs:
+            f.flush()
+            with open(f.name) as g:
+                sys.stderr.write(f"--- {f.name} (tail) ---\n"
+                                 + g.read()[-4000:])
+        raise
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        for f in logs:
+            f.close()
 
 
 def main(argv=None) -> int:
@@ -2343,21 +2729,33 @@ def main(argv=None) -> int:
             run()
             torch.cuda.empty_cache()
             say(f"phase {name}: done in {time.perf_counter() - t0:.1f} s")
-    # launches are counted only in the runs of the main path (the nodes
-    # and the ops phase's encoders); a partial run without them has no
-    # such count
-    t0 = time.perf_counter()
-    node_counts = (run_nodes(NODE_PAGES, [r for r in NODE_RUNS
-                                          if r[0] in node_runs])
-                   if "node" in phases else {})
-    if node_counts:
-        say(f"phase node: done in {time.perf_counter() - t0:.1f} s")
+    # launches are counted only in the runs of the main path (the nodes,
+    # the ops phase's encoders and the swarm's nodes); a partial run
+    # without them has no such count
+    node_counts: dict = {}
+    swarm_counts: dict = {}
+    work = tempfile.mkdtemp(prefix="dawn-smoke-")
+    try:
+        stores: dict = {}  # seeded stores, shared by the node runs and swarm
+        if "node" in phases:
+            t0 = time.perf_counter()
+            node_counts = run_nodes(work, stores, [r for r in NODE_RUNS
+                                                   if r[0] in node_runs])
+            say(f"phase node: done in {time.perf_counter() - t0:.1f} s")
+        if "swarm" in phases:
+            t0 = time.perf_counter()
+            phase_swarm(work, stores, dev, swarm_counts)
+            say(f"phase swarm: done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for r in results:
         counter = COUNTER[r["name"]]
-        ran = [c[counter] for c in (node_counts, ops_counts) if counter in c]
+        ran = [c[counter] for c in (node_counts, ops_counts, swarm_counts)
+               if counter in c]
         r["launches"] = sum(ran) if ran else None
         r["launches_node"] = node_counts.get(counter)
         r["launches_ops"] = ops_counts.get(counter)
+        r["launches_swarm"] = swarm_counts.get(counter)
         if r["name"] == "select_i4" and scale:
             r["other_shapes"] = r.get("other_shapes", []) + scale
     say(json.dumps({"kernels": results}))

@@ -5,8 +5,9 @@ the reference's src/config.rs:23-88): the same names in the file and the
 environment and the same layering (file then env, env wins), so one
 DawnSearch.toml configures either package. Only the fields this port
 reads are kept (unknown keys are ignored on load, as in the reference),
-plus `device`. The fields of features the port does not serve yet are
-kept so that node.py can refuse them by name.
+plus `device`, with the reference's defaults. The fields of features the
+port does not serve yet are kept so that node.py can refuse them by
+name.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ class Config:
     web: bool = False
     web_listen_address: str = "0.0.0.0:8080"
     udp: bool = False
+    udp_listen_address: str = "0.0.0.0:7231"
     accept_insert: bool = False
+    upnp: bool = False
+    trackers: list[str] = dataclasses.field(default_factory=list)
     data_dir: str = "data"
     debug: int = 0
 
@@ -38,6 +42,19 @@ class Config:
     # roberta (none: MiniLM width, seeded weights)
     model_dir: str | None = None
     embed_batch_size: int = 64  # cross-request batching cap
+    # pages per ingest batch (tokenize + one fused encode + index write +
+    # one store transaction); while no query ran in the last
+    # ingest_query_idle_s, the insert thread merges waiting batches up to
+    # two of the encoder's top batch buckets (ingest/extraction_service.py)
+    ingest_batch_size: int = 512
+    # extraction worker processes (0 = in-thread). Workers are spawned
+    # fresh interpreters: a script embedding DawnNode guards its entry
+    # point with `if __name__ == "__main__":`
+    ingest_workers: int = 0
+    ingest_rate_limit: float = 0.0  # pages/s ceiling of ingest, 0 = none
+    # how recently a query must have run (seconds) to stop the merge above
+    ingest_query_idle_s: float = 2.0
+    warc_source: str = ""  # glob of local WARC files; "" = Common Crawl
     embed_max_wait_ms: float = 5.0  # batcher flush deadline
     # 512 matches the reference's full BERT window (model.rs:123,147)
     seq_buckets: tuple[int, ...] = (16, 32, 64, 128, 256, 512)
@@ -55,6 +72,19 @@ class Config:
     # the search itself (+2 bytes/dim, no host round-trip)
     index_rerank: str = "host"
     search_k: int = 20  # results per query (search_provider.rs:214)
+    # "dawn" (versionable msgpack) | "reference" (rmp-serde byte-compat,
+    # joins a reference swarm; decode always accepts both)
+    wire_format: str = "dawn"
+    # "auto" (i8 on the dawn wire, i24 on the reference wire) | "i24"
+    # (3 B/dim, reference parity) | "i8" (1 B/dim + scale, dawn wire only)
+    wire_embedding: str = "auto"
+    # P2P collection deadline (udp_service.rs:301)
+    search_deadline_ms: float = 200.0
+    # responders reply with (page id, distance) summaries and the searcher
+    # asks only for the winning pages (dawn wire only)
+    two_phase_search: bool = True
+    # tracker heartbeat (dawnsearch.rs:122-128)
+    announce_interval_s: float = 60.0
     # run the encoder once on every (seq, batch <= 256) bucket at start, so
     # the first request pays no kernel build, module load or allocator growth
     warmup: bool = False

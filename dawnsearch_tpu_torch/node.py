@@ -2,7 +2,11 @@
 
 Port of dawnsearch_tpu/node.py (the reference's main-binary bootstrap,
 the reference's src/bin/dawnsearch.rs:37-154) for what this package
-serves: text search and page insert over HTTP, on one device. The
+serves on one device: text search and page insert over HTTP, the
+Common Crawl extractor with `index_cc` (WARC files from `warc_source`, or
+Common Crawl itself, through the extraction workers and the fused ingest
+path), and the UDP P2P service with `udp` (tracker membership, query
+fan-out to peers, answers to their searches, insert replication). The
 encoder is the checkpoint in model_dir (a `bert`-, `roberta`- or
 `mpnet`-family HF checkpoint: config.json, model.safetensors, and vocab.txt
 or, for RoBERTa, vocab.json + merges.txt) or seeded MiniLM-width weights, in bf16 or, for compute_dtype="f32", in f32 (the
@@ -51,8 +55,6 @@ def unported_settings(cfg: Config) -> list[str]:
     """Each setting of `cfg` this port cannot serve yet, with the
     ROADMAP.md item (Queue 1) that adds it."""
     checks = [
-        (cfg.udp, "udp", "UDP and ingest services"),
-        (cfg.index_cc, "index_cc", "UDP and ingest services"),
         (cfg.index_kind != "flat", f"index_kind={cfg.index_kind!r}",
          "sharding and multihost"),
         (cfg.dist_num_processes > 1 or bool(cfg.dist_coordinator),
@@ -71,7 +73,9 @@ def check_config(cfg: Config) -> None:
                           ("attn_impl", ("fused", "xla")),
                           ("layer_impl", ("layer", "layer_i8", "ops")),
                           ("pool_impl", ("xla", "fused")),
-                          ("index_rerank", ("host", "device"))):
+                          ("index_rerank", ("host", "device")),
+                          ("wire_format", ("dawn", "reference")),
+                          ("wire_embedding", ("auto", "i24", "i8"))):
         if getattr(cfg, name) not in allowed:
             problems.append(f"unknown {name} {getattr(cfg, name)!r}")
     if problems:
@@ -191,12 +195,19 @@ class DawnNode:
             max_pages=cfg.index_capacity,
             index_factory=make_index_factory(cfg, dim=dim),
             device=cfg.device)
+        self.udp = None
+        if cfg.udp:
+            from dawnsearch_tpu_torch.net.udp_service import UdpService
+            self.udp = UdpService(cfg, self.instance_id)
         self.service = SearchService(
             self.provider, self.batcher, instance_id=self.instance_id,
-            k=cfg.search_k)
+            k=cfg.search_k, remote=self.udp)
+        if self.udp is not None:
+            self.udp.attach(self.service)
 
         self.http_server = None
         self._http_thread = None
+        self.extractor = None
         self._save_timer: threading.Timer | None = None
         self._timer_lock = threading.Lock()
         self._stopped = threading.Event()
@@ -213,11 +224,45 @@ class DawnNode:
             self.http_server, self._http_thread = start_http_service(
                 self.service, self.cfg.web_listen_address,
                 accept_insert=self.cfg.accept_insert)
+        if self.udp is not None:
+            self.udp.start()
+        if self.cfg.index_cc:
+            self._start_extractor()
         self._schedule_save()
-        log.info("node %s up (web=%s, device=%s, %d pages)",
-                 self.instance_id, self.cfg.web, self.cfg.device,
+        log.info("node %s up (web=%s udp=%s index_cc=%s, device=%s, "
+                 "%d pages)", self.instance_id, self.cfg.web, self.cfg.udp,
+                 self.cfg.index_cc, self.cfg.device,
                  len(self.provider.store))
         return self
+
+    def _start_extractor(self) -> None:
+        """The Common Crawl extractor (dawnsearch_tpu/node.py:270-285),
+        after logging the WARC reader, HTML extractor and language filter
+        it takes (native or Python, and why a native library is missing)."""
+        from dawnsearch_tpu_torch.ingest import native
+        from dawnsearch_tpu_torch.ingest.extraction_service import (
+            CommonCrawlSource, ExtractionService, LocalWarcSource, WarcLedger)
+        readers = native.readers()
+        log.info("ingest ready (warc=%s, extract=%s, lang=%s, workers=%d, "
+                 "batch=%d, source=%s)", readers["warc"], readers["extract"],
+                 readers["lang"], self.cfg.ingest_workers,
+                 self.cfg.ingest_batch_size,
+                 self.cfg.warc_source or "Common Crawl")
+        for key in ("native_error", "warc_error"):
+            if key in readers:
+                log.warning("ingest: %s: %s", key, readers[key])
+        ledger = WarcLedger(os.path.join(self.cfg.data_dir,
+                                         "ingested_warcs.txt"))
+        source = (LocalWarcSource(self.cfg.warc_source)
+                  if self.cfg.warc_source
+                  else CommonCrawlSource(ledger=ledger))
+        self.extractor = ExtractionService(
+            self.service, source=source,
+            batch_size=self.cfg.ingest_batch_size, ledger=ledger,
+            workers=self.cfg.ingest_workers,
+            rate_limit=self.cfg.ingest_rate_limit,
+            query_idle_s=self.cfg.ingest_query_idle_s)
+        self.extractor.start()
 
     def _schedule_save(self) -> None:
         # under _timer_lock with a re-check: without it, stop() could
@@ -242,17 +287,21 @@ class DawnNode:
         self._schedule_save()
 
     def stop(self) -> None:
-        """SIGTERM path: cancel timers, stop the frontend, save, close
-        (dawnsearch.rs:141-152)."""
+        """SIGTERM path: cancel timers, stop the extractor and the
+        frontends, save, close (dawnsearch.rs:141-152)."""
         if self._stopped.is_set():
             return
         self._stopped.set()
         with self._timer_lock:  # pairs with _schedule_save's re-check
             if self._save_timer is not None:
                 self._save_timer.cancel()
+        if self.extractor is not None:
+            self.extractor.stop()
         if self.http_server is not None:
             self.http_server.shutdown()
             self.http_server.server_close()
+        if self.udp is not None:
+            self.udp.stop()
         self.batcher.stop()
         self.service.shutdown()
         log.info("node %s stopped", self.instance_id)

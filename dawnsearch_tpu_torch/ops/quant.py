@@ -1,4 +1,5 @@
-"""i4 storage quantization: the index's capacity tier (0.5 byte/dim).
+"""i4 storage quantization (the index's capacity tier, 0.5 byte/dim) and
+the i24 and i8 wire codecs of the P2P packets.
 
 Port of the i4 half of dawnsearch_tpu/ops/quant.py, with the same layout
 so snapshots cross between the packages.
@@ -15,12 +16,22 @@ Codes are symmetric [-7, 7] with a per-row scale absmax/7, stored biased
 The host helpers work on numpy (a host add packs whole blocks before the
 copy to the device); the device helpers work on tensors, and
 `write_rows_i4` writes into the preallocated buffer in place.
+
+The wire codecs (to_i24_bytes / from_i24_bytes, to_i8_wire_bytes /
+from_i8_wire_bytes) are copies of dawnsearch_tpu/ops/quant.py:42-106,
+numpy only: net/packets.py ships query embeddings with them, byte for
+byte as the reference does (the reference's src/search/vector.rs:48-87
+for i24).
 """
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
+
+from dawnsearch_tpu_torch.ops.vector import EM_LEN, MAX_VECTOR_DELTA
 
 # One packing block = one fused-selector tile (scan_select.DEFAULT_TN).
 # Indexes whose segment is not a multiple of this use block = segment and
@@ -149,3 +160,72 @@ def i4_fetch_width(count: int, k: int) -> int:
     else:
         kf = 512
     return max(kf, k)
+
+
+# ---------------------------------------------------------------------------
+# wire codecs (host-side, numpy — network serialization formats)
+# ---------------------------------------------------------------------------
+
+I24_MAX = 0x7FFFFF
+I8_WIRE_BYTES = EM_LEN + 4  # D codes + f32 scale
+
+
+def _check_unit(v: np.ndarray) -> None:
+    l = float(np.linalg.norm(v.astype(np.float64)))
+    if not (1.0 - MAX_VECTOR_DELTA < l < 1.0 + MAX_VECTOR_DELTA):
+        raise ValueError("Embedding is not normalized")
+
+
+def to_i8_wire_bytes(v: np.ndarray) -> bytes:
+    """f32[D] unit vector -> D little-endian int8 codes + f32 scale (the
+    dawn wire's 1 byte/dim option; symmetric per-vector scale)."""
+    v = np.asarray(v, dtype=np.float32)
+    scale = float(np.max(np.abs(v)))
+    if scale == 0.0:
+        scale = 1.0
+    q = np.clip(np.rint(v / scale * 127.0), -127, 127).astype(np.int8)
+    return q.tobytes() + struct.pack("<f", scale)
+
+
+def from_i8_wire_bytes(data: bytes, dim: int = EM_LEN,
+                       check: bool = True) -> np.ndarray:
+    """D+4 bytes -> f32[D]. Validates the scale and (like the i24
+    decoder, vector.rs:70) the decoded norm, so a hostile frame cannot
+    smuggle an unnormalized query past the distance math."""
+    if len(data) != dim + 4:
+        raise ValueError(f"expected {dim + 4} bytes, got {len(data)}")
+    (scale,) = struct.unpack("<f", data[dim:])
+    # unit vectors have max|v| <= 1; the same slack as the norm check
+    if not np.isfinite(scale) or not 0.0 < scale <= 1.0 + MAX_VECTOR_DELTA:
+        raise ValueError("i8 wire scale out of range")
+    q = np.frombuffer(data[:dim], dtype=np.int8).astype(np.float32)
+    v = q * np.float32(scale / 127.0)
+    if check:
+        _check_unit(v)
+    return v
+
+
+def to_i24_bytes(v: np.ndarray) -> bytes:
+    """f32[D] in [-1,1] -> 3*D little-endian bytes (vector.rs:74-86)."""
+    v = np.asarray(v, dtype=np.float64)
+    q = (((v + 1.0) / 2.0) * I24_MAX).astype(np.int64)
+    q = np.clip(q, 0, I24_MAX).astype(np.uint32)
+    out = np.empty((v.shape[-1], 3), dtype=np.uint8)
+    out[:, 0] = q & 0xFF
+    out[:, 1] = (q >> 8) & 0xFF
+    out[:, 2] = (q >> 16) & 0xFF
+    return out.tobytes()
+
+
+def from_i24_bytes(data: bytes, dim: int = EM_LEN,
+                   check: bool = True) -> np.ndarray:
+    """3*D bytes -> f32[D] (vector.rs:57-72). Validates normalization
+    like the reference's decode (vector.rs:70) unless check=False."""
+    if len(data) != dim * 3:
+        raise ValueError(f"expected {dim * 3} bytes, got {len(data)}")
+    raw = np.frombuffer(data, dtype=np.uint8).reshape(dim, 3).astype(np.uint32)
+    q = raw[:, 0] | (raw[:, 1] << 8) | (raw[:, 2] << 16)
+    v = (q.astype(np.float64) / I24_MAX * 2.0 - 1.0).astype(np.float32)
+    if check:
+        _check_unit(v)
+    return v

@@ -47,7 +47,12 @@ K5, K6 and K1 with rel_bias, and at f32 with rel at hd 26, with whole
 key tiles masked and with every key of a sequence masked; the GEMM's
 ragged last column tile (EPI_LN at N = 312, EPI_GELU at N = 1200) against
 the same products; a bf16 input
-never reaches a plain twin either. The profiler names the kernels each
+never reaches a plain twin either. K1 and K8 are also held at the bulk
+ingest shapes (ingest_batch_size 512, coalesced to two caps of the top
+bucket, 1024, at S = 512): K1 at B = 1024 (H = 384 and H = 1024, where
+M * I = 2^31) and B = 512 (H = 768), K8 at B = 1024, with the bounds
+above; the plain twin runs in batch slices there, to bound its memory.
+The profiler names the kernels each
 route runs: K1 f32 the TMA + wgmma GEMM and the 3xTF32 attention, K4 (at
 either dtype) the fixed-order attention.
 """
@@ -141,6 +146,26 @@ def test_k1_matches_plain(cuda, B, S, dtype):
     assert layer.launches == {**before, name: before[name] + 1}
     want = layer.bert_layer_plain(xt, bt, *w, nh=12)
     _layer_bound(got.float(), want.float(), m, dt)
+
+
+# the ingest path's shapes: (B, S, H, nh, I); the last puts M * I at 2^31
+INGEST_K1 = [(1024, 512, 384, 12, 1536), (512, 512, 768, 12, 3072),
+             (1024, 512, 1024, 16, 4096)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,nh,I", INGEST_K1)
+def test_k1_at_the_ingest_shapes(cuda, B, S, H, nh, I, dtype):
+    """K1 at the bulk ingest batches (one launch), against the plain twin
+    run 32 sequences at a time on the same inputs."""
+    dt = DTYPES[dtype]
+    xt, bt, w, m = _k1_args(np.random.default_rng(B + H), B, S, cuda, dt,
+                            H=H, I=I)
+    got = layer.fused_bert_layer(xt, bt, *_k1_form(w), nh=nh)
+    assert got.shape == (B, S, H) and got.dtype == dt
+    for i in range(0, B, 32):
+        want = layer.bert_layer_plain(xt[i:i + 32], bt[i:i + 32], *w, nh=nh)
+        _layer_bound(got[i:i + 32].float(), want.float(), m[i:i + 32], dt)
 
 
 def test_k1_refuses_what_it_does_not_take(cuda):
@@ -621,6 +646,22 @@ def test_k8_matches_plain(cuda, dtype, B, S, H, include_padding):
     assert attention.launches["kernel_mean_pool"] == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, H)
     want = attention.mean_pool_plain(hidden, mask, include_padding)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((got.norm(dim=-1) - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_k8_at_the_ingest_shape(cuda, dtype):
+    """K8 at B = 1024, S = 512, H = 384: one launch, within 1e-5 of the
+    plain twin, unit rows."""
+    B, S, H = 1024, 512, 384
+    hidden, mask = _pool_inputs(np.random.default_rng(B), B, S, H, cuda,
+                                DTYPES[dtype])
+    before = attention.launches["kernel_mean_pool"]
+    got = attention.fused_mean_pool(hidden, mask)
+    assert attention.launches["kernel_mean_pool"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, H)
+    want = attention.mean_pool_plain(hidden, mask)
     assert float((got - want).abs().max()) <= 1e-5
     assert float((got.norm(dim=-1) - 1).abs().max()) <= 1e-5
 

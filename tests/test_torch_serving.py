@@ -15,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -159,11 +160,11 @@ SETTINGS = [("model_dir", "/models/minilm"), ("udp", True), ("index_cc", True),
             ("layer_impl", "layer_i8"), ("layer_impl", "ops"),
             ("attn_impl", "xla"), ("pool_impl", "fused"),
             ("compute_dtype", "f32")]
-# served now: the per-op encoder path (K5-K8), HF checkpoints, K4 and the
-# f32 instances of the encoder kernels
+# served now: the per-op encoder path (K5-K8), HF checkpoints, K4, the
+# f32 instances of the encoder kernels, and the UDP and ingest services
 PORTED = {("layer_impl", "ops"), ("attn_impl", "xla"), ("pool_impl", "fused"),
           ("model_dir", "/models/minilm"), ("layer_impl", "layer_i8"),
-          ("compute_dtype", "f32")}
+          ("compute_dtype", "f32"), ("udp", True), ("index_cc", True)}
 
 
 @pytest.mark.parametrize("field,value", SETTINGS)
@@ -181,10 +182,75 @@ def test_node_refuses_unported_settings(tmp_path, field, value):
     assert not os.listdir(tmp_path)  # refused before touching the data dir
 
 
-@pytest.mark.parametrize("field", ["attn_impl", "layer_impl", "pool_impl"])
+def _wait(pred, timeout: float = 60.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.05)
+    return False
+
+
+@pytest.mark.parametrize("service", ["udp", "index_cc"])
+def test_node_starts_udp_and_ingest_on_the_cpu(tree, vocab, tmp_path, service):
+    """The two services the node refused before the port covered them:
+    with udp it announces itself to a tracker and serves; with index_cc it
+    ingests a WARC file from warc_source through the extractor and records
+    it in its ledger; either way a page's own text finds it at rank 1 over
+    HTTP, and stop() ends the service."""
+    from dawnsearch_tpu_torch.ingest.warc import write_warc
+    from dawnsearch_tpu_torch.net.tracker import Tracker
+
+    tracker = Tracker("127.0.0.1:0").start()
+    english = ("the lighthouse was built on the rocks by the people of the "
+               "town, and it has stood there for more than a century while "
+               "the sea broke on the stones below it. ")
+    texts = [f"{PAGES[i]} {english * 4}" for i in range(12)]
+    cfg = Config(device="cpu", web=True, web_listen_address="127.0.0.1:0",
+                 accept_insert=True, data_dir=str(tmp_path / "data"))
+    if service == "udp":
+        cfg.udp, cfg.udp_listen_address = True, "127.0.0.1:0"
+        cfg.trackers = [f"127.0.0.1:{tracker.port}"]
+        cfg.announce_interval_s = 0.1
+    else:
+        warc = str(tmp_path / "crawl-0.warc.gz")
+        write_warc(warc, [(f"https://w/{i}", f"<html><head><title>T{i}</title>"
+                           f"</head><body><p>{t}</p></body></html>".encode())
+                          for i, t in enumerate(texts)])
+        cfg.index_cc, cfg.warc_source, cfg.ingest_batch_size = True, warc, 4
+    node = DawnNode(cfg, encoder=port_encoder(tree, vocab)).start()
+    try:
+        base = f"http://127.0.0.1:{node.http_port}"
+        if service == "udp":
+            assert node.udp is not None and node.extractor is None
+            assert _wait(lambda: node.instance_id in tracker.peers)
+            pages = [{"url": f"https://w/{i}", "title": f"T{i}", "text": t}
+                     for i, t in enumerate(texts)]
+            assert len(_http(base + "/api/insert",
+                             {"pages": pages})["inserted"]) == 12
+        else:
+            assert node.udp is None and node.extractor is not None
+            assert _wait(lambda: len(node.provider.store) == 12)
+            assert _wait(lambda: node.extractor.ledger.seen(warc))
+        q = "T5\n" + node.provider.store.get(6)[0].text
+        got = _http(base + "/api/search?q=" + urllib.parse.quote(q))
+        assert got["results"][0]["url"] == "https://w/5"
+    finally:
+        node.stop()
+        tracker.stop()
+    if service == "udp":
+        assert node.udp._stop.is_set()
+    else:
+        assert not node.extractor._insert_thread.is_alive()
+
+
+@pytest.mark.parametrize("field", ["attn_impl", "layer_impl", "pool_impl",
+                                   "wire_format", "wire_embedding"])
 def test_node_refuses_an_unknown_route(tmp_path, field):
     """A typo must not quietly pick a route (attn_impl="fusd" would run
-    the whole-layer kernel, as the reference's bert.py:180 reads it)."""
+    the whole-layer kernel, as the reference's bert.py:180 reads it;
+    wire_format="fusd" would speak the dawn wire, as the reference's
+    net/udp_service.py reads it)."""
     cfg = Config(device="cpu", data_dir=str(tmp_path), **{field: "fusd"})
     with pytest.raises(ValueError, match=f"unknown {field} 'fusd'"):
         DawnNode(cfg)
@@ -385,7 +451,15 @@ def test_node_serves_over_http_and_reloads_its_snapshot(tree, vocab, tmp_path):
         node.stop()
 
 
+# packages the card's machine lacks (boto3 stays a lazy import of
+# ingest/object_store.py's S3 store); msgpack, which net/packets.py needs,
+# is installed there
+CARD_LACKS = ("boto3", "botocore", "lxml")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
+    """Every module of the port imports without JAX, the reference
+    package, or a package the card's machine lacks."""
     code = ("import importlib, pkgutil, sys\n"
             "import dawnsearch_tpu_torch as p\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -393,7 +467,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'dawnsearch_tpu'))\n"
+            f"{('jax', 'jaxlib', 'dawnsearch_tpu', *CARD_LACKS)!r})\n"
             "print(len(mods), bad)\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
