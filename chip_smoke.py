@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases attn,ffn,pool,ops   # the per-op encoder
     python3 chip_smoke.py --phases build,k1,k4,attn,ffn,node  # f32 entries
     python3 chip_smoke.py --phases build,swarm   # ingest and the UDP swarm
+    python3 chip_smoke.py --phases build,sharded,node,crew --node-runs sharded
     python3 chip_smoke.py --phases build,k1,attn,ops,node \
         --node-runs f32,f32-k4,f32-ops,mpnet-f32          # the f32 routes
 
@@ -118,10 +119,25 @@ Phases, each printing one progress line; any failure exits non-zero:
             per-op paths, bf16 and
             f32, as device time (CUDA-graph replays) and as host time over
             6 alternating rounds (median [min, max])
+  sharded   ShardedFlatIndex, 4 shards on cuda:0, over 1,048,576 seeded
+            unit rows (262,144 a shard, the K2 gate), i8 and i4 with the
+            f16 shadow, against a FlatIndex over the same rows at B = 1, 8
+            and 32 (queries near planted rows): every shard's K2 / K3
+            select bit-equal to its plain twin, the planted row first, the
+            top-10 ids raw and after the f16 re-rank equal to the flat
+            index's or nowhere worse by distance (the flat index folds its
+            candidate columns once; a shard does not), equal after the
+            re-rank on 90% of the queries; timed against the flat index
+            (CUDA-event medians); then the i8 index saved, reloaded on 4
+            shards and re-striped onto 2, equal ids
   node      `python -m dawnsearch_tpu_torch` over a 270,000-page store
             (past the 262,144-row gate of the fused select) as wide as its
             encoder: on the seeded MiniLM weights once each with
-            index_dtype i8, i4 and bf16, on i8 with DAWNSEARCH_LAYER_IMPL=ops
+            index_dtype i8, i4 and bf16, on i8 with index_kind "sharded"
+            (mesh_shards = 0: one shard on the card; the store rebuilt into
+            it, /api/insert through ShardedFusedIngestPath, an /api/profile
+            capture during the queries whose trace must name K1's and K2's
+            kernels), on i8 with DAWNSEARCH_LAYER_IMPL=ops
             DAWNSEARCH_POOL_IMPL=fused and with DAWNSEARCH_LAYER_IMPL=layer_i8;
             then on a seeded 12-layer BERT-base checkpoint written to a
             DAWNSEARCH_MODEL_DIR, on K1 and on K4, and on a seeded 12-layer
@@ -159,6 +175,19 @@ Phases, each printing one progress line; any failure exits non-zero:
             path (K1 swapped for bert_layer_plain on the card) and the
             `sidecar` CLI's embeddings of one file against B's, each at min
             cosine 0.999
+  crew      two processes on cuda:0 over gloo, started as users start them:
+            the leader `python -m dawnsearch_tpu_torch --web` (DawnNode) and
+            a follower `python -m dawnsearch_tpu_torch` with
+            dist_process_id 1, index_kind "sharded" (one shard each),
+            index_rerank "device", over a 524,288-page store rebuilt through
+            the crew (coalesced adds; 262,144 rows a shard, so K2 runs in
+            both processes); 32 pages in through /api/insert (K1 on the
+            leader), 25 of them queried at rank 1, a save through the
+            gather; both stop with exit 0 on the leader's SIGTERM; the
+            snapshot then loads in this process on 2 shards and re-striped
+            onto 4 with equal ids, every inserted page first. Prints the
+            rebuild's rows/s and the median query time (the sharded node
+            run's beside it)
 
 The last two lines of a full run are a JSON line of per-kernel results
 and {"ok": true, "device": {...}}. Times are CUDA-event medians of 10
@@ -171,8 +200,9 @@ input read once, each output written once) over 3.35 TB/s; f32 work is
 bound at f32 accuracy, as three TF32 products per multiply-add (3xTF32,
 495 TFLOP/s of TF32), with the CUDA cores' FMA bound beside it
 (ffma_bound_ms). A kernel's launches are counted over the runs of the
-main path that a user drives: the node runs, the ops phase's encoders
-and the swarm's two nodes, each started from zero. --node-runs picks the
+main path that a user drives: the node runs, the ops phase's encoders,
+the swarm's two nodes and the crew's two processes, each started from
+zero. --node-runs picks the
 node phase's runs (a run
 with a subset prints no last line).
 """
@@ -192,6 +222,7 @@ import string
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.parse
 import urllib.request
@@ -201,8 +232,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
-          "pool", "recall", "recall_i4", "i4_scale", "profile", "ops", "node",
-          "swarm")
+          "pool", "recall", "recall_i4", "i4_scale", "profile", "ops", "sharded",
+          "node", "swarm", "crew")
 KERNEL_PHASES = {"build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
                  "pool"}
 # layer widths (H, nh, I): all-MiniLM-L6-v2, BERT-base, BERT-large
@@ -358,12 +389,16 @@ K4_ENV = {"DAWNSEARCH_LAYER_IMPL": "layer_i8"}
 F32_ENV = {"DAWNSEARCH_COMPUTE_DTYPE": "f32"}
 WARMUP_ENV = {"DAWNSEARCH_WARMUP": "true"}
 PER_OP = ("kernel_attention_packed", "kernel_ffn", "kernel_mean_pool")
+# one shard on one card (mesh_shards = 0): ShardedFusedIngestPath, the
+# sharded search, and an /api/profile capture
+SHARDED_ENV = {"DAWNSEARCH_INDEX_KIND": "sharded", "DAWNSEARCH_MESH_SHARDS": "0"}
 # (label, tier, extra environment, encoder counters that must rise (every
 # other encoder counter must stay 0), model: None for the node's seeded
 # MiniLM weights, "base" / "mpnet" / "roberta" for the seeded BERT-base /
 # all-mpnet-base-v2 / all-distilroberta-v1 checkpoint)
 NODE_RUNS = (
     *((t, t, {}, ("kernel_bert_layer",), None) for t in NODE_TIERS),
+    ("sharded", "i8", SHARDED_ENV, ("kernel_bert_layer",), None),
     ("i8-ops", "i8", PER_OP_ENV, PER_OP, None),
     ("i8-k4", "i8", K4_ENV, ("kernel_bert_layer_i8",), None),
     ("base", "i8", {}, ("kernel_bert_layer",), "base"),
@@ -417,6 +452,12 @@ TEXTS = [
     "photosynthesis in the chloroplast uses light to split water and store the energy in sugar made from carbon dioxide",
 ]
 QUERIED = (0, 3, 7, 12, 18, 22, 27, 31)
+
+# phase sharded: a 4-shard index on one card, one shard a K2 gate's worth
+SHARDED_ROWS, SHARDED_SHARDS, SHARDED_BATCHES = 1 << 20, 4, (1, 8, 32)
+SHARDED_EQUAL_SHARE = 0.9  # of the 41 queries, after the f16 re-rank
+# phase crew: two processes on one card, one shard each at the K2 gate
+CREW_ROWS, CREW_QUERIES = 1 << 19, 25
 
 # phase swarm: a Common Crawl-like corpus ingested by node B and searched
 # from node A through B over UDP
@@ -2394,6 +2435,9 @@ def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
             f" ms ({'warmup = true' if warm else 'no warmup'})")
         after = _http(base + "/api/metrics")
         counts = {n: after.get(n, 0) - before.get(n, 0) for n in names}
+        if env_extra.get("DAWNSEARCH_INDEX_KIND") == "sharded":
+            # after the counts: the capture's queries are not the path's
+            check_sharded_node(label, base)
         say(f"phase node {label}: kernel launches "
             f"{ {n: c for n, c in counts.items() if c} }")
         zero = set(ENCODER_COUNTERS) - set(up)
@@ -2415,6 +2459,51 @@ def run_node(data_dir: str, label: str, tier: str, env_extra: dict,
             proc.kill()
             proc.wait(timeout=60)
         log.close()
+
+
+# kernel names (csrc/) in a torch.profiler trace: K1's GEMM ring and
+# attention, K2's select
+TRACE_KERNELS = {"K1": ("gemm_kernel", "attention_kernel"),
+                 "K2": ("select_kernel",)}
+
+
+def check_sharded_node(label: str, base: str) -> None:
+    """The sharded node's extras, after its timed queries and its kernel
+    counts: its inserts took ShardedFusedIngestPath (METRICS'
+    fused_ingest_dispatch timer), and an /api/profile capture, taken
+    while more queries run (the profiler slows every op it records),
+    names K1's and K2's kernels. The capture's queries are counted apart
+    and printed; their launches are not the path's."""
+    metrics = _http(base + "/api/metrics")
+    stats = _http(base + "/api/stats")
+    profiled: dict = {}
+    capture = threading.Thread(target=lambda: profiled.update(
+        _http(base + "/api/profile?seconds=1")))
+    capture.start()
+    queries = 0
+    while capture.is_alive():  # keep queries inside the capture
+        _http(base + "/api/search?q=" + urllib.parse.quote(TEXTS[0]))
+        queries += 1
+    capture.join()
+    if not metrics.get("fused_ingest_dispatch_count"):
+        raise AssertionError("the sharded node's inserts did not take "
+                             "ShardedFusedIngestPath")
+    with open(profiled["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    found = {k: [n for n in kernels if any(p in n for p in pats)]
+             for k, pats in TRACE_KERNELS.items()}
+    say(f"phase node {label}: {stats['pages_indexed']} pages in the sharded "
+        f"index, inserts through ShardedFusedIngestPath "
+        f"({metrics['fused_ingest_dispatch_count']} dispatches); /api/profile "
+        f"during {queries} queries wrote {os.path.basename(profiled['trace'])} "
+        f"({os.path.getsize(profiled['trace']) >> 10} KiB, {len(events)} "
+        f"events, {len(kernels)} kernel names) naming K1 "
+        f"{len(found['K1'])} and K2 {len(found['K2'])} times")
+    if not all(found.values()):
+        raise AssertionError(f"the profile trace names no K1 or no K2 "
+                             f"kernel: {sorted(kernels)[:20]}")
 
 
 def _free_udp_port() -> int:
@@ -2685,6 +2774,307 @@ def phase_swarm(work: str, stores: dict, dev: dict, counts: dict) -> None:
             f.close()
 
 
+def _planted_queries(rows: torch.Tensor, n: int, g: torch.Generator
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """n queries near stored rows (row + 0.3 · noise, normalized), so each
+    query's nearest row is its planted one -> (queries, planted ids)."""
+    planted = torch.randint(0, rows.shape[0], (n,), generator=g,
+                            device=rows.device)
+    q = rows[planted] + 0.3 * _unit_rows(n, g, rows.device, rows.shape[1])
+    return q / torch.linalg.vector_norm(q, dim=1, keepdim=True), planted
+
+
+def _merged_raw(ix, q: torch.Tensor, k: int
+                ) -> tuple[np.ndarray, np.ndarray, bool]:
+    """A sharded index's raw K2 / K3 result (no re-rank): each shard's
+    select against its plain twin on the same inputs (bit-equal for the
+    i8 queries both select variants score), then the merge. -> (distances
+    and user ids (B, k), every shard bit-equal)."""
+    from dawnsearch_tpu_torch.ops import scan_select as ss
+    from dawnsearch_tpu_torch.parallel.sharded_index import merge_shards
+    ds, us, equal = [], [], True
+    qq, qs = ss.quantize_queries(q)
+    for s in range(ix.mesh.local_shards):
+        codes, scales = ix._codes[0][s], ix._scales[0][s]
+        count = int(ix._counts[s])
+        vals, ids = ss.select_candidates(qq, qs, codes, scales, count)
+        pvals, pids = ss.select_candidates_plain(qq, qs, codes, scales, count)
+        equal &= (torch.equal(vals.view(torch.int32), pvals.view(torch.int32))
+                  and torch.equal(ids, pids))
+        d, i = ss.fold_topk(vals, ids, k)
+        uid = torch.where(i >= 0, ix._ids[0][s][i.clamp_min(0).long()], -1)
+        ds.append(d)
+        us.append(uid)
+    d, u = merge_shards(torch.stack(ds), torch.stack(us), k)
+    return d.cpu().numpy(), u.cpu().numpy(), equal
+
+
+def _same_or_better(d, u, fd, fu) -> tuple[np.ndarray, bool]:
+    """Per query: the sharded ids equal the flat index's, else its
+    distances are nowhere worse (it kept a row the flat index's candidate
+    fold dropped). -> (equal rows, every row equal or better)."""
+    same = np.all(u == fu, axis=1)
+    better = np.all(d <= fd + 1e-6, axis=1)
+    return same, bool((same | better).all())
+
+
+def phase_sharded(notes: dict) -> None:
+    """ShardedFlatIndex of SHARDED_SHARDS shards on cuda:0 over
+    SHARDED_ROWS seeded unit rows (262,144 a shard: the K2 gate), i8 and
+    i4, each with its f16 shadow, against a FlatIndex over the same rows
+    at B = 1, 8 and 32, queries near planted rows: every shard's select
+    bit-equal to its plain twin; the planted row first; the top-10 ids,
+    raw and after the f16 re-rank, equal to the flat index's on every
+    query or nowhere worse by distance, and equal on at least
+    SHARDED_EQUAL_SHARE of the 41 queries after the re-rank (the flat
+    index folds its 8192 candidate columns once, pairing
+    tile t with t + 32 and keeping the better column; a 262,144-row shard's
+    2048 columns are not folded, so it can keep a top-10 row the fold
+    drops); timed against the flat index (CUDA-event medians). Then the i8
+    index saved, reloaded on 4 shards and re-striped onto 2, with equal
+    results."""
+    from dawnsearch_tpu_torch.index import load_index
+    from dawnsearch_tpu_torch.index.flat import FlatIndex
+    from dawnsearch_tpu_torch.ops import scan_select as ss
+    from dawnsearch_tpu_torch.parallel.mesh import make_mesh
+    from dawnsearch_tpu_torch.parallel.sharded_index import ShardedFlatIndex
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh({"shard": SHARDED_SHARDS}, devices=[dev] * SHARDED_SHARDS)
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = _unit_rows(SHARDED_ROWS, g, dev)
+    queries, planted = _planted_queries(rows, max(SHARDED_BATCHES), g)
+    rows_np = rows.cpu().numpy()
+    del rows
+    planted = planted.cpu().numpy()
+    k = 10
+    for dtype, variant in (("i8", "kernel_select"), ("i4", "kernel_select_i4")):
+        t0 = time.perf_counter()
+        flat = FlatIndex(dtype=dtype, exact="f16", device=dev)
+        flat.add(rows_np)
+        sh = ShardedFlatIndex(mesh=mesh, dtype=dtype, exact="f16")
+        sh.add(rows_np)
+        torch.cuda.synchronize()
+        say(f"phase sharded {dtype}: built flat and {SHARDED_SHARDS}-shard "
+            f"indexes of {SHARDED_ROWS} rows in "
+            f"{time.perf_counter() - t0:.1f} s; shard counts "
+            f"{sh._counts.tolist()}, capacity {sh.cap_per_shard} a shard")
+        if not (sh.fused_eligible() and flat.fused_eligible()):
+            raise AssertionError("the sharded or flat index is below the "
+                                 "fused gate")
+        before = ss.launches[variant]
+        n_same = 0
+        for B in SHARDED_BATCHES:
+            q = queries[:B]
+            sd, su = sh.search(q, k)
+            fd, fu = flat.search(q, k)
+            same, ok = _same_or_better(sd, su, fd, fu)
+            rd, ru, bit_equal = _merged_raw(sh, q, k)
+            frd, fru = (t.cpu().numpy() for t in ss.search_select(
+                flat._codes, flat._scales, q, flat.count, k))
+            raw_same, raw_ok = _same_or_better(rd, ru, frd, fru)
+            first = bool((ru[:, 0] == planted[:B]).all()
+                         and (su[:, 0] == planted[:B]).all())
+            sh_ms = cuda_ms(lambda: sh.search_dispatch(q, k))
+            flat_ms = cuda_ms(lambda: flat.search_dispatch(q, k))
+            say(f"phase sharded {dtype} B={B}: f16 re-ranked ids equal the "
+                f"flat index's on {int(same.sum())}/{B} queries (the rest "
+                f"nowhere worse: {ok}); raw: every shard bit-equal to its "
+                f"plain twin={bit_equal}, equal on {int(raw_same.sum())}/{B} "
+                f"(the rest nowhere worse: {raw_ok}), planted row first="
+                f"{first}; search (f16 re-rank) sharded {sh_ms:.3f} ms, flat "
+                f"{flat_ms:.3f} ms")
+            notes[f"sharded_{dtype}_B{B}"] = {
+                "sharded_ms": sh_ms, "flat_ms": flat_ms,
+                "reranked_equal": int(same.sum()),
+                "raw_equal": int(raw_same.sum()), "B": B}
+            if not (ok and raw_ok and bit_equal and first):
+                raise AssertionError(f"sharded {dtype} B={B} disagrees with "
+                                     "the flat index (see the line above)")
+            n_same += int(same.sum())
+        if n_same < SHARDED_EQUAL_SHARE * sum(SHARDED_BATCHES):
+            raise AssertionError(f"sharded {dtype}: re-ranked ids equal the "
+                                 f"flat index's on only {n_same} queries")
+        ran = ss.launches[variant] - before
+        # each search: one launch a shard (sharded), one (flat); _merged_raw
+        # adds one a shard
+        if ran < len(SHARDED_BATCHES) * (2 * SHARDED_SHARDS + 1):
+            raise AssertionError(f"{variant} ran {ran} times")
+        if dtype == "i8":
+            work = tempfile.mkdtemp(prefix="dawn-sharded-")
+            path = os.path.join(work, "sharded.npz")
+            t0 = time.perf_counter()
+            sh.save(path)
+            q = queries[:32]
+            want = sh.search(q, k)[1]
+            four = load_index(path, mesh=mesh)
+            two = load_index(path, mesh=make_mesh({"shard": 2},
+                                                  devices=[dev] * 2))
+            for got in (four, two):
+                if not np.array_equal(got.search(q, k)[1], want):
+                    raise AssertionError(f"reloaded on {got.n_shards} shards: "
+                                         "results differ")
+            say(f"phase sharded i8: saved {os.path.getsize(path) >> 20} MiB, "
+                f"reloaded on 4 shards and re-striped onto 2 "
+                f"({two._counts.tolist()}), equal ids at B=32, in "
+                f"{time.perf_counter() - t0:.1f} s")
+            shutil.rmtree(work, ignore_errors=True)
+            del four, two
+        del flat, sh
+        torch.cuda.empty_cache()
+
+
+def _crew_port() -> int:
+    """A free port whose successor (the control stream) is free too."""
+    while True:
+        port = _free_port()
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", port + 1))
+            return port
+        except OSError:
+            continue
+
+
+def _launches_logged(log_path: str) -> dict:
+    lines = _log_lines(log_path, "follower stopped; kernel launches")
+    if not lines:
+        raise AssertionError("the follower logged no kernel launches")
+    return json.loads(lines[-1].split("kernel launches", 1)[1])
+
+
+def _rebuild_rate(log_path: str) -> tuple[int, float]:
+    """(rows, seconds) of the provider's "rebuilt index" log line."""
+    line = _log_lines(log_path, "rebuilt index:")[-1]
+    words = line.split("rebuilt index:", 1)[1].split()
+    return int(words[0]), float(words[3].rstrip("s"))
+
+
+def phase_crew(work: str, counts: dict, notes: dict) -> None:
+    """Two processes on cuda:0 over gloo, started as a user starts them:
+    the leader `python -m dawnsearch_tpu_torch --web` (DawnNode,
+    dist_process_id 0), the follower `python -m dawnsearch_tpu_torch`
+    with dist_process_id 1, index_kind "sharded" (one shard a process),
+    index_rerank "device". The leader rebuilds CREW_ROWS seeded pages
+    through the crew (coalesced adds; K2 then runs in both processes),
+    ingests TEXTS through /api/insert (K1 on the leader), answers
+    CREW_QUERIES of them over HTTP at rank 1, and saves through the gather;
+    SIGTERM stops both with exit 0. The crew's snapshot must load in one
+    process on 4 shards and on the crew's 2 with equal results. Adds both
+    processes' kernel counters to `counts`."""
+    from dawnsearch_tpu_torch.index import load_index
+    from dawnsearch_tpu_torch.index.provider import DB_FILE, INDEX_FILE
+    from dawnsearch_tpu_torch.parallel.mesh import make_mesh
+    data_dir = os.path.join(work, "crew")
+    os.makedirs(data_dir)
+    t0 = time.perf_counter()
+    seed_store(data_dir, CREW_ROWS)
+    say(f"phase crew: seeded {CREW_ROWS} pages in "
+        f"{time.perf_counter() - t0:.1f} s")
+    env = {"DAWNSEARCH_INDEX_KIND": "sharded",
+           "DAWNSEARCH_INDEX_RERANK": "device",
+           "DAWNSEARCH_ACCEPT_INSERT": "true",
+           "DAWNSEARCH_DIST_COORDINATOR": f"127.0.0.1:{_crew_port()}",
+           "DAWNSEARCH_DIST_NUM_PROCESSES": "2"}
+    fol_log_path = os.path.join(work, "crew-follower.log")
+    fol_log = open(fol_log_path, "w")
+    follower = subprocess.Popen(
+        [sys.executable, "-m", "dawnsearch_tpu_torch", "--config",
+         os.path.join(work, "absent.toml"), "--data-dir", data_dir],
+        cwd=work, env=dict(os.environ, PYTHONPATH=HERE, **env,
+                           DAWNSEARCH_DIST_PROCESS_ID="1"),
+        stdout=fol_log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    leader, base, log_path, log = start_node(
+        work, "crew-leader", data_dir, {**env, "DAWNSEARCH_DIST_PROCESS_ID": "0"})
+    try:
+        stats = wait_up(leader, base)
+        rebuilt, secs = _rebuild_rate(log_path)
+        say(f"phase crew: leader up in {time.perf_counter() - t0:.1f} s, "
+            f"{stats['pages_indexed']} pages; rebuilt {rebuilt} rows through "
+            f"the crew in {secs:.2f} s ({rebuilt / secs:.0f} rows/s, adds "
+            f"coalesced at dist_add_flush_rows)")
+        if follower.poll() is not None:
+            raise RuntimeError(f"follower exited with {follower.returncode}")
+        names = (*ENCODER_COUNTERS, "kernel_select")
+        before = _http(base + "/api/metrics")
+        pages = [{"url": f"https://pages.example/{j}", "title": "", "text": t}
+                 for j, t in enumerate(TEXTS)]
+        if len(_http(base + "/api/insert", {"pages": pages})["inserted"]) \
+                != len(TEXTS):
+            raise AssertionError("crew insert refused pages")
+        seconds = []
+        for j in range(CREW_QUERIES):
+            res = _http(base + "/api/search?q=" + urllib.parse.quote(TEXTS[j]))
+            seconds.append(float(res["seconds"]))
+            if res["results"][0]["url"] != pages[j]["url"]:
+                raise AssertionError(f"crew: page {j} not at rank 1: "
+                                     f"{res['results'][:3]}")
+        med = float(np.median(seconds[1:]))
+        say(f"phase crew: {CREW_QUERIES} queries at rank 1; first "
+            f"{seconds[0] * 1e3:.1f} ms, the others median {med * 1e3:.1f} ms")
+        notes["crew"] = {"query_median_ms": med * 1e3,
+                         "rebuild_rows_per_s": rebuilt / secs}
+        t1 = time.perf_counter()
+        _http(base + "/api/save", {})
+        say(f"phase crew: saved through the gather in "
+            f"{time.perf_counter() - t1:.2f} s")
+        after = _http(base + "/api/metrics")
+        stop_process(leader, "crew leader")
+        rc = follower.wait(timeout=300)
+        if rc != 0:
+            raise RuntimeError(f"follower exit code {rc}")
+        lead = {n: after.get(n, 0) - before.get(n, 0) for n in names}
+        fol = _launches_logged(fol_log_path)
+        say(f"phase crew: leader launches (insert + queries) "
+            f"{ {n: c for n, c in lead.items() if c} }, follower launches "
+            f"(its whole run) {fol}")
+        if not (lead["kernel_bert_layer"] and lead["kernel_select"]
+                and fol.get("kernel_select")):
+            raise AssertionError("K1 on the leader or K2 in either process "
+                                 "never ran")
+        for n in names:
+            counts[n] = counts.get(n, 0) + lead[n] + fol.get(n, 0)
+        # the crew's snapshot in one process: on its own 2 shards and
+        # re-striped onto 4, against the stored embeddings of the pages
+        dev = torch.device("cuda", 0)
+        db = sqlite3.connect(os.path.join(data_dir, DB_FILE))
+        got = db.execute("SELECT id, embedding FROM page WHERE url LIKE "
+                         "'https://pages.example/%' ORDER BY id").fetchall()
+        db.close()
+        ids = np.array([r[0] for r in got]) - 1
+        embs = np.stack([np.frombuffer(r[1], "<f4") for r in got])
+        path = os.path.join(data_dir, INDEX_FILE)
+        res = {}
+        for n in (2, 4):
+            ix = load_index(path, mesh=make_mesh({"shard": n},
+                                                 devices=[dev] * n))
+            res[n] = ix.search(embs, 10)[1]
+            say(f"phase crew: snapshot loaded on {n} shards in one process: "
+                f"{len(ix)} rows, counts {ix._counts.tolist()}")
+            del ix
+        if not (np.array_equal(res[2], res[4])
+                and (res[2][:, 0] == ids).all()):
+            raise AssertionError("the crew's snapshot does not reload with "
+                                 "equal results")
+        say("phase crew: its snapshot reloads with equal results, every "
+            "inserted page first")
+    except BaseException:
+        for f, p in ((log, log_path), (fol_log, fol_log_path)):
+            f.flush()
+            with open(p) as fh:
+                sys.stderr.write(f"--- {p} (tail) ---\n" + fh.read()[-6000:])
+        raise
+    finally:
+        for proc in (leader, follower):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        log.close()
+        fol_log.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2711,6 +3101,7 @@ def main(argv=None) -> int:
         phase_build()
     scale: list = []
     ops_counts: dict = {}
+    notes: dict = {}  # the sharded and crew phases' times
     for name, run in (("k1", lambda: phase_k1(results)),
                       ("k4", lambda: phase_k4(results)),
                       ("k2", lambda: phase_k2(results)),
@@ -2723,7 +3114,8 @@ def main(argv=None) -> int:
                       ("recall_i4", phase_recall_i4),
                       ("i4_scale", lambda: phase_i4_scale(scale)),
                       ("profile", phase_profile),
-                      ("ops", lambda: phase_ops(ops_counts))):
+                      ("ops", lambda: phase_ops(ops_counts)),
+                      ("sharded", lambda: phase_sharded(notes))):
         if name in phases:
             t0 = time.perf_counter()
             run()
@@ -2734,6 +3126,7 @@ def main(argv=None) -> int:
     # without them has no such count
     node_counts: dict = {}
     swarm_counts: dict = {}
+    crew_counts: dict = {}
     work = tempfile.mkdtemp(prefix="dawn-smoke-")
     try:
         stores: dict = {}  # seeded stores, shared by the node runs and swarm
@@ -2746,18 +3139,25 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             phase_swarm(work, stores, dev, swarm_counts)
             say(f"phase swarm: done in {time.perf_counter() - t0:.1f} s")
+        if "crew" in phases:
+            t0 = time.perf_counter()
+            phase_crew(work, crew_counts, notes)
+            say(f"phase crew: done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for r in results:
         counter = COUNTER[r["name"]]
-        ran = [c[counter] for c in (node_counts, ops_counts, swarm_counts)
-               if counter in c]
+        ran = [c[counter] for c in (node_counts, ops_counts, swarm_counts,
+                                    crew_counts) if counter in c]
         r["launches"] = sum(ran) if ran else None
         r["launches_node"] = node_counts.get(counter)
         r["launches_ops"] = ops_counts.get(counter)
         r["launches_swarm"] = swarm_counts.get(counter)
+        r["launches_crew"] = crew_counts.get(counter)
         if r["name"] == "select_i4" and scale:
             r["other_shapes"] = r.get("other_shapes", []) + scale
+    if notes:
+        say(f"sharded and crew times: {json.dumps(notes)}")
     say(json.dumps({"kernels": results}))
     say(dev["smi"])
     if full:

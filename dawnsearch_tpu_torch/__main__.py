@@ -1,10 +1,11 @@
-"""CLI: `python -m dawnsearch_tpu_torch` runs a node; `... track` runs the
-tracker; `... sidecar` embeds WARC files into sidecar files offline.
+"""CLI: `python -m dawnsearch_tpu_torch` runs a node (or, with
+dist_process_id > 0, a crew follower); `... track` runs the tracker;
+`... sidecar` embeds WARC files into sidecar files offline; `... migrate`
+compacts a reference or gappy store into pages.sqlite; `... eval-quality`
+(`evalq`) is the weights-drop quality gate.
 
 Port of dawnsearch_tpu/__main__.py. Config comes from DawnSearch.toml +
 DAWNSEARCH_* env vars (config.rs:42-73), with a few direct CLI overrides.
-The reference package's `migrate` and `eval-quality` subcommands are not
-ported (ROADMAP.md Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -50,8 +51,26 @@ def main(argv=None) -> int:
                          help="bulk-load .npz sidecars into the data dir "
                               "instead of embedding WARCs")
     sidecar.add_argument("--config", dest="sub_config", default=None)
+    mig = sub.add_parser(
+        "migrate",
+        help="compact a reference dawnsearch.sqlite (or a gappy "
+             "pages.sqlite) into a fresh pages.sqlite with contiguous ids")
+    mig.add_argument("--data-dir", dest="sub_data_dir", default=None,
+                     help="defaults to the config's data_dir")
+    mig.add_argument("--config", dest="sub_config", default=None)
+    evalq = sub.add_parser(
+        "eval-quality", aliases=["evalq"],
+        help="weights-drop quality gate: HF parity, separation and "
+             "retrieval gates against model_dir; exits nonzero on a FAIL")
+    evalq.add_argument("model_dir")
+    evalq.add_argument("--allow-random", action="store_true")
     args = parser.parse_args(argv)
     config_path = getattr(args, "sub_config", None) or args.config
+
+    if args.command in ("eval-quality", "evalq"):
+        from dawnsearch_tpu_torch import eval_quality
+        return eval_quality.main([args.model_dir] + (
+            ["--allow-random"] if args.allow_random else []))
 
     if args.command == "track":
         from dawnsearch_tpu_torch.net.tracker import Tracker
@@ -62,6 +81,13 @@ def main(argv=None) -> int:
     from dawnsearch_tpu_torch.config import Config
 
     cfg = Config.load(config_path)
+    if args.command == "migrate":
+        import json
+
+        from dawnsearch_tpu_torch.index.migrate import migrate_data_dir
+        data_dir = args.sub_data_dir or args.data_dir or cfg.data_dir
+        print(json.dumps(migrate_data_dir(data_dir)))
+        return 0
     if args.data_dir:
         cfg.data_dir = args.data_dir
     if args.command == "sidecar":
@@ -78,6 +104,12 @@ def main(argv=None) -> int:
     if args.listen:
         cfg.web_listen_address = args.listen
     print(cfg.summary(), flush=True)
+    if cfg.dist_num_processes > 1 and cfg.dist_process_id > 0:
+        # a crew follower: mirror the leader's index operations on this
+        # process's shards until it stops (parallel/multihost.py)
+        from dawnsearch_tpu_torch.parallel import multihost
+        multihost.follower_main(cfg)
+        return 0
     node = DawnNode(cfg).start()
     node.run_forever()
     return 0

@@ -5,9 +5,9 @@ the reference's src/config.rs:23-88): the same names in the file and the
 environment and the same layering (file then env, env wins), so one
 DawnSearch.toml configures either package. Only the fields this port
 reads are kept (unknown keys are ignored on load, as in the reference),
-plus `device`, with the reference's defaults. The fields of features the
-port does not serve yet are kept so that node.py can refuse them by
-name.
+plus `device`, with the reference's defaults. The reference's IVF,
+JAX-platform and compilation-cache fields are left out (those features
+stay behind); a file that sets them loads, and they are ignored.
 """
 
 from __future__ import annotations
@@ -67,6 +67,10 @@ class Config:
     index_capacity: int = 1_000_000  # page cap (search_provider.rs:164-166)
     index_dtype: str = "i8"  # "f32" | "bf16" | "i8" | "i4"
     index_kind: str = "flat"  # "flat" | "sharded"
+    # shards of a sharded index: 0 = one per visible card (on the CPU, one
+    # per process); more than the cards are refused, and on the CPU
+    # mesh_shards shards share the CPU
+    mesh_shards: int = 0
     # "host" re-ranks quantized candidates with the store's f32 rows;
     # "device" keeps an f16 shadow buffer on the device and re-ranks in
     # the search itself (+2 bytes/dim, no host round-trip)
@@ -88,9 +92,19 @@ class Config:
     # run the encoder once on every (seq, batch <= 256) bucket at start, so
     # the first request pays no kernel build, module load or allocator growth
     warmup: bool = False
-    # --- multi-host tier (not ported yet: node.py refuses it) ---
-    dist_coordinator: str = ""
+    # --- multi-process tier (parallel/multihost.py) ---
+    # One sharded index spanning several processes: process 0 runs the
+    # node, the others run followers. Needs index_kind="sharded" and a
+    # shared data_dir. "" = one process.
+    dist_coordinator: str = ""  # torch.distributed TCP store host:port
     dist_num_processes: int = 1
+    dist_process_id: int = 0
+    dist_ping_interval: float = 60.0  # leader's keepalive frame, seconds
+    # the leader's control-stream TCP port (0 = coordinator port + 1)
+    dist_control_port: int = 0
+    # the leader queues adds and sends one combined plan at this many rows
+    # (or before any search or save); 1 sends each add at once
+    dist_add_flush_rows: int = 8192
 
     @classmethod
     def load(cls, path: str | None = "DawnSearch.toml", env: dict | None = None) -> "Config":

@@ -344,7 +344,12 @@ class FlatIndex:
 
     def add(self, vectors) -> np.ndarray:
         """Append rows (numpy or tensor); returns their row ids."""
-        n, codes, scales, f16, packed = self._prepare(vectors)
+        return self._commit(self._prepare(vectors))
+
+    def _commit(self, prepared) -> np.ndarray:
+        """Write one _prepare() result at `count` (growing first when it
+        does not fit) -> the rows' ids."""
+        n, codes, scales, f16, packed = prepared
         if n == 0:
             return np.empty((0,), np.int64)
         if self.count + n > self.capacity:
@@ -366,6 +371,78 @@ class FlatIndex:
             self._exact[s:e] = f16.to(self.device)
         self.count = e
         return np.arange(s, e, dtype=np.int64)
+
+    def add_stream(self, blocks, prefetch: int = 2) -> np.ndarray:
+        """Pipelined bulk append (reference FlatIndex.add_stream): a
+        prefetch thread consumes `blocks` (an iterable of (n, dim) arrays)
+        and quantizes block k+1 while this thread writes block k. Returns
+        the concatenated row ids, identical to sequential add() calls. An
+        error of the iterable or of a write surfaces here; the rows
+        written before it stay."""
+        import queue
+        import threading
+
+        q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
+        end = object()
+        stop = threading.Event()  # the consumer died: release the producer
+
+        def put(item) -> bool:
+            # a plain put would block forever on a full queue once the
+            # consumer has raised (IndexFull mid-stream)
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce() -> None:
+            try:
+                for v in blocks:
+                    if not put(self._prepare(v)):
+                        return
+            except BaseException as e:  # surface on the consumer side
+                put(e)
+                return
+            put(end)
+
+        t = threading.Thread(target=produce, daemon=True,
+                             name="flatindex-add-prefetch")
+        t.start()
+        out = []
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                out.append(self._commit(item))
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        return np.concatenate(out) if out else np.empty((0,), np.int64)
+
+    def reconstruct(self, row_id: int) -> np.ndarray:
+        """The stored vector of a row, approximately: the f16 shadow when
+        kept, else the dequantized codes (f32)."""
+        if self._exact is not None:
+            return self._exact[row_id].float().cpu().numpy()
+        if self.dtype == "i4":
+            # row-block layout: logical row r is packed row
+            # (r // T)·T/2 + r % (T/2), low nibble in a block's first
+            # half, high nibble in its second (ops/quant.py)
+            t = self._i4_block
+            b, off = divmod(row_id, t)
+            packed = self._codes[b * (t // 2) + off % (t // 2)].cpu().numpy()
+            nib = packed >> 4 if off >= t // 2 else packed & 0xF
+            row = nib.astype(np.float32) - 8.0
+        else:
+            row = self._codes[row_id].float().cpu().numpy()
+        if self._scales is not None:
+            row *= float(self._scales[row_id])
+        return row
 
     def search(self, queries, k: int) -> tuple[np.ndarray, np.ndarray]:
         """Top-k -> (distances (B, k) ascending, ids (B, k); -1 = empty).

@@ -190,7 +190,7 @@ class SearchProvider:
                     f"store ids are not contiguous from 1 (got "
                     f"{ids[0]}..{ids[-1]} where {n + 1}.."
                     f"{n + len(ids)} was expected); run "
-                    "`python -m dawnsearch_tpu migrate --data-dir "
+                    "`python -m dawnsearch_tpu_torch migrate --data-dir "
                     f"{self.data_dir}` to compact the store")
             self.index.add(embs)
             n += len(ids)

@@ -23,10 +23,17 @@ capacity tier; the index is as wide as the encoder.
 With warmup = true the encoder runs its bucket grid once before the front
 end opens. The 10-minute save timer and the save on shutdown are kept.
 
+With index_kind = "sharded" the index is a ShardedFlatIndex over
+mesh_shards shards (K2 or K3 in each, an exact merge across them), and
+text ingest takes the sharded fused path (K1, then each shard's rows
+written on its device). With dist_num_processes > 1 this node is the
+leader of a crew of processes over one sharded index
+(parallel/multihost.py); the followers run `python -m
+dawnsearch_tpu_torch` with dist_process_id > 0.
+
 The node never serves something other than what its config asked for:
-a setting this port does not cover yet makes the constructor raise with
-the ROADMAP item that will add it, and a CUDA device without a GPU
-raises instead of running on the CPU.
+a value outside a setting's table makes the constructor raise, and a
+CUDA device without a GPU raises instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -51,24 +58,12 @@ def random_instance_id(n: int = 16) -> str:
     return "".join(random.choice(alphabet) for _ in range(n))
 
 
-def unported_settings(cfg: Config) -> list[str]:
-    """Each setting of `cfg` this port cannot serve yet, with the
-    ROADMAP.md item (Queue 1) that adds it."""
-    checks = [
-        (cfg.index_kind != "flat", f"index_kind={cfg.index_kind!r}",
-         "sharding and multihost"),
-        (cfg.dist_num_processes > 1 or bool(cfg.dist_coordinator),
-         "dist_* (multihost)", "sharding and multihost"),
-    ]
-    return [f"{what} is not ported yet (ROADMAP.md Queue 1: {item})"
-            for bad, what, item in checks if bad]
-
-
 def check_config(cfg: Config) -> None:
-    """Raise ValueError for settings the port does not serve, RuntimeError
-    for a CUDA device with no GPU."""
-    problems = unported_settings(cfg)
+    """Raise ValueError for a value outside a setting's table,
+    RuntimeError for a CUDA device with no GPU."""
+    problems = []
     for name, allowed in (("index_dtype", ("f32", "bf16", "i8", "i4")),
+                          ("index_kind", ("flat", "sharded")),
                           ("compute_dtype", ("bf16", "f32")),
                           ("attn_impl", ("fused", "xla")),
                           ("layer_impl", ("layer", "layer_i8", "ops")),
@@ -153,21 +148,100 @@ def make_encoder(cfg: Config):
                            device=cfg.device)
 
 
-def make_index_factory(cfg: Config, dim: int = 384):
-    """FlatIndex per config. The factory carries `.load_kwargs`, the
+def _sharded_mesh(cfg: Config):
+    """The mesh of a sharded index (reference node.py::_sharded_mesh).
+    On "cuda" each shard is a visible card (mesh_shards = 0: every
+    card; more shards than cards are refused); on a named card
+    ("cuda:i") or the CPU, mesh_shards shards share it. With
+    dist_num_processes > 1 the "shard" axis spans the crew: each process
+    holds one shard a visible card, or on the CPU mesh_shards / N
+    shards (0: one), and mesh_shards must be 0 or that total."""
+    import torch
+
+    from dawnsearch_tpu_torch.parallel.mesh import make_mesh
+    procs = max(1, cfg.dist_num_processes)
+    dev = torch.device(cfg.device)
+    if dev.type == "cuda" and dev.index is None:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        if not cards:
+            raise RuntimeError(f"device {cfg.device!r} asked for, but torch "
+                               "sees no CUDA GPU to hold a shard")
+        n = cfg.mesh_shards or len(cards) * procs
+        if procs > 1 and n != len(cards) * procs:
+            raise ValueError(
+                f"multihost mode shards over every card of the crew "
+                f"({len(cards)} a process); leave mesh_shards = 0")
+        if n > len(cards) * procs:
+            raise ValueError(f"mesh_shards = {n} asks for more shards than "
+                             f"the {len(cards)} visible cards")
+        local = cards[:n // procs]
+    else:
+        n = cfg.mesh_shards or procs
+        if n % procs:
+            raise ValueError(
+                f"multihost mode splits mesh_shards = {n} evenly over "
+                f"{procs} processes; leave mesh_shards = 0 or use a "
+                "multiple")
+        if dev.type == "cuda" and n > procs:
+            raise ValueError(f"mesh_shards = {n} asks for more shards than "
+                             f"the one card {cfg.device!r}")
+        local = [dev] * (n // procs)
+    return make_mesh({"shard": n}, devices=local, process_count=procs,
+                     process_index=cfg.dist_process_id if procs > 1 else 0)
+
+
+def make_index_factory(cfg: Config, dim: int = 384, crew=None):
+    """Index per config: a FlatIndex, or a ShardedFlatIndex over
+    _sharded_mesh(cfg). The factory carries `.load_kwargs`, the
     configuration a snapshot reload re-applies (snapshots store data,
-    not policy)."""
+    not policy). With `crew` (a multihost.MultihostCrew on the leader)
+    the sharded index is wrapped so every operation reaches the
+    followers first (parallel/multihost.py). The kind and the mesh are
+    checked here, at boot, not when a rebuild first calls the factory."""
     exact = ("f16" if cfg.index_rerank == "device" and cfg.index_dtype != "f32"
              else None)
+    if cfg.index_kind not in ("flat", "sharded"):
+        raise ValueError(f"unknown index_kind {cfg.index_kind}")
+    if cfg.dist_num_processes > 1 and cfg.index_kind != "sharded":
+        # checked on leader and follower alike (run_follower builds its
+        # replica through this factory too)
+        raise ValueError('multihost mode (dist_num_processes > 1) '
+                         'requires index_kind="sharded"')
+    if cfg.index_kind == "sharded":
+        _sharded_mesh(cfg)
+
+    def make_inner():
+        from dawnsearch_tpu_torch.parallel.sharded_index import \
+            ShardedFlatIndex
+        return ShardedFlatIndex(mesh=_sharded_mesh(cfg), dim=dim,
+                                dtype=cfg.index_dtype,
+                                max_capacity=cfg.index_capacity, exact=exact)
 
     def factory():
-        from dawnsearch_tpu_torch.index.flat import FlatIndex
-        return FlatIndex(dim=dim, dtype=cfg.index_dtype,
-                         max_capacity=cfg.index_capacity, exact=exact,
-                         device=cfg.device)
+        if cfg.index_kind == "flat":
+            from dawnsearch_tpu_torch.index.flat import FlatIndex
+            return FlatIndex(dim=dim, dtype=cfg.index_dtype,
+                             max_capacity=cfg.index_capacity, exact=exact,
+                             device=cfg.device)
+        if crew is not None:
+            from dawnsearch_tpu_torch.parallel import multihost
+            return multihost.build_fresh(crew, make_inner, dim,
+                                         flush_rows=cfg.dist_add_flush_rows)
+        return make_inner()
 
-    factory.load_kwargs = {"max_capacity": cfg.index_capacity,
-                           "exact": exact, "device": cfg.device}
+    def load_kwargs() -> dict:
+        kw = {"max_capacity": cfg.index_capacity, "exact": exact,
+              "device": cfg.device}
+        if cfg.index_kind == "sharded":
+            kw["mesh"] = _sharded_mesh(cfg)
+        if crew is not None:
+            from dawnsearch_tpu_torch.parallel import multihost
+            kw["_sharded_loader"] = multihost.crew_sharded_loader(
+                crew, flush_rows=cfg.dist_add_flush_rows)
+        return kw
+
+    factory.load_kwargs = load_kwargs
     return factory
 
 
@@ -185,6 +259,23 @@ class DawnNode:
         from dawnsearch_tpu_torch.serving.batcher import EmbeddingBatcher
         from dawnsearch_tpu_torch.serving.search_service import SearchService
 
+        self.crew = None
+        if cfg.dist_num_processes > 1:
+            # the crew's leader: join the process group before the
+            # encoder's first device use, and send every index operation
+            # to the followers (parallel/multihost.py)
+            from dawnsearch_tpu_torch.parallel import multihost
+            if cfg.dist_process_id != 0:
+                raise ValueError(
+                    "DawnNode is the leader; run followers with `python -m "
+                    "dawnsearch_tpu_torch` and dist_process_id > 0")
+            multihost.init_distributed(cfg.dist_coordinator,
+                                       cfg.dist_num_processes,
+                                       cfg.dist_process_id)
+            self.crew = multihost.MultihostCrew(
+                ping_interval=cfg.dist_ping_interval,
+                coordinator=cfg.dist_coordinator,
+                control_port=cfg.dist_control_port)
         self.encoder = encoder if encoder is not None else make_encoder(cfg)
         self.batcher = EmbeddingBatcher(
             self.encoder.encode, max_batch=cfg.embed_batch_size,
@@ -193,7 +284,7 @@ class DawnNode:
         self.provider = SearchProvider(
             data_dir=cfg.data_dir, dim=dim, index_dtype=cfg.index_dtype,
             max_pages=cfg.index_capacity,
-            index_factory=make_index_factory(cfg, dim=dim),
+            index_factory=make_index_factory(cfg, dim=dim, crew=self.crew),
             device=cfg.device)
         self.udp = None
         if cfg.udp:
@@ -304,6 +395,10 @@ class DawnNode:
             self.udp.stop()
         self.batcher.stop()
         self.service.shutdown()
+        if self.crew is not None:
+            # after the final save (which gathers through the crew):
+            # releases the followers with OP_STOP
+            self.crew.shutdown()
         log.info("node %s stopped", self.instance_id)
 
     def __enter__(self) -> "DawnNode":

@@ -7,8 +7,9 @@ waiting: the encoder's K1 launches, then the index search (the K2 or K3
 selector at and above scan_select.MIN_ROWS, the chunked exact search
 below) or the i8 / i4 quantize and in-place row write (bf16 indexes ingest
 through the provider's add, as in the reference). The caller reads the
-result back outside its device lock. The sharded ingest path is not
-ported.
+result back outside its device lock. ShardedFusedIngestPath is the
+ingest path of a ShardedFlatIndex: one encode on the encoder's device,
+then each shard's rows are copied to its device and written there.
 """
 
 from __future__ import annotations
@@ -157,6 +158,73 @@ class FusedIngestPath:
                token_ids: list[list[int]] | None = None) -> np.ndarray:
         """Embed + append `texts` to the index; returns (n, H) f32
         embeddings for durable storage. Caller must hold the provider
+        lock."""
+        chunked = _chunk_by_bucket(self.ingest, self.encoder, texts, token_ids)
+        if chunked is not None:
+            return chunked
+        with METRICS.timer("fused_ingest"):
+            emb = self.dispatch(texts, token_ids=token_ids).cpu().numpy()
+        return emb[: len(texts)]
+
+
+class ShardedFusedIngestPath:
+    """Batched page ingest against an i8 or i4 ShardedFlatIndex (reference
+    serving/fused.py::ShardedFusedIngestPath): encode once on the
+    encoder's device (K1), quantize there (i8 codes, or i4 nibble values
+    and scales), then copy each shard's rows, as the index's stripe plan
+    assigns them, to the shard's device and write them in place at the
+    shard's fill. A shard that receives no rows is not written."""
+
+    def __init__(self, encoder, index):
+        self.encoder = encoder
+        self.index = index
+
+    @staticmethod
+    def supports(index) -> bool:
+        from dawnsearch_tpu_torch.parallel.sharded_index import \
+            ShardedFlatIndex
+        return (isinstance(index, ShardedFlatIndex)
+                and index.dtype in ("i8", "i4"))
+
+    @property
+    def max_batch(self) -> int | None:
+        buckets = getattr(self.encoder, "batch_buckets", None)
+        return buckets[-1] if buckets else None
+
+    def dispatch(self, texts: list[str],
+                 token_ids: list[list[int]] | None = None) -> torch.Tensor:
+        """Enqueue encode + quantize + every shard's write for one
+        bucket-sized batch; advances the counts and returns the (padded)
+        embeddings on the encoder's device without waiting (the
+        FusedIngestPath.dispatch contract)."""
+        enc = self.encoder
+        ix = self.index
+        n = len(texts)
+        ids_list = (token_ids if token_ids is not None
+                    else enc.tokenize_texts(texts))
+        # grows shards as needed; at max_capacity it re-plans within each
+        # shard's room and raises only when the rows fit nowhere
+        per_shard, uids = ix.plan_insert(n)
+        with METRICS.timer("fused_ingest_dispatch"):
+            emb = _encode(enc, *enc.pad_batch(ids_list))
+            if ix.dtype == "i4":
+                codes, scales = quantize_i4_vals(emb)
+            else:
+                codes, scales = quantize_rows_i8(emb)
+            f16 = emb.half() if ix.exact else None
+
+            def take(g: int, _n: int):
+                sel = torch.from_numpy(per_shard[g]).to(emb.device)
+                return (codes[sel], scales[sel],
+                        None if f16 is None else f16[sel],
+                        torch.from_numpy(uids[per_shard[g]].astype(np.int32)))
+            ix.write_planned([len(p) for p in per_shard], uids, take)
+        return emb
+
+    def ingest(self, texts: list[str],
+               token_ids: list[list[int]] | None = None) -> np.ndarray:
+        """Embed + stripe-append `texts` across the shards; returns (n, H)
+        f32 embeddings for durable storage. Caller must hold the provider
         lock."""
         chunked = _chunk_by_bucket(self.ingest, self.encoder, texts, token_ids)
         if chunked is not None:

@@ -9,13 +9,17 @@ coalesce in the embedding batcher instead of serializing. Adds a JSON
 API (`/api/search`, `/api/stats`, `/api/insert`) the reference lacks;
 the P2P/DCN layer and external ingesters use it.
 
-Port of dawnsearch_tpu/serving/http_service.py. `/api/profile` answers
-501: the torch.profiler capture is not ported yet.
+Port of dawnsearch_tpu/serving/http_service.py. `/api/profile?seconds=N`
+(loopback only, N capped at 30) captures a torch.profiler trace of the
+whole process (CPU activity, and CUDA activity when torch sees a card:
+every kernel launched meanwhile, from any thread) and writes it as a
+Chrome trace under data_dir/profile.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -44,6 +48,33 @@ def _result_json(result) -> dict:
 
 
 MAX_INSERT_BYTES = 16 << 20  # bound /api/insert bodies (memory DoS)
+
+
+def capture_profile(out_dir: str, seconds: float) -> str:
+    """Profile the process for `seconds` with torch.profiler (CPU, plus
+    CUDA when available) and write a Chrome trace into `out_dir`.
+    Returns the trace's path; raises when the capture wrote nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    try:  # other threads' ops too (the request handlers, the batchers)
+        from torch._C._profiler import _ExperimentalConfig
+        extra = {"experimental_config":
+                 _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):  # a torch without the option
+        extra = {}
+    with profile(activities=activities, **extra) as prof:
+        time.sleep(max(0.0, seconds))
+    path = os.path.join(out_dir, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-"
+                                 f"{threading.get_ident()}.json")
+    prof.export_chrome_trace(path)
+    if not os.path.exists(path) or os.path.getsize(path) == 0:
+        raise RuntimeError(f"the profiler wrote no trace to {path}")
+    return path
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -121,8 +152,21 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, METRICS.snapshot())
             return
         if url.path == "/api/profile":
-            self._send_json(501, {"error": "profiling is not ported yet "
-                                           "(torch.profiler capture)"})
+            # Debug endpoint: loopback-only, and the trace directory is
+            # server-chosen (under data_dir) — a remote caller must not
+            # pick filesystem paths or tie up handler threads.
+            if not self._is_local():
+                self._send_json(403, {"error": "profile is loopback-only"})
+                return
+            seconds = min(float(qs.get("seconds", ["2"])[0]), 30.0)
+            base = self.service.provider.data_dir or "/tmp"
+            out_dir = os.path.join(base, "profile")
+            try:
+                path = capture_profile(out_dir, seconds)
+            except Exception as e:
+                self._send_json(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send_json(200, {"trace_dir": out_dir, "trace": path})
             return
         if url.path != "/":
             self._send(404, web.error_page("not found"))

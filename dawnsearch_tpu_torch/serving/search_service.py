@@ -21,8 +21,10 @@ the UDP P2P service implements it; None means single-node.
 
 Port of dawnsearch_tpu/serving/search_service.py. The fused paths are
 chosen by testing the provider's index against this package's FlatIndex
-(serving/fused.py), so a port index never falls back to the split path
-unnoticed; the sharded ingest path is not ported.
+and ShardedFlatIndex (serving/fused.py), so a port index never falls back
+to the split path unnoticed. Text queries to a sharded index go through
+the provider's search_dispatch (FusedQueryPath is flat-only, as in the
+reference).
 """
 
 from __future__ import annotations
@@ -119,7 +121,7 @@ class SearchService:
         encoder = getattr(batcher, "_encode", None)
         encoder = getattr(encoder, "__self__", None)  # bound .encode
         from dawnsearch_tpu_torch.serving.fused import (
-            FusedIngestPath, FusedQueryPath)
+            FusedIngestPath, FusedQueryPath, ShardedFusedIngestPath)
         self._fused_ingest = None
         if encoder is not None and hasattr(encoder, "tokenize_texts"):
             if FusedQueryPath.supports(provider.index):
@@ -128,6 +130,9 @@ class SearchService:
                     self._fused_text_batch, name="text_query")
             if FusedIngestPath.supports(provider.index):
                 self._fused_ingest = FusedIngestPath(encoder, provider.index)
+            elif ShardedFusedIngestPath.supports(provider.index):
+                self._fused_ingest = ShardedFusedIngestPath(
+                    encoder, provider.index)
 
     # -- queries ------------------------------------------------------------
 

@@ -387,3 +387,116 @@ def test_provider_fetch_width_matches_reference(dtype):
             assert port.fetch_width(k) == ref.fetch_width(k), (count, k)
     if dtype == "i4":
         assert port.fetch_width(10) == 512
+
+
+# -- add_stream and reconstruct (tests/test_flat_index.py, tests/test_i4.py)
+
+def _np(t):
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 \
+        else t.numpy()
+
+
+@pytest.mark.parametrize("dtype,exact", [("i8", None), ("i8", "f16"),
+                                         ("i4", None), ("f32", None)])
+def test_add_stream_matches_sequential_add(vecs, dtype, exact):
+    """add_stream (the pipelined bulk path) equals a loop of add() calls
+    across a growth boundary: the same ids, the same buffers, the same
+    search results; and the reference's add_stream writes the same
+    bytes."""
+    x, q = vecs
+    x = x[:700]
+    blocks = [x[0:200], x[200:200], x[200:450], x[450:700]]  # incl. empty
+    a = FlatIndex(dtype=dtype, capacity=256, exact=exact, device="cpu")
+    b = FlatIndex(dtype=dtype, capacity=256, exact=exact, device="cpu")
+    ids_a = [a.add(blk) for blk in blocks]
+    ids_b = b.add_stream(iter(blocks))
+    np.testing.assert_array_equal(np.concatenate(ids_a), ids_b)
+    assert a.count == b.count == 700
+    ref = RefIndex(dtype=dtype, capacity=256, exact=exact)
+    np.testing.assert_array_equal(ref.add_stream(iter(blocks)), ids_b)
+    for name in ("_codes", "_scales", "_exact"):
+        ta, tb = getattr(a, name), getattr(b, name)
+        if ta is None:
+            assert tb is None
+            continue
+        np.testing.assert_array_equal(_np(ta), _np(tb))
+        np.testing.assert_array_equal(_np(tb), np.asarray(getattr(ref, name)))
+    da, ia = a.search(q, 5)
+    db, ib = b.search(q, 5)
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_allclose(da, db)
+
+
+def test_add_stream_propagates_generator_error(vecs):
+    x, _ = vecs
+    idx = FlatIndex(dtype="i8", capacity=256, device="cpu")
+
+    def gen():
+        yield x[:10]
+        raise RuntimeError("corpus source died")
+
+    with pytest.raises(RuntimeError, match="corpus source died"):
+        idx.add_stream(gen())
+    assert idx.count == 10  # the committed prefix is kept
+
+
+def test_add_stream_consumer_error_unblocks_producer(vecs):
+    """A write failure mid-stream (IndexFull at max_capacity) surfaces at
+    once and releases the prefetch thread (no wait on a full queue)."""
+    import threading
+    import time
+
+    x, _ = vecs
+    idx = FlatIndex(dtype="i8", capacity=64, segment=64, max_capacity=64,
+                    device="cpu")
+
+    def gen():  # far more blocks than capacity: the queue stays full
+        for _ in range(50):
+            yield x[:64]
+
+    t0 = time.monotonic()
+    with pytest.raises(IndexFull):
+        idx.add_stream(gen())
+    assert time.monotonic() - t0 < 10
+    assert idx.count == 64  # the committed prefix is kept
+
+    def prefetching():
+        return any(th.name == "flatindex-add-prefetch" and th.is_alive()
+                   for th in threading.enumerate())
+
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline and prefetching():
+        time.sleep(0.05)
+    assert not prefetching()
+
+
+def test_add_stream_empty_iterable():
+    idx = FlatIndex(dtype="i8", capacity=256, device="cpu")
+    ids = idx.add_stream(iter([]))
+    assert ids.shape == (0,)
+    assert idx.count == 0
+
+
+@pytest.mark.parametrize("dtype,exact", [("i8", None), ("i8", "f16"),
+                                         ("bf16", None), ("f32", None),
+                                         ("i4", None)])
+def test_reconstruct_matches_reference(vecs, dtype, exact):
+    """reconstruct() returns the reference's vector (the f16 shadow, else
+    the dequantized codes) for every tier; i4 rows across growth (test_i4
+    .py's case), i8 at cosine > 0.999 of the original."""
+    x, _ = vecs
+    kw = dict(dtype=dtype, exact=exact, capacity=64, segment=64)
+    port = FlatIndex(device="cpu", **kw)
+    ref = RefIndex(**kw)
+    for s in range(0, 160, 40):
+        port.add(x[s:s + 40])
+        ref.add(x[s:s + 40])
+    for row in (0, 3, 77, 159):
+        got = port.reconstruct(row)
+        assert got.shape == (384,) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, ref.reconstruct(row))
+    r = port.reconstruct(77)
+    if dtype == "i4":  # test_i4.py's reconstruction bound
+        assert 1.0 - r @ x[77] < 5e-3
+    else:
+        assert r @ x[77] / np.linalg.norm(r) > 0.999

@@ -39,7 +39,7 @@ from dawnsearch_tpu_torch.models.encoder import SentenceEncoder
 from dawnsearch_tpu_torch.models.tokenizer import (WordPieceTokenizer,
                                                    build_vocab_from_corpus)
 from dawnsearch_tpu_torch.models.weights import params_from_numpy
-from dawnsearch_tpu_torch.node import DawnNode, check_config, unported_settings
+from dawnsearch_tpu_torch.node import DawnNode, check_config, make_index_factory
 from dawnsearch_tpu_torch.ops import quant
 from dawnsearch_tpu_torch.serving.batcher import EmbeddingBatcher
 from dawnsearch_tpu_torch.serving.fused import FusedIngestPath, FusedQueryPath
@@ -160,25 +160,30 @@ SETTINGS = [("model_dir", "/models/minilm"), ("udp", True), ("index_cc", True),
             ("layer_impl", "layer_i8"), ("layer_impl", "ops"),
             ("attn_impl", "xla"), ("pool_impl", "fused"),
             ("compute_dtype", "f32")]
-# served now: the per-op encoder path (K5-K8), HF checkpoints, K4, the
-# f32 instances of the encoder kernels, and the UDP and ingest services
-PORTED = {("layer_impl", "ops"), ("attn_impl", "xla"), ("pool_impl", "fused"),
-          ("model_dir", "/models/minilm"), ("layer_impl", "layer_i8"),
-          ("compute_dtype", "f32"), ("udp", True), ("index_cc", True)}
 
 
 @pytest.mark.parametrize("field,value", SETTINGS)
 def test_node_refuses_unported_settings(tmp_path, field, value):
-    """A setting is refused, before the data dir is touched, exactly while
-    the port does not cover it."""
+    """Every setting of the reference's config is served now, so each of
+    these passes check_config; a value outside a setting's table is
+    refused before the data dir is touched, and a crew without a sharded
+    index is refused by the index factory, as in the reference."""
     cfg = Config(device="cpu", data_dir=str(tmp_path), **{field: value})
-    if (field, value) in PORTED:
-        assert unported_settings(cfg) == []
-        check_config(cfg)
-        return
-    assert unported_settings(cfg)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
-        DawnNode(cfg)
+    check_config(cfg)
+    if field == "dist_num_processes":
+        with pytest.raises(ValueError, match="sharded"):
+            make_index_factory(cfg)
+        cfg.index_kind = "sharded"
+        make_index_factory(cfg)
+    elif field == "index_kind":
+        assert make_index_factory(cfg).load_kwargs()["mesh"].shape == \
+            {"shard": 1}
+    tabled = field in ("index_kind", "layer_impl", "attn_impl", "pool_impl",
+                       "compute_dtype")
+    bad = Config(device="cpu", data_dir=str(tmp_path),
+                 **{field if tabled else "index_kind": "bogus"})
+    with pytest.raises(ValueError, match="unknown"):
+        DawnNode(bad)
     assert not os.listdir(tmp_path)  # refused before touching the data dir
 
 
@@ -431,9 +436,9 @@ def test_node_serves_over_http_and_reloads_its_snapshot(tree, vocab, tmp_path):
         assert len(_http(base + "/api/insert", {"pages": pages})["inserted"]) == 16
         first = _http(base + "/api/search?q=" + urllib.parse.quote(PAGES[3]))
         assert first["results"][0]["url"] == "https://n/3"
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _http(base + "/api/profile")
-        assert e.value.code == 501
+        prof = _http(base + "/api/profile?seconds=0.1")
+        assert prof["trace_dir"] == os.path.join(str(tmp_path), "profile")
+        assert os.path.getsize(prof["trace"]) > 0
         metrics = _http(base + "/api/metrics")
         assert metrics.get("kernel_bert_layer", 0) == 0  # CPU: plain only
     finally:
@@ -452,9 +457,9 @@ def test_node_serves_over_http_and_reloads_its_snapshot(tree, vocab, tmp_path):
 
 
 # packages the card's machine lacks (boto3 stays a lazy import of
-# ingest/object_store.py's S3 store); msgpack, which net/packets.py needs,
-# is installed there
-CARD_LACKS = ("boto3", "botocore", "lxml")
+# ingest/object_store.py's S3 store, transformers one of eval_quality.py's
+# parity stage); msgpack, which net/packets.py needs, is installed there
+CARD_LACKS = ("boto3", "botocore", "lxml", "transformers")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
