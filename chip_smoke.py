@@ -1890,13 +1890,13 @@ def phase_profile() -> None:
         f"{index.capacity}, k={PROFILE_K}, host medians of 20 calls")
     for B in PROFILE_BATCHES:
         texts = [TEXTS[j % len(TEXTS)] for j in range(B)]
-        ids, mask = enc.pad_batch(enc.tokenize_texts(texts))
+        ids, mask, real = enc.pad_counted(enc.tokenize_texts(texts))
         py_ids, _ = enc.pad_batch([py_tok.encode(x, max_len=max_seq)
                                    for x in texts])
         if not np.array_equal(ids, py_ids):
             raise AssertionError(f"native and Python token ids differ at "
                                  f"B={B}")
-        emb = _encode(enc, ids, mask)
+        emb = _encode(enc, ids, mask, real)
 
         def query():
             emb, d, i, k_eff = path.dispatch(texts, PROFILE_K)
@@ -1909,7 +1909,7 @@ def phase_profile() -> None:
                  enc.tokenize_texts(texts))),
              "tokenize_python": _host_ms(lambda: enc.pad_batch(
                  [py_tok.encode(x, max_len=max_seq) for x in texts])),
-             "encode": _host_ms(lambda: _encode(enc, ids, mask)),
+             "encode": _host_ms(lambda: _encode(enc, ids, mask, real)),
              "select": _host_ms(lambda: ss.search_select(
                  index._codes, index._scales, emb, index.count, PROFILE_K))}
         with profile(activities=[ProfilerActivity.CPU,
@@ -2102,7 +2102,8 @@ def phase_ops(counts: dict) -> None:
     for B in ENCODE_BATCHES:
         texts = [TEXTS[j % len(TEXTS)] for j in range(B)]
         enc = encoders["minilm layer"]
-        ids, mask = enc.pad_batch([t[:128] for t in enc.tokenize_texts(texts)])
+        ids, mask, real = enc.pad_counted(
+            [t[:128] for t in enc.tokenize_texts(texts)])
         ids_d, mask_d = enc.to_device(ids, mask)
         device = {label: graph_ms(lambda e=encoders[label]: encode_batch(
             e.model, ids_d, mask_d, mask_padding=e.mask_padding,
@@ -2112,7 +2113,8 @@ def phase_ops(counts: dict) -> None:
         for r in range(ENCODE_ROUNDS):
             for label in labels[r % len(labels):] + labels[:r % len(labels)]:
                 host[label].append(_host_ms(
-                    lambda: _encode(encoders[label], ids, mask), reps=10))
+                    lambda: _encode(encoders[label], ids, mask, real),
+                    reps=10))
         say(f"phase ops encode B={B} S={ids.shape[1]}: " + "; ".join(
             f"{label} device {device[label]:.3f} ms, host "
             f"{np.median(host[label]):.3f} [{min(host[label]):.3f}, "

@@ -380,7 +380,6 @@ class SearchProvider:
                 f"query embedding not normalized (length {bad:.4f}); "
                 "normalize before searching")
         k_fetch = self.fetch_width(k)
-        t0 = time.perf_counter()
         if dispatch_lock is not None and hasattr(self.index,
                                                  "search_dispatch"):
             with dispatch_lock:
@@ -389,7 +388,6 @@ class SearchProvider:
                 pending[0], pending[1], k_fetch, *pending[2:])
         else:
             dists, ids = self.index.search(queries, k_fetch)
-        METRICS.observe("index_search", time.perf_counter() - t0)
         if k_fetch > k:
             dists, ids = self._rerank_f32(queries, dists, ids, k)
         return self.results_from_ids(dists, ids, instance_id)

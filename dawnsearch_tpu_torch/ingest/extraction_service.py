@@ -25,6 +25,7 @@ from __future__ import annotations
 import glob
 import gzip
 import io
+import itertools
 import os
 import queue
 import random
@@ -32,8 +33,11 @@ import threading
 import time
 from typing import Iterator
 
-from dawnsearch_tpu_torch.ingest.pages import ExtractedPage, iter_pages
-from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
+from dawnsearch_tpu_torch.ingest.pages import (ExtractedPage, Stages,
+                                               iter_pages)
+from dawnsearch_tpu_torch.utils.logging import (METRICS, SPANS, span,
+                                                span_args, service_logger,
+                                                wait_span)
 
 log = service_logger("Extraction")
 
@@ -151,16 +155,47 @@ class CommonCrawlSource:
             yield path, f"{self.base_url}/{path}"
 
 
-def _extract_worker(spec_q, out_q, batch_size: int) -> None:
+STAGE_COUNTERS = ("ingest_extract_read_s", "ingest_extract_decode_s",
+                  "ingest_extract_html_s", "ingest_extract_filter_s",
+                  "ingest_records_read", "ingest_pages_kept")
+
+
+def _extract_worker(spec_q, out_q, batch_size: int, tracing=None) -> None:
     """Extraction worker process: WARC specs in, page-triple batches out.
 
     Runs torch-free (never touches a device) in its own interpreter, so
     its Python share stops serializing with the tokenize/insert threads
     on the parent's GIL. Module-level for spawn picklability. Messages
-    out: ("batch", name, [(url, title, text), ...]) / ("done", name,
+    out: ("batch", name, [(url, title, text), ...], meta) / ("done", name,
     None) when a file fully drained / ("error", name, repr) / ("exit",
-    "", None) on the poison pill."""
+    "", None) on the poison pill. A batch's meta holds its id ("pid.seq"),
+    the sums of STAGE_COUNTERS since the last batch, and, while `tracing`
+    (a multiprocessing.Event) was set as the batch began, its records'
+    spans and the waits of its blocked puts on the wall clock."""
     from dawnsearch_tpu_torch.ingest.sidecar import open_warc
+    pid, tid = os.getpid(), threading.get_native_id()
+    thread = f"extract-worker-{pid}/extract"
+    seq = itertools.count()
+    st = Stages()
+
+    def begin() -> None:
+        st.read = st.decode = st.html = st.filter = 0.0
+        st.records = st.kept = 0
+        st.spans = [] if tracing is not None and tracing.is_set() else None
+
+    def ship(name: str, batch: list) -> None:
+        meta = {"id": f"{pid}.{next(seq)}", "pid": pid, "tid": tid,
+                "thread": thread, "spans": st.spans,
+                "stages": (st.read, st.decode, st.html, st.filter,
+                           st.records, st.kept)}
+        begin()
+        w0 = time.time_ns()
+        out_q.put(("batch", name, batch, meta))
+        if st.spans is not None:  # ships with the next batch
+            st.spans.append(("extract.blocked", w0, time.time_ns(),
+                             {"batch": meta["id"]}, "b"))
+
+    begin()
     while True:
         spec = spec_q.get()
         if spec is None:
@@ -170,13 +205,13 @@ def _extract_worker(spec_q, out_q, batch_size: int) -> None:
         try:
             _, src = open_warc(opener)
             batch: list[tuple[str, str, str]] = []
-            for page in iter_pages(src):
+            for page in iter_pages(src, st):
                 batch.append((page.url, page.title, page.text))
                 if len(batch) >= batch_size:
-                    out_q.put(("batch", name, batch))
+                    ship(name, batch)
                     batch = []
             if batch:
-                out_q.put(("batch", name, batch))
+                ship(name, batch)
             out_q.put(("done", name, None))
         except Exception as e:  # ship the error, keep the worker alive
             out_q.put(("error", name, repr(e)))
@@ -302,22 +337,24 @@ class ExtractionService:
 
     def _tokenize_loop(self) -> None:
         """Queue protocol (through _batches -> here -> _ready):
-        ("batch", name, pages) / ("mark", name) / None sentinel.
-        Ledger marks RIDE THE PIPELINE behind their file's batches, so
-        a WARC is recorded as ingested only after its pages are
-        durably inserted — not merely extracted (a dropped insert batch
-        or a crash between extract and insert must not lose pages
+        ("batch", name, pages, batch ids) / ("mark", name, None, ()) /
+        None sentinel. Ledger marks RIDE THE PIPELINE behind their file's
+        batches, so a WARC is recorded as ingested only after its pages
+        are durably inserted — not merely extracted (a dropped insert
+        batch or a crash between extract and insert must not lose pages
         forever)."""
         tokenize = getattr(self.service, "tokenize_pages", None)
         while True:
-            item = self._batches.get()
+            with wait_span("ingest.tokenize.wait"):
+                item = self._batches.get()
             if item is None:
                 self._ready.put(None)
                 self._batches.task_done()
                 return
-            kind, name, batch = item
+            kind, name, batch, bids = item
             if kind == "mark":
-                self._ready.put(("mark", name, None, None))
+                with wait_span("ingest.tokenize.put"):
+                    self._ready.put(("mark", name, None, None, ()))
                 self._batches.task_done()
                 continue
             # in-thread batches carry ExtractedPage; worker batches
@@ -327,13 +364,16 @@ class ExtractionService:
             token_ids = None
             if callable(tokenize):
                 try:
-                    with METRICS.timer("ingest_tokenize"):
+                    with span("ingest.tokenize", batches=bids,
+                              pages=len(triples)), \
+                            METRICS.timer("ingest_tokenize"):
                         token_ids = tokenize(triples)
                 except Exception:
                     log.exception("tokenize batch failed; inserting raw")
             # put BEFORE task_done so _batches.join() implies everything
             # extracted is visible to _ready.join()
-            self._ready.put(("batch", name, triples, token_ids))
+            with wait_span("ingest.tokenize.put", batches=bids):
+                self._ready.put(("batch", name, triples, token_ids, bids))
             self._batches.task_done()
 
     def _queries_recent(self) -> bool:
@@ -341,53 +381,69 @@ class ExtractionService:
         return t is not None and (time.monotonic() - t) < self.query_idle_s
 
     def _insert_loop(self) -> None:
+        """Every moment of this thread is in one of its spans while a
+        capture runs (ingest.insert.wait, ingest.coalesce, then those of
+        _insert and insert_pages), and no span covers a whole batch: a
+        device-idle gap is named by what the thread was doing in it."""
         failed: set[str] = set()  # files with a dropped insert batch
         pending = None  # item pulled mid-coalesce, handled next turn
         while True:
-            item = pending if pending is not None else self._ready.get()
-            pending = None
+            if pending is not None:
+                item, pending = pending, None
+            else:
+                with span("ingest.insert.wait"):
+                    t0 = time.perf_counter()
+                    item = self._ready.get()
+                    METRICS.inc("ingest_insert_wait_s",
+                                time.perf_counter() - t0)
             if item is None:
                 self._ready.task_done()
                 return
-            kind, name, triples, token_ids = item
+            kind, name, triples, token_ids, bids = item
             owed = 1  # task_done() calls this turn (1 per merged item)
             names = {name}
             if kind == "batch" and self.coalesce_max > len(triples):
                 # merge already-waiting batches into one dispatch while
                 # the chip is query-idle (rationale at coalesce_max)
-                while (len(triples) < self.coalesce_max
-                       and not self._queries_recent()):
-                    try:
-                        nxt = self._ready.get_nowait()
-                    except queue.Empty:
-                        break
-                    if (nxt is None or nxt[0] != "batch"
-                            or (nxt[3] is None) != (token_ids is None)
-                            or len(triples) + len(nxt[2])
-                            > self.coalesce_max):
-                        pending = nxt  # sentinel/mark/oversize: next turn
-                        break
-                    owed += 1
-                    triples = triples + nxt[2]
-                    if token_ids is not None:
-                        token_ids = token_ids + nxt[3]
-                    names.add(nxt[1])
+                with span("ingest.coalesce"):
+                    while (len(triples) < self.coalesce_max
+                           and not self._queries_recent()):
+                        try:
+                            nxt = self._ready.get_nowait()
+                        except queue.Empty:
+                            break
+                        if (nxt is None or nxt[0] != "batch"
+                                or (nxt[3] is None) != (token_ids is None)
+                                or len(triples) + len(nxt[2])
+                                > self.coalesce_max):
+                            pending = nxt  # sentinel/mark/oversize: next
+                            break
+                        owed += 1
+                        triples = triples + nxt[2]
+                        if token_ids is not None:
+                            token_ids = token_ids + nxt[3]
+                        bids = bids + nxt[4]
+                        names.add(nxt[1])
             try:
-                if kind == "mark":
-                    if name in failed:
-                        log.warning("not marking %s ingested: an insert "
-                                    "batch failed (will re-ingest on "
-                                    "restart)", name)
-                    elif self.ledger is not None and name:
-                        self.ledger.mark(name)
-                else:
-                    self._insert(triples, token_ids)
+                with span_args(batches=bids):
+                    if kind == "mark":
+                        with span("ingest.mark"):
+                            self._mark(name, failed)
+                    else:
+                        self._insert(triples, token_ids)
             except Exception:
                 log.exception("insert batch failed")
                 failed.update(names)
             finally:
                 for _ in range(owed):
                     self._ready.task_done()
+
+    def _mark(self, name: str, failed: set[str]) -> None:
+        if name in failed:
+            log.warning("not marking %s ingested: an insert batch failed "
+                        "(will re-ingest on restart)", name)
+        elif self.ledger is not None and name:
+            self.ledger.mark(name)
 
     def _insert(self, triples: list[tuple[str, str, str]],
                 token_ids: list[list[int]] | None) -> None:
@@ -404,7 +460,8 @@ class ExtractionService:
                 # must not strand the insert thread past its join
                 # (it still inserts this batch after waking — the
                 # file's ledger mark rides behind it)
-                self._stop.wait(wait)
+                with span("ingest.pace"):
+                    self._stop.wait(wait)
             self._last_insert_t = time.perf_counter()
         t0 = time.perf_counter()
         # kwargs only when pre-tokenized, so duck-typed test services
@@ -413,7 +470,6 @@ class ExtractionService:
         self.service.insert_pages(triples, **kw)
         dt = time.perf_counter() - t0
         METRICS.observe("ingest_insert", dt)
-        METRICS.record("ingest_insert_batch", float(len(triples)))
         self.pages_ingested += len(triples)
         METRICS.inc("pages_extracted", len(triples))
         # throughput meter like the reference's (warc.rs:107-114)
@@ -439,8 +495,11 @@ class ExtractionService:
         # be filled at CPU speed (unbounded RSS, massive duplication)
         spec_q = ctx.Queue(maxsize=self.workers * 2)
         out_q = ctx.Queue(maxsize=self.workers * 4)
+        tracing = ctx.Event()  # set while a profile capture runs
+        SPANS.share(tracing)
+        METRICS.gauge("ingest_workers", self.workers)
         procs = [ctx.Process(target=_extract_worker,
-                             args=(spec_q, out_q, self.batch_size),
+                             args=(spec_q, out_q, self.batch_size, tracing),
                              daemon=True, name=f"extract-worker-{i}")
                  for i in range(self.workers)]
         for p in procs:
@@ -479,7 +538,8 @@ class ExtractionService:
         try:
             while live and not self._stop.is_set():
                 try:
-                    kind, name, payload = out_q.get(timeout=5.0)
+                    with wait_span("extract.collect.wait"):
+                        msg = out_q.get(timeout=5.0)
                 except queue.Empty:
                     # a hard-killed worker (OOM, unguarded __main__ in
                     # an embedding script) never sends "exit" — don't
@@ -489,6 +549,7 @@ class ExtractionService:
                                     "exit messages; stopping")
                         break
                     continue
+                kind, name, payload = msg[:3]
                 if kind == "exit":
                     live -= 1
                 elif kind == "error":
@@ -498,9 +559,17 @@ class ExtractionService:
                     if name and name not in partial:
                         # ledger mark rides BEHIND the file's batches;
                         # the insert thread commits it post-insert
-                        if not self._put_batch(("mark", name, None)):
-                            break
+                        with wait_span("extract.collect.put"):
+                            if not self._put_batch(("mark", name, None,
+                                                    ())):
+                                break
                 elif kind == "batch":
+                    meta = msg[3]
+                    METRICS.inc_many(dict(zip(STAGE_COUNTERS,
+                                              meta["stages"])))
+                    if meta["spans"]:
+                        SPANS.extend(meta["pid"], meta["tid"],
+                                     meta["thread"], meta["spans"])
                     if self.max_pages is not None:
                         room = self.max_pages - produced
                         if room <= 0:
@@ -510,12 +579,16 @@ class ExtractionService:
                             payload = payload[:room]
                             partial.add(name)
                     produced += len(payload)
-                    if not self._put_batch(("batch", name, payload)):
-                        break
+                    with wait_span("extract.collect.put",
+                                   batches=[meta["id"]]):
+                        if not self._put_batch(("batch", name, payload,
+                                                [meta["id"]])):
+                            break
                     if self.max_pages is not None \
                             and produced >= self.max_pages:
                         break
         finally:
+            SPANS.unshare(tracing)
             stop_feed.set()
             for p in procs:  # extraction-only processes: safe to kill
                 p.terminate()
@@ -545,6 +618,7 @@ class ExtractionService:
         # random-pick source could re-choose a file whose mark is still
         # in the pipeline — dedup by name within this process.
         inflight: set[str] = set()
+        bids = (f"{os.getpid()}.{i}" for i in itertools.count())
         # Pages ENQUEUED across files — the max_pages budget. (The
         # insert thread's pages_ingested lags this by the queue depth,
         # and counting both double-counted the current file's pages, so
@@ -590,7 +664,8 @@ class ExtractionService:
                             METRICS.observe("ingest_extract",
                                             time.perf_counter() - t_batch)
                             total += len(batch)
-                            if not self._put_batch(("batch", name, batch)):
+                            if not self._put_batch(("batch", name, batch,
+                                                    [next(bids)])):
                                 return
                             batch = []
                             t_batch = time.perf_counter()
@@ -598,14 +673,15 @@ class ExtractionService:
                         batch = batch[: self.max_pages - total]
                     if batch:
                         total += len(batch)
-                        if not self._put_batch(("batch", name, batch)):
+                        if not self._put_batch(("batch", name, batch,
+                                                [next(bids)])):
                             return
                     if drained and name:
                         # recorded by the insert thread AFTER the file's
                         # batches are durably inserted (a dropped batch
                         # must not lose its pages forever)
                         inflight.add(name)
-                        if not self._put_batch(("mark", name, None)):
+                        if not self._put_batch(("mark", name, None, ())):
                             return
                     if self.max_pages is not None \
                             and total >= self.max_pages:

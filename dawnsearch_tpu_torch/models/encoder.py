@@ -28,7 +28,7 @@ from dawnsearch_tpu_torch.models.tokenizer_bpe_native import \
     NativeByteLevelBPETokenizer
 from dawnsearch_tpu_torch.models.tokenizer_native import \
     NativeWordPieceTokenizer
-from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
+from dawnsearch_tpu_torch.utils.logging import service_logger
 
 log = service_logger("Encoder")
 
@@ -88,19 +88,23 @@ class SentenceEncoder:
         out = np.zeros((len(ids_list), self.dim), dtype=np.float32)
         max_batch = self.batch_buckets[-1]
         pending = []
-        with METRICS.timer("embed_forward"):
-            for start in range(0, len(order), max_batch):
-                chunk = order[start: start + max_batch]
-                pending.append(
-                    (chunk, self.dispatch_chunk([ids_list[i] for i in chunk])))
-            for chunk, vecs in pending:
-                out[chunk] = vecs[: len(chunk)].cpu().numpy()
-        METRICS.inc("texts_embedded", len(ids_list))
+        for start in range(0, len(order), max_batch):
+            chunk = order[start: start + max_batch]
+            pending.append(
+                (chunk, self.dispatch_chunk([ids_list[i] for i in chunk])))
+        for chunk, vecs in pending:
+            out[chunk] = vecs[: len(chunk)].cpu().numpy()
         return out
 
     def pad_batch(self, ids_list: list[list[int]]
                   ) -> tuple[np.ndarray, np.ndarray]:
         """Token id lists -> bucketed (input_ids, mask) arrays."""
+        return self.pad_counted(ids_list)[:2]
+
+    def pad_counted(self, ids_list: list[list[int]]
+                    ) -> tuple[np.ndarray, np.ndarray, int]:
+        """pad_batch, and the number of real tokens it placed (the
+        padding rows' [CLS][SEP] not among them)."""
         n = len(ids_list)
         if n > self.batch_buckets[-1]:
             raise ValueError(
@@ -111,16 +115,18 @@ class SentenceEncoder:
         pad_id = self.tokenizer.pad_id
         input_ids = np.full((bsz, seq), pad_id, dtype=np.int32)
         mask = np.zeros((bsz, seq), dtype=np.int32)
+        real = 0
         for r, ids in enumerate(ids_list):
             ids = ids[:seq]
             input_ids[r, : len(ids)] = ids
             mask[r, : len(ids)] = 1
+            real += len(ids)
         # Padding rows get a bare [CLS][SEP] so normalization never sees zeros.
         for r in range(n, bsz):
             input_ids[r, 0] = self.tokenizer.cls_id
             input_ids[r, 1] = self.tokenizer.sep_id
             mask[r, :2] = 1
-        return input_ids, mask
+        return input_ids, mask, real
 
     def tokenize_texts(self, texts: Sequence[str]) -> list[list[int]]:
         max_seq = self.seq_buckets[-1]

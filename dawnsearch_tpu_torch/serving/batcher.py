@@ -13,6 +13,7 @@ forward (EmbeddingBatcher) and local index searches (SearchBatcher).
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -21,14 +22,20 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
+from dawnsearch_tpu_torch.utils.logging import (METRICS, SPANS, service_logger,
+                                                span_args)
 
 log = service_logger("Batcher")
 
 
 class CoalescingBatcher:
     """Generic request coalescing: submit(payload) -> Future[result],
-    where `process_fn(payloads) -> results` handles a whole batch."""
+    where `process_fn(payloads) -> results` handles a whole batch.
+
+    While a profile capture runs, each request gets an id, its time from
+    submit until this thread takes it is the wait `<name>.wait` (on the
+    submitting thread), and every span opened while its batch is
+    processed carries the batch's ids as `requests`."""
 
     def __init__(self, process_fn: Callable[[list], Sequence],
                  max_batch: int = 64, max_wait_ms: float = 5.0,
@@ -37,6 +44,7 @@ class CoalescingBatcher:
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         self.name = name
+        self._ids = itertools.count(1)
         self._q: queue.Queue = queue.Queue()
         self._shutdown = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -47,8 +55,18 @@ class CoalescingBatcher:
         if self._shutdown.is_set():
             raise RuntimeError(f"{self.name} is shut down")
         fut: Future = Future()
-        self._q.put((payload, fut))
+        stamp = None
+        if SPANS.on:
+            stamp = (next(self._ids), time.time_ns(),
+                     threading.get_native_id())
+        self._q.put((payload, fut, stamp))
         return fut
+
+    def _taken(self, item) -> None:
+        stamp = item[2]
+        if stamp is not None:
+            SPANS.record(f"{self.name}.wait", stamp[1], time.time_ns(),
+                         tid=stamp[2], request=stamp[0])
 
     def _run(self) -> None:
         while not self._shutdown.is_set():
@@ -58,6 +76,7 @@ class CoalescingBatcher:
                 continue
             if first is None:
                 break
+            self._taken(first)
             batch = [first]
             self._collect_and_process(batch)
         # Drain: requests still queued when the sentinel was consumed
@@ -86,15 +105,17 @@ class CoalescingBatcher:
             if item is None:
                 self._shutdown.set()
                 break
+            self._taken(item)
             batch.append(item)
         try:
-            results = self._process([p for p, _ in batch])
-            for (_, fut), r in zip(batch, results):
+            with span_args(requests=[s[0] for _, _, s in batch if s]):
+                results = self._process([p for p, _, _ in batch])
+            for (_, fut, _), r in zip(batch, results):
                 fut.set_result(r)
             METRICS.inc(f"{self.name}_batches", 1)
             METRICS.inc(f"{self.name}_items", len(batch))
         except Exception as e:  # propagate to every waiter
-            for _, fut in batch:
+            for _, fut, _ in batch:
                 if not fut.done():
                     fut.set_exception(e)
 
@@ -126,10 +147,7 @@ class EmbeddingBatcher(CoalescingBatcher):
                          max_wait_ms=max_wait_ms, name="embed")
 
     def _process_texts(self, texts: list[str]) -> np.ndarray:
-        vecs = self._encode(texts)
-        METRICS.inc("batches", 1)  # back-compat counter names
-        METRICS.inc("batched_texts", len(texts))
-        return vecs
+        return self._encode(texts)
 
     def embed(self, text: str, timeout: float | None = 30.0) -> np.ndarray:
         """Blocking single-text embed (coalesced under the hood)."""

@@ -22,14 +22,23 @@ from dawnsearch_tpu_torch.index.flat import (FlatIndex, quantize_rows_i8,
 from dawnsearch_tpu_torch.models.bert import encode_batch
 from dawnsearch_tpu_torch.ops import scan_select
 from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
-from dawnsearch_tpu_torch.utils.logging import METRICS
+from dawnsearch_tpu_torch.utils.logging import METRICS, span
 
 
-def _encode(encoder, input_ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-    input_ids, mask = encoder.to_device(input_ids, mask)
-    return encode_batch(encoder.model, input_ids, mask,
-                        mask_padding=encoder.mask_padding,
-                        include_padding=encoder.include_padding_in_pool)
+def _encode(encoder, input_ids: np.ndarray, mask: np.ndarray,
+            real: int) -> torch.Tensor:
+    """Enqueue one forward of a padded (B, S) batch holding `real` real
+    tokens. Counts encoder_tokens_real and encoder_tokens_padded (B × S,
+    padding rows included); span encoder.forward (args B, S, real) while
+    a capture runs."""
+    B, S = input_ids.shape
+    METRICS.inc_many({"encoder_tokens_real": real,
+                      "encoder_tokens_padded": B * S})
+    with span("encoder.forward", B=B, S=S, real=real):
+        input_ids, mask = encoder.to_device(input_ids, mask)
+        return encode_batch(encoder.model, input_ids, mask,
+                            mask_padding=encoder.mask_padding,
+                            include_padding=encoder.include_padding_in_pool)
 
 
 class FusedQueryPath:
@@ -53,7 +62,7 @@ class FusedQueryPath:
         kf = ix.device_fetch_width(k_eff) if ix.device_rerank else k_eff
         with METRICS.timer("fused_query_dispatch"):
             enc = self.encoder
-            emb = _encode(enc, *enc.pad_batch(enc.tokenize_texts(texts)))
+            emb = _encode(enc, *enc.pad_counted(enc.tokenize_texts(texts)))
             if ix.fused_eligible():
                 d, i = scan_select.search_select(ix._codes, ix._scales, emb,
                                                  ix.count, kf)
@@ -125,7 +134,7 @@ class FusedIngestPath:
                     else enc.tokenize_texts(texts))
         ix = self.index
         n = len(texts)
-        input_ids, mask = enc.pad_batch(ids_list)
+        input_ids, mask, real = enc.pad_counted(ids_list)
         bsz = input_ids.shape[0]
         if ix.max_capacity is not None:
             # Scratch rows (batch padding past n) must also fit. Near
@@ -140,7 +149,7 @@ class FusedIngestPath:
         if ix.count + bsz > ix.capacity:  # reserve scratch rows too
             ix._grow_to(ix.count + bsz)
         with METRICS.timer("fused_ingest_dispatch"):
-            emb = _encode(enc, input_ids, mask)
+            emb = _encode(enc, input_ids, mask, real)
             s, e = ix.count, ix.count + emb.shape[0]
             if ix.dtype == "i4":
                 vals, scales = quantize_i4_vals(emb)
@@ -206,7 +215,7 @@ class ShardedFusedIngestPath:
         # shard's room and raises only when the rows fit nowhere
         per_shard, uids = ix.plan_insert(n)
         with METRICS.timer("fused_ingest_dispatch"):
-            emb = _encode(enc, *enc.pad_batch(ids_list))
+            emb = _encode(enc, *enc.pad_counted(ids_list))
             if ix.dtype == "i4":
                 codes, scales = quantize_i4_vals(emb)
             else:

@@ -13,13 +13,16 @@ Port of dawnsearch_tpu/serving/http_service.py. `/api/profile?seconds=N`
 (loopback only, N capped at 30) captures a torch.profiler trace of the
 whole process (CPU activity, and CUDA activity when torch sees a card:
 every kernel launched meanwhile, from any thread) and writes it as a
-Chrome trace under data_dir/profile.
+Chrome trace under data_dir/profile, with the program's own spans
+(utils/logging.py::SpanRecorder, category "dawn", the extraction
+workers' among them) on the profiler's clock.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -27,7 +30,8 @@ from urllib.parse import parse_qs, urlsplit
 
 from dawnsearch_tpu_torch.serving import web
 from dawnsearch_tpu_torch.serving.search_service import SearchService
-from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
+from dawnsearch_tpu_torch.utils.logging import (METRICS, SPANS, chrome_events,
+                                                service_logger)
 
 log = service_logger("Http")
 
@@ -52,8 +56,9 @@ MAX_INSERT_BYTES = 16 << 20  # bound /api/insert bodies (memory DoS)
 
 def capture_profile(out_dir: str, seconds: float) -> str:
     """Profile the process for `seconds` with torch.profiler (CPU, plus
-    CUDA when available) and write a Chrome trace into `out_dir`.
-    Returns the trace's path; raises when the capture wrote nothing."""
+    CUDA when available) and write a Chrome trace into `out_dir`, the
+    program's spans of the capture in it. Returns the trace's path;
+    raises when the capture wrote nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -67,14 +72,48 @@ def capture_profile(out_dir: str, seconds: float) -> str:
                  _ExperimentalConfig(profile_all_threads=True)}
     except (ImportError, TypeError):  # a torch without the option
         extra = {}
-    with profile(activities=activities, **extra) as prof:
-        time.sleep(max(0.0, seconds))
     path = os.path.join(out_dir, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-"
                                  f"{threading.get_ident()}.json")
-    prof.export_chrome_trace(path)
+    try:
+        with profile(activities=activities, **extra) as prof:
+            SPANS.start()
+            try:
+                time.sleep(max(0.0, seconds))
+            finally:
+                SPANS.stop()
+        prof.export_chrome_trace(path)
+    finally:
+        events, names = SPANS.take()
     if not os.path.exists(path) or os.path.getsize(path) == 0:
         raise RuntimeError(f"the profiler wrote no trace to {path}")
+    add_spans(path, events, names)
     return path
+
+
+def add_spans(path: str, events: list, names: dict) -> None:
+    """Write the recorded spans into the Chrome trace at `path`, first in
+    its traceEvents, on the profiler's clock: its ts is wall-clock µs
+    less the file's baseTimeNanoseconds / 1000 (tests/test_torch_trace.py
+    holds a span to a record_function opened with it)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    at = data.find(b'"traceEvents"')
+    if at < 0:
+        raise RuntimeError(f"{path} holds no traceEvents")
+    start = data.index(b"[", at) + 1
+    m = re.search(rb'"baseTimeNanoseconds"\s*:\s*(\d+)', data[:at])
+    base_ns = int(m.group(1)) if m else 0
+    spans = chrome_events(events, names, base_ns)
+    rest = data[start:]
+    sep = b"" if rest.lstrip().startswith(b"]") else b","
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data[:start])
+        f.write(b",".join(json.dumps(e).encode() for e in spans))
+        f.write(sep)
+        f.write(rest)
+    os.replace(tmp, path)
+    log.info("profile: %d program spans", len(events))
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -31,15 +31,27 @@ from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 from typing import Protocol, Sequence
 
 import numpy as np
 
 from dawnsearch_tpu_torch.index.provider import FoundPage, SearchProvider, SearchResult
 from dawnsearch_tpu_torch.ops.topk import BestResults
-from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
+from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger, span
 
 log = service_logger("Search")
+
+
+@contextmanager
+def _holding(lock, wait_span: str):
+    """Hold `lock`; the wait for it is span `wait_span`."""
+    with span(wait_span):
+        lock.acquire()
+    try:
+        yield
+    finally:
+        lock.release()
 
 
 class RemoteBackend(Protocol):
@@ -172,14 +184,19 @@ class SearchService:
             # Lock only around dispatch; the execution wait (readback),
             # store-side re-rank and metadata join run outside it so an
             # in-flight ingest batch can enqueue between queries.
-            with self._lock:
+            with _holding(self._lock, "query.lock.wait"), \
+                    span("query.dispatch", queries=len(texts)):
                 emb_d, d_d, i_d, k_eff = self._fused.dispatch(
                     texts, k_fetch)
-            embs, d, row_ids = self._fused.finalize(
-                emb_d, d_d, i_d, len(texts), k_fetch, k_eff)
+            with span("query.finalize"):
+                embs, d, row_ids = self._fused.finalize(
+                    emb_d, d_d, i_d, len(texts), k_fetch, k_eff)
             if k_fetch > k:  # exact f32 re-rank (same as split path)
-                d, row_ids = prov._rerank_f32(embs, d, row_ids, k)
-            results = prov.results_from_ids(d, row_ids, self.instance_id)
+                with span("query.rerank"):
+                    d, row_ids = prov._rerank_f32(embs, d, row_ids, k)
+            with span("query.join"):
+                results = prov.results_from_ids(d, row_ids,
+                                                self.instance_id)
             for i, emb, res in zip(idxs, embs, results):
                 out[i] = (emb, res)
         return out
@@ -305,19 +322,36 @@ class SearchService:
             # simply doesn't see the newest sub-batches (the reference's
             # actor mailbox has the same insert-then-search ordering,
             # dawnsearch.rs:64-78).
+            # Each step is a span on this thread (ingest.lock.wait,
+            # ingest.screen, ingest.dispatch, ingest.readback,
+            # ingest.store) while a profile capture runs; the screen's,
+            # readback's and store's seconds are counters too.
             fi = self._fused_ingest
-            with self._ingest_lock:
-                keep = self.provider.screen(urls)
+            with _holding(self._ingest_lock, "ingest.lock.wait"):
+                with span("ingest.screen", pages=len(urls)):
+                    t0 = time.perf_counter()
+                    keep = self.provider.screen(urls)
+                    METRICS.inc("ingest_screen_s", time.perf_counter() - t0)
                 kept = [i for i, ok in enumerate(keep) if ok]
                 ids = [None] * len(pages)
                 maxb = fi.max_batch or max(len(kept), 1)
 
-                def finish(sub, emb_dev, base):
-                    with METRICS.timer("fused_ingest"):
+                def finish(sub, emb_dev, base, part):
+                    with span("ingest.readback", pages=len(sub),
+                              part=part):
+                        t0 = time.perf_counter()
                         embs = emb_dev[: len(sub)].cpu().numpy()
-                    stored = self.provider.store_pages(
-                        [urls[i] for i in sub], [titles[i] for i in sub],
-                        [texts[i] for i in sub], embs, base=base)
+                        dt = time.perf_counter() - t0
+                        METRICS.observe("fused_ingest", dt)
+                        METRICS.inc("ingest_readback_s", dt)
+                    with span("ingest.store", pages=len(sub), part=part):
+                        t0 = time.perf_counter()
+                        stored = self.provider.store_pages(
+                            [urls[i] for i in sub],
+                            [titles[i] for i in sub],
+                            [texts[i] for i in sub], embs, base=base)
+                        METRICS.inc("ingest_store_s",
+                                    time.perf_counter() - t0)
                     for i, sid in zip(sub, stored):
                         ids[i] = sid
 
@@ -328,11 +362,13 @@ class SearchService:
                         sub = kept[s: s + maxb]
                         tk = ([token_ids[i] for i in sub]
                               if token_ids is not None else None)
-                        with self._lock:
+                        with _holding(self._lock, "ingest.lock.wait"), \
+                                span("ingest.dispatch", pages=len(sub),
+                                     part=s // maxb):
                             base = len(self.provider.index)
                             emb_dev = fi.dispatch(
                                 [combined[i] for i in sub], token_ids=tk)
-                        pending.append((sub, emb_dev, base))
+                        pending.append((sub, emb_dev, base, s // maxb))
                         if len(pending) > 1:
                             finish(*pending.popleft())
                     while pending:

@@ -327,7 +327,7 @@ def test_extraction_worker_loads_no_torch(warc_files):
         "_extract_worker(specs, out, 16)\n"
         "n = 0\n"
         "while True:\n"
-        "    kind, name, payload = out.get()\n"
+        "    kind, name, payload = out.get()[:3]\n"
         "    if kind == 'batch':\n"
         "        n += len(payload)\n"
         "    if kind == 'exit':\n"
