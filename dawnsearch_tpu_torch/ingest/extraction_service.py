@@ -155,9 +155,11 @@ class CommonCrawlSource:
             yield path, f"{self.base_url}/{path}"
 
 
+# the sums of pages.py::Stages, in the order of Stages.sums()
 STAGE_COUNTERS = ("ingest_extract_read_s", "ingest_extract_decode_s",
                   "ingest_extract_html_s", "ingest_extract_filter_s",
-                  "ingest_records_read", "ingest_pages_kept")
+                  "ingest_records_read", "ingest_pages_kept",
+                  "ingest_extract_repaired")
 
 
 def _extract_worker(spec_q, out_q, batch_size: int, tracing=None) -> None:
@@ -179,15 +181,12 @@ def _extract_worker(spec_q, out_q, batch_size: int, tracing=None) -> None:
     st = Stages()
 
     def begin() -> None:
-        st.read = st.decode = st.html = st.filter = 0.0
-        st.records = st.kept = 0
+        st.reset()
         st.spans = [] if tracing is not None and tracing.is_set() else None
 
     def ship(name: str, batch: list) -> None:
         meta = {"id": f"{pid}.{next(seq)}", "pid": pid, "tid": tid,
-                "thread": thread, "spans": st.spans,
-                "stages": (st.read, st.decode, st.html, st.filter,
-                           st.records, st.kept)}
+                "thread": thread, "spans": st.spans, "stages": st.sums()}
         begin()
         w0 = time.time_ns()
         out_q.put(("batch", name, batch, meta))
@@ -624,6 +623,12 @@ class ExtractionService:
         # and counting both double-counted the current file's pages, so
         # the service stopped as much as 2x early.)
         total = 0
+        st = Stages()
+
+        def count_stages() -> None:  # as the workers' batches do
+            METRICS.inc_many(dict(zip(STAGE_COUNTERS, st.sums())))
+            st.reset()
+
         while not self._stop.is_set():
             try:
                 progressed = False
@@ -649,7 +654,7 @@ class ExtractionService:
                     batch: list[ExtractedPage] = []
                     drained = True  # stayed true -> whole file consumed
                     t_batch = time.perf_counter()
-                    for page in iter_pages(f):
+                    for page in iter_pages(f, st):
                         if self._stop.is_set():
                             return
                         batch.append(page)
@@ -663,12 +668,14 @@ class ExtractionService:
                             # per-stage breakdown (/api/metrics)
                             METRICS.observe("ingest_extract",
                                             time.perf_counter() - t_batch)
+                            count_stages()
                             total += len(batch)
                             if not self._put_batch(("batch", name, batch,
                                                     [next(bids)])):
                                 return
                             batch = []
                             t_batch = time.perf_counter()
+                    count_stages()
                     if self.max_pages is not None:
                         batch = batch[: self.max_pages - total]
                     if batch:

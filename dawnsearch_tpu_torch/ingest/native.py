@@ -60,6 +60,33 @@ def extract(html: str) -> ExtractedDoc:
                         links=[l for l in links.split("\n") if l])
 
 
+def extract_page(body: bytes) -> tuple[str, str, bool]:
+    """A WARC record's body -> (title, text, repaired): what extract()
+    gives for body.decode("utf-8", errors="ignore"), and whether the body
+    held invalid UTF-8. Natively in one pass over the bytes, with no str
+    made of the HTML and no links collected (native/extract.cpp's
+    dawn_extract_page); in Python otherwise."""
+    lib = nativelib.get()
+    if lib is None:
+        try:
+            html, repaired = body.decode("utf-8"), False
+        except UnicodeDecodeError:
+            html, repaired = body.decode("utf-8", errors="ignore"), True
+        doc = _py_extract(html)
+        return doc.title, doc.text, repaired
+    out_len, repaired = ctypes.c_long(0), ctypes.c_int(0)
+    ptr = lib.dawn_extract_page(body, len(body), ctypes.byref(out_len),
+                                ctypes.byref(repaired))
+    try:
+        # entity references can still encode surrogates: dropped here
+        payload = ctypes.string_at(ptr, out_len.value).decode(
+            "utf-8", errors="ignore")
+    finally:
+        lib.dawn_free(ptr)
+    title, _, rest = payload.partition("\x1e")
+    return title, rest.partition("\x1e")[0], bool(repaired.value)
+
+
 def is_english(text: str, min_stopword_ratio: float = 0.12,
                min_latin: float = 0.85) -> bool:
     """English-prose gate via C++ when available, Python otherwise.

@@ -9,9 +9,11 @@ dawnsearch_tpu_torch.ingest.warc:
 - English only                            (page_source.rs:119-121)
 
 Emits ExtractedPage{url,title,text,combined} (page_source.rs:44-50);
-`combined` is what gets embedded. Port of dawnsearch_tpu/ingest/pages.py,
-unchanged: the same WARC files give the same (url, title, text) triples in
-both packages (tests/test_torch_ingest_parity.py).
+`combined` is what gets embedded. Port of dawnsearch_tpu/ingest/pages.py:
+the same WARC files give the same (url, title, text) triples in both
+packages (tests/test_torch_ingest_parity.py), though here an HTML body
+goes to the extractor as bytes, with no str made of it
+(native.extract_page).
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ class ExtractedPage:
         return f"{self.title}\n{self.text}"
 
 
-def _extract(html: str):
+def _extract_page(body: bytes) -> tuple[str, str, bool]:
     """C++ fast path when built, Python fallback otherwise."""
     from dawnsearch_tpu_torch.ingest import native
-    return native.extract(html)
+    return native.extract_page(body)
 
 
 def _is_english(text: str) -> bool:
@@ -54,19 +56,30 @@ def _is_english(text: str) -> bool:
 
 class Stages:
     """What iter_pages spent on its records: seconds in each stage (read:
-    inflate and parse, inside iter_warc_records; decode: body to str;
-    html: extraction; filter: whitespace, length and language), the
-    records read and the pages kept. While `spans` is a list, each record
-    appends an ("extract.record", t0_ns, t1_ns, args, "X") span on the
-    wall clock (utils/logging.py::SpanRecorder.extend)."""
+    inflate and parse, inside iter_warc_records; decode: a text/plain
+    body to str; html: an HTML body's bytes to title and text; filter:
+    whitespace, length and language), the records read, the pages kept
+    and the HTML bodies that held invalid UTF-8 (`repaired`). While
+    `spans` is a list, each record appends an ("extract.record", t0_ns,
+    t1_ns, args, "X") span on the wall clock
+    (utils/logging.py::SpanRecorder.extend)."""
 
     __slots__ = ("read", "decode", "html", "filter", "records", "kept",
-                 "spans")
+                 "repaired", "spans")
 
     def __init__(self):
-        self.read = self.decode = self.html = self.filter = 0.0
-        self.records = self.kept = 0
         self.spans: list | None = None
+        self.reset()
+
+    def reset(self) -> None:
+        """Zero the sums (not `spans`)."""
+        self.read = self.decode = self.html = self.filter = 0.0
+        self.records = self.kept = self.repaired = 0
+
+    def sums(self) -> tuple:
+        """(read, decode, html, filter, records, kept, repaired)."""
+        return (self.read, self.decode, self.html, self.filter,
+                self.records, self.kept, self.repaired)
 
 
 def iter_pages(source: str | BinaryIO,
@@ -91,10 +104,9 @@ def iter_pages(source: str | BinaryIO,
                 title, text = "", rec.body.decode("utf-8", errors="ignore")
                 t3 = t2 = clock()
             else:
-                html = rec.body.decode("utf-8", errors="ignore")
-                t2 = clock()
-                doc = _extract(html)
-                title, text = doc.title, doc.text
+                t2 = t1
+                title, text, repaired = _extract_page(rec.body)
+                st.repaired += repaired
                 t3 = clock()
             text = " ".join(text.split())
             # page_source.rs:108-110, then :119-121

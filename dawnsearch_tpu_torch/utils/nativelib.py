@@ -133,6 +133,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     # HTML extraction (extract.cpp)
     lib.dawn_extract.restype = p
     lib.dawn_extract.argtypes = [c, n, ctypes.POINTER(n)]
+    lib.dawn_extract_page.restype = p
+    lib.dawn_extract_page.argtypes = [c, n, ctypes.POINTER(n),
+                                      ctypes.POINTER(ctypes.c_int)]
+    lib.dawn_utf8_clean.restype = n
+    lib.dawn_utf8_clean.argtypes = [c, n, p]
     lib.dawn_free.restype = None
     lib.dawn_free.argtypes = [p]
     # English filter (lang.cpp)

@@ -38,17 +38,19 @@ def page_html(title, body):
             f"<footer>contact us</footer></body></html>").encode()
 
 
+WARC_RECORDS = [
+    ("https://good.example/story", page_html("Lighthouse", ENGLISH)),
+    ("https://short.example/x", page_html("Tiny", "too short")),
+    ("https://german.example/de", page_html("Leuchtturm", GERMAN)),
+    ("https://query.example/page?id=3", page_html("Query", ENGLISH)),
+    ("https://good.example/second", page_html("Second story", ENGLISH)),
+]
+
+
 @pytest.fixture
 def warc_file(tmp_path):
-    records = [
-        ("https://good.example/story", page_html("Lighthouse", ENGLISH)),
-        ("https://short.example/x", page_html("Tiny", "too short")),
-        ("https://german.example/de", page_html("Leuchtturm", GERMAN)),
-        ("https://query.example/page?id=3", page_html("Query", ENGLISH)),
-        ("https://good.example/second", page_html("Second story", ENGLISH)),
-    ]
     p = str(tmp_path / "test.warc.gz")
-    write_warc(p, records)
+    write_warc(p, WARC_RECORDS)
     return p
 
 
@@ -144,25 +146,37 @@ def test_native_matches_python(warc_file):
         assert a.links == b.links
 
 
+EDGE_CASES = [
+    "",
+    "no tags at all just text " * 10,
+    "<p>unclosed paragraph " + "words " * 30,
+    "<P CLASS='x'>UPPER CASE TAGS</P><p>" + "content words here " * 5,
+    "<script>var a = '<p>fake</p>';</script><p>" + "real text " * 10,
+    "<a href=bare>linktext</a><p>" + "plain body text " * 10,
+    "<p>entity &amp; &lt;tag&gt; &#65;&#x42; test " + "pad " * 10,
+    "<!-- comment <p>hidden</p> --><p>" + "visible words " * 10,
+    "<br><br/><td>cell one here words</td><td>cell two also words</td>",
+]
+
+
 def test_native_matches_python_edge_cases():
     if not native.available():
         pytest.skip("native library not built")
-    cases = [
-        "",
-        "no tags at all just text " * 10,
-        "<p>unclosed paragraph " + "words " * 30,
-        "<P CLASS='x'>UPPER CASE TAGS</P><p>" + "content words here " * 5,
-        "<script>var a = '<p>fake</p>';</script><p>" + "real text " * 10,
-        "<a href=bare>linktext</a><p>" + "plain body text " * 10,
-        "<p>entity &amp; &lt;tag&gt; &#65;&#x42; test " + "pad " * 10,
-        "<!-- comment <p>hidden</p> --><p>" + "visible words " * 10,
-        "<br><br/><td>cell one here words</td><td>cell two also words</td>",
-    ]
-    for html in cases:
+    for html in EDGE_CASES:
         a, b = py_extract(html), native.extract(html)
         assert a.title == b.title, html
         assert a.text == b.text, html
         assert a.links == b.links, html
+
+
+@pytest.mark.parametrize("body", [c.encode() for c in EDGE_CASES]
+                         + [body for _, body in WARC_RECORDS])
+def test_page_bytes_match_python(body):
+    """The pipeline's bytes entry (native.extract_page) against the
+    Python tier on the decoded body."""
+    assert native.available()
+    want = py_extract(body.decode("utf-8", errors="ignore"))
+    assert native.extract_page(body) == (want.title, want.text, False)
 
 
 class FakeService:

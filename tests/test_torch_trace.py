@@ -349,6 +349,7 @@ def test_worker_stages_reach_metrics_and_the_trace(ingest_run):
     for stage in ("read", "decode", "html", "filter"):
         assert metrics[f"ingest_extract_{stage}_s"] >= 0
     assert metrics["ingest_extract_html_s"] > 0
+    assert metrics["ingest_extract_repaired"] == 0  # every body valid
     assert metrics["encoder_tokens_padded"] >= metrics["encoder_tokens_real"]
     assert metrics["ingest_insert_count"] > 0
     for step in ("screen", "readback", "store"):
