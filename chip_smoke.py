@@ -87,6 +87,26 @@ Phases, each printing one progress line; any failure exits non-zero:
             encode_batch's pool stage on a bf16 (B, 128, 384) last hidden
             state at B = 1, 8, 64: K8 alone, the cast route (casts + K8
             f32) and the xla route, device and host time
+  modernbert
+            ModernBERT's kernels (ops/modernbert.py, csrc/long/) at
+            nomic-ai/modernbert-embed-base's widths (H 768, 12 heads of 64,
+            I 1,152) at the node's largest dispatch, 524,288 padded tokens:
+            (B, S) = (512, 1,024) and (64, 8,192). Each GEMM epilogue
+            (RoPE, GeGLU, residual + LN in bf16 and f32) and the embedding
+            LN against its plain twin on all rows; the global and windowed
+            attention with ragged lengths against the twin on three
+            sequences; each timed at full lengths beside torch.mm or
+            scaled_dot_product_attention (the library yardstick; SDPA
+            takes the band as a mask) with its bound. Then the main path:
+            a 22-layer checkpoint as benchmark/kinds/warc_ingest_long.py
+            writes it, loaded by make_encoder, encodes the cell's long
+            pages (SentenceEncoder.encode_documents: length-sorted
+            dispatches under the token budget) with every encoder counter
+            set to 0 just before; the kernel_long_* and K8 counts must be
+            the plan's dispatches times each layer's launches, every other
+            encoder counter 0, and four pages (one past 8,192 tokens) must
+            lie within 1 − cos 2.5e-4 of reference/modernbert_plain.py in
+            f32 on the same ids
   recall    FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
             recall@10 raw and after the f32 re-rank of k+30 candidates
   recall_i4 FlatIndex i4 at 2,097,152 rows built through host-packed adds
@@ -232,10 +252,10 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
-          "pool", "recall", "recall_i4", "i4_scale", "profile", "ops", "sharded",
-          "node", "swarm", "crew")
+          "pool", "modernbert", "recall", "recall_i4", "i4_scale", "profile",
+          "ops", "sharded", "node", "swarm", "crew")
 KERNEL_PHASES = {"build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
-                 "pool"}
+                 "pool", "modernbert"}
 # layer widths (H, nh, I): all-MiniLM-L6-v2, BERT-base, BERT-large
 MINILM_W, BASE_W, LARGE_W = (384, 12, 1536), (768, 12, 3072), (1024, 16, 4096)
 # (width, B, S); the first is the entry's headline shape
@@ -341,6 +361,15 @@ KERNEL_COS_MIN, POOL_ERR_MAX = 0.9999, 1e-5
 F32_ERR_MAX, F32_COS_MIN, K4_F32_COS_MIN = 1e-4, 0.99999, 0.99995
 F32_REL_ERR_MAX = 1e-5
 RAW_RECALL_MIN, RERANK_RECALL_MIN = 0.95, 0.99
+# ModernBERT's kernels vs their twins (tests/test_torch_kernels_gpu.py's
+# bounds): the GEMM epilogues round where the twin rounds, f32 sums in
+# another order; the attention rounds p to bf16 against a running max
+# where the twin keeps p in f32. The main path against the f32 reference:
+# the cell's emb_gap limit (benchmark/limits/modernbert-ingest-long.json)
+LONG_GEMM_COS_MIN, LONG_ATTN_COS_MIN, LONG_EMB_GAP = 0.9999, 0.999, 2.5e-4
+LONG_TOKENS = 524_288  # the encoder's TOKEN_BUDGET: one dispatch's tokens
+LONG_SHAPES = ((512, 1024), (64, 8192))
+LONG_CONFIG = "modernbert-embed-base-i8-1m"  # benchmark/configs/
 # bf16-query select variants vs their plain twin: f32 sums of the same
 # bf16 products in another order differ by a few ulps of the dot, which
 # can move a truncated key by one step (128 ulps: 1.5e-5 in [1, 2),
@@ -373,7 +402,10 @@ COUNTER = {"bert_layer": "kernel_bert_layer",
            "bert_layer_i8_f32": "kernel_bert_layer_i8_f32",
            "attention_packed_f32": "kernel_attention_packed_f32",
            "attention_f32": "kernel_attention_f32",
-           "ffn_f32": "kernel_ffn_f32"}
+           "ffn_f32": "kernel_ffn_f32",
+           **{f"long_{k}": f"kernel_long_{k}" for k in (
+               "embed", "qkv_rope", "attention_global", "attention_local",
+               "gemm_ln", "geglu")}}
 # every encoder kernel's counter (ops/layer.py, ops/attention.py, ops/ffn.py)
 ENCODER_COUNTERS = (
     *(f"kernel_bert_layer{k}{r}{f}" for k in ("", "_i8") for r in ("", "_rel")
@@ -1698,6 +1730,259 @@ def phase_pool(results: list) -> None:
                     "replaces": "dawnsearch_tpu/ops/attention.py:241",
                     **shapes[0], "launch_floor_ms": floor_ms,
                     "pool_stage": stages_out, "other_shapes": shapes[1:]})
+
+
+# -- ModernBERT's long-context kernels and its main path -----------------------
+
+def _long_time(tag: str, shape: str, ok: bool, detail: str, kernel, plain,
+               library, ops: float, nbytes_: int) -> dict:
+    """Time one long kernel (CUDA events: its launches take milliseconds),
+    its plain twin and the library call; print the check and the bound."""
+    ms = cuda_ms(kernel, reps=5, warmup=2)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    try:
+        library_ms, note = cuda_ms(library, reps=5, warmup=2), ""
+    except RuntimeError as e:  # SDPA with the band as a (S, S) mask
+        library_ms, note = None, f" (library refused: {str(e)[:120]})"
+        torch.cuda.empty_cache()
+    bd = bound(ops, "bf16", nbytes_)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    say(f"phase modernbert {tag} {shape}: {detail} kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms library {lib}{note} bound {bd['bound_ms']:.4f} "
+        f"ms ({bd['bound_by']})")
+    if not ok:
+        raise AssertionError(f"{tag} disagrees with its plain twin at {shape}:"
+                             f" {detail}")
+    return {"shape": shape, "detail": detail, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bd}
+
+
+def _long_gemms(entries: dict, B: int, S: int, weights: dict, rnd) -> None:
+    """Each GEMM epilogue and the embedding LN on all B·S rows against its
+    twin, timed at that shape beside torch.mm of the same operands."""
+    from dawnsearch_tpu_torch.ops import modernbert as mb
+    H, nh, I, eps, bf = 768, 12, 1152, 1e-5, torch.bfloat16
+    M, shape = B * S, f"B={B} S={S} H={H}"
+    wq, wi, wo, wo2, s_ln, table = (weights[k] for k in (
+        "wq", "wi", "wo", "wo2", "s", "table"))
+    cos, sin = weights["rope"]
+    wi_k = mb.interleave_gate(wi)
+    a = rnd(M, H).to(bf)
+    got = mb.qkv_rope(a, wq, cos, sin, S, nh)
+    c = float(_row_cos(got, mb.qkv_rope_plain(a, wq, cos, sin, S, nh),
+                       3 * H).min())
+    entries["qkv_rope"].append(_long_time(
+        "QKV + RoPE", shape, c >= LONG_GEMM_COS_MIN,
+        f"min row cos={c:.7f}", lambda: mb.qkv_rope(a, wq, cos, sin, S, nh),
+        lambda: mb.qkv_rope_plain(a, wq, cos, sin, S, nh),
+        lambda: torch.mm(a, wq), 2 * M * H * 3 * H, nbytes(a, wq, got)))
+    del got
+    got = mb.geglu(a, wi_k)
+    c = float(_row_cos(got, mb.geglu_plain(a, wi), I).min())
+    entries["geglu"].append(_long_time(
+        "GeGLU", shape, c >= LONG_GEMM_COS_MIN, f"min row cos={c:.7f}",
+        lambda: mb.geglu(a, wi_k), lambda: mb.geglu_plain(a, wi),
+        lambda: torch.mm(a, wi_k), 2 * M * H * 2 * I, nbytes(a, wi, got)))
+    resid = rnd(M, H)
+    for K, w, out, what in ((H, wo, bf, "attention out"),
+                            (I, wo2, bf, "FFN out"),
+                            (I, wo2, torch.float32, "FFN out, final LN")):
+        x = got if K == I else a
+        h, y = mb.resid_ln(x, w, resid, s_ln, eps, out)
+        h2, y2 = mb.resid_ln_plain(x, w, resid, s_ln, eps, out)
+        err = float((h - h2).abs().max())
+        c = float(_row_cos(y, y2, H).min())
+        entries["gemm_ln"].append(_long_time(
+            f"residual + LN ({what})", f"{shape} K={K} {_tag(out)}",
+            err <= 1e-3 and c >= LONG_GEMM_COS_MIN and y.dtype == out,
+            f"h max|d|={err:.3e} y min row cos={c:.7f}",
+            lambda: mb.resid_ln(x, w, resid, s_ln, eps, out),
+            lambda: mb.resid_ln_plain(x, w, resid, s_ln, eps, out),
+            lambda: torch.mm(x, w), 2 * M * K * H,
+            nbytes(x, w, resid, h, y)))
+        del h, y, h2, y2
+    del got, resid, a
+    ids = torch.randint(0, table.shape[0], (M,), device=table.device)
+    x, a2 = mb.embed_ln(table, ids, s_ln, eps, bf)
+    err = float((x - mb.embed_ln_plain(table, ids, s_ln, eps, bf)[0]
+                 ).abs().max())
+    entries["embed"].append(_long_time(
+        "embedding LN", shape, err <= 1e-4 and torch.equal(a2, x.to(bf)),
+        f"max|d|={err:.3e}", lambda: mb.embed_ln(table, ids, s_ln, eps, bf),
+        lambda: mb.embed_ln_plain(table, ids, s_ln, eps, bf),
+        lambda: torch.nn.functional.layer_norm(
+            torch.nn.functional.embedding(ids, table), (H,), s_ln, None, eps),
+        0.0, nbytes(ids, x, a2) + M * H * 4))
+
+
+def _long_attention(entries: dict, B: int, S: int, rng: np.random.Generator,
+                    rnd) -> None:
+    """Global and windowed (±64) attention with ragged lengths (row 0
+    full, the others in [S/8, S]) against the twin on the first and last
+    sequences, every padded query row zero; timed at full lengths beside
+    scaled_dot_product_attention on the same q, k, v (no mask; the band
+    as a boolean (S, S) mask)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dawnsearch_tpu_torch.ops import modernbert as mb
+    H, nh, hd = 768, 12, 64
+    qkv = (rnd(B * S, 3 * H) * 1.5).to(torch.bfloat16)
+    lens_np = rng.integers(S // 8, S + 1, B)
+    lens_np[0] = S
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(qkv.device)
+    full = torch.full((B,), S, dtype=torch.int32, device=qkv.device)
+    heads = qkv.view(B, S, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = heads[0], heads[1], heads[2]
+    i = torch.arange(S, device=qkv.device)
+    band = (i[:, None] - i[None, :]).abs() <= 64
+    live = (i[None, :] < lens[:, None].long()).reshape(-1)
+    sel = torch.tensor([0, B - 1], device=qkv.device)
+    sub = qkv.view(B, S, 3 * H)[sel].reshape(-1, 3 * H)
+    sub_live = live.view(B, S)[sel].reshape(-1)
+    for window, kind in ((None, "global"), (64, "local")):
+        out = mb.attention(qkv, lens, B, S, nh, window)
+        want = mb.attention_plain(sub, lens[sel], 2, S, nh, window)
+        got = out.view(B, S, H)[sel].reshape(-1, H)
+        c = float(_row_cos(got[sub_live], want[sub_live], H).min())
+        zeros = not bool(out[~live].any())
+        finite = bool(torch.isfinite(out).all())
+        del out, want, got
+        keys = B * (S * S if window is None else mb.band_keys(S, window))
+        entries["attention_" + kind].append(_long_time(
+            f"attention {kind}", f"B={B} S={S} nh={nh} hd={hd}",
+            c >= LONG_ATTN_COS_MIN and zeros and finite,
+            f"min row cos={c:.7f} (2 sequences, lengths {S} and "
+            f"{int(lens_np[-1])}), padded rows zero {zeros}",
+            lambda: mb.attention(qkv, full, B, S, nh, window),
+            lambda: mb.attention_plain(sub, full[:2], 2, S, nh, window),
+            lambda: sdpa(q, k, v, attn_mask=None if window is None
+                         else band),
+            4 * H * keys, nbytes(qkv) + B * S * H * 2))
+        torch.cuda.empty_cache()
+
+
+def _long_main_path(work: str, counts: dict) -> dict:
+    """The cell's checkpoint and pages through make_encoder and
+    SentenceEncoder.encode_documents, every encoder counter set to 0 just
+    before; returns the run's numbers."""
+    from benchmark import spec
+    from benchmark.kinds import warc_ingest_long as wl
+    from dawnsearch_tpu_torch.config import Config
+    from dawnsearch_tpu_torch.node import make_encoder
+    from dawnsearch_tpu_torch.ops import modernbert as mb
+    from reference import modernbert_plain as ref
+    cfg = spec.config(LONG_CONFIG)
+    model_dir = os.path.join(work, "modernbert")
+    weights = wl.make_weights(cfg, 19, torch.device("cuda"))
+    wl.write_checkpoint(model_dir, cfg, weights)
+    enc = make_encoder(Config(
+        model_dir=model_dir, device="cuda", compute_dtype="bf16",
+        layer_impl="layer", pool_impl="fused",
+        seq_buckets=tuple(cfg["seq_buckets"]),
+        document_prompt=cfg["document_prompt"],
+        query_prompt=cfg["query_prompt"]))
+    pages = wl._corpus(19, 1200, spec.traffic("warc-ingest-long"), cfg)
+    texts = [f"{t}\n{x}" for _, t, x in
+             (pages.stored(int(i)) for i in np.flatnonzero(pages.kept()))]
+    enc.encode_documents(texts[:8])  # shapes warm, kernels loaded
+    ids = enc.tokenize_texts(texts, enc.document_prompt)
+    order = sorted(range(len(ids)), key=lambda r: len(ids[r]))
+    plan = enc.plan_dispatches(order, [len(ids[r]) for r in order],
+                               enc.batch_buckets[-1])
+    _zero_counters()
+    mb.launches.update(dict.fromkeys(mb.launches, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = enc.encode_documents(texts)
+    seconds = time.perf_counter() - t0
+    got = {**_counters(), **mb.launches}
+    d, L, n_glob = len(plan), 22, 8
+    want = {"kernel_long_embed": d, "kernel_long_qkv_rope": d * L,
+            "kernel_long_attention_global": d * n_glob,
+            "kernel_long_attention_local": d * (L - n_glob),
+            "kernel_long_gemm_ln": 2 * d * L, "kernel_long_geglu": d * L,
+            "kernel_mean_pool": d}
+    want.update({k: 0 for k in ENCODER_COUNTERS if k not in want})
+    bad = {k: (got.get(k), n) for k, n in want.items() if got.get(k) != n}
+    if bad:
+        raise AssertionError(f"ModernBERT's main path over {d} dispatches "
+                             f"launched (got, want) {bad}")
+    counts.update(got)
+    # four pages alone through the f32 reference on the port's ids
+    lengths = [len(x) for x in ids]
+    pick = [int(np.argmin(lengths)), int(np.argsort(lengths)[len(ids) // 2]),
+            int(np.argsort(lengths)[-2]), int(np.argmax(lengths))]
+    gaps = []
+    for r in pick:
+        t = torch.tensor([ids[r]], device="cuda")
+        want_r = ref.embed(weights, cfg["published"], t, torch.ones_like(t))
+        gaps.append(1.0 - float(torch.nn.functional.cosine_similarity(
+            torch.from_numpy(emb[r][None]).cuda(), want_r).item()))
+        del want_r
+        torch.cuda.empty_cache()
+    cut = sum(1 for x in ids if len(x) == enc.seq_buckets[-1])
+    say(f"phase modernbert main path: {len(texts)} pages "
+        f"({sum(lengths)} tokens, {cut} cut at {enc.seq_buckets[-1]}) in "
+        f"{d} dispatches, {seconds:.3f} s ({len(texts) / seconds:.1f} "
+        f"pages/s, encoder alone, host time); launches "
+        f"{ {k: v for k, v in got.items() if v} }; 1 - cos against "
+        f"reference/modernbert_plain.py at lengths "
+        f"{[lengths[r] for r in pick]}: {[f'{g:.2e}' for g in gaps]}")
+    if not max(gaps) <= LONG_EMB_GAP:
+        raise AssertionError(f"ModernBERT's main path is {max(gaps):.2e} "
+                             f"from the reference (limit {LONG_EMB_GAP})")
+    return {"pages": len(texts), "dispatches": d, "seconds": seconds,
+            "emb_gap": max(gaps)}
+
+
+def phase_modernbert(results: list, counts: dict) -> None:
+    """ModernBERT's kernels at its widths and the node's largest dispatch,
+    against their twins and the library, then its main path (module
+    docstring, phase modernbert)."""
+    _f32_twins()
+    from dawnsearch_tpu_torch.ops import _cuda
+    from dawnsearch_tpu_torch.ops import modernbert as mb
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    rng = np.random.default_rng(19)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+    H, I, bf = 768, 1152, torch.bfloat16
+    weights = {"wq": rnd(H, 3 * H, std=0.05).to(bf),
+               "wi": rnd(H, 2 * I, std=0.05).to(bf),
+               "wo": rnd(H, H, std=0.05).to(bf),
+               "wo2": rnd(I, H, std=0.05).to(bf),
+               "s": 1.0 + rnd(H, std=0.1), "table": rnd(50368, H),
+               "rope": mb.rope_tables(8192, 64, 160000.0, dev)}
+    t0 = time.perf_counter()
+    path = _cuda.build(_cuda.LONG)
+    _cuda.long_lib()
+    say(f"phase modernbert: {os.path.relpath(path, HERE)} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    entries = {k[len("kernel_long_"):]: [] for k in mb.launches}
+    for B, S in LONG_SHAPES:
+        assert B * S == LONG_TOKENS
+        _long_gemms(entries, B, S, weights, rnd)
+        torch.cuda.empty_cache()
+        _long_attention(entries, B, S, rng, rnd)
+    del weights
+    torch.cuda.empty_cache()
+    src = {"embed": "gemm_long.cu", "qkv_rope": "gemm_long.cu",
+           "geglu": "gemm_long.cu", "gemm_ln": "gemm_long.cu",
+           "attention_global": "attention_long.cu",
+           "attention_local": "attention_long.cu"}
+    for k, shapes in entries.items():
+        results.append({"name": "long_" + k, "route": "cuda",
+                        "source": "dawnsearch_tpu_torch/csrc/long/" + src[k],
+                        "replaces": "none (no TPU kernel: the JAX package "
+                                    "has no ModernBERT)",
+                        **shapes[0], "other_shapes": shapes[1:]})
+    work = tempfile.mkdtemp(prefix="dawn-long-")
+    try:
+        results[-1]["main_path"] = _long_main_path(work, counts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _unit_rows(n: int, g: torch.Generator, dev, dim: int = 384) -> torch.Tensor:
@@ -3103,6 +3388,7 @@ def main(argv=None) -> int:
         phase_build()
     scale: list = []
     ops_counts: dict = {}
+    long_counts: dict = {}  # ModernBERT's main path (phase modernbert)
     notes: dict = {}  # the sharded and crew phases' times
     for name, run in (("k1", lambda: phase_k1(results)),
                       ("k4", lambda: phase_k4(results)),
@@ -3112,6 +3398,8 @@ def main(argv=None) -> int:
                       ("attn", lambda: phase_attn(results)),
                       ("ffn", lambda: phase_ffn(results)),
                       ("pool", lambda: phase_pool(results)),
+                      ("modernbert",
+                       lambda: phase_modernbert(results, long_counts)),
                       ("recall", phase_recall),
                       ("recall_i4", phase_recall_i4),
                       ("i4_scale", lambda: phase_i4_scale(scale)),
@@ -3150,12 +3438,13 @@ def main(argv=None) -> int:
     for r in results:
         counter = COUNTER[r["name"]]
         ran = [c[counter] for c in (node_counts, ops_counts, swarm_counts,
-                                    crew_counts) if counter in c]
+                                    crew_counts, long_counts) if counter in c]
         r["launches"] = sum(ran) if ran else None
         r["launches_node"] = node_counts.get(counter)
         r["launches_ops"] = ops_counts.get(counter)
         r["launches_swarm"] = swarm_counts.get(counter)
         r["launches_crew"] = crew_counts.get(counter)
+        r["launches_long"] = long_counts.get(counter)
         if r["name"] == "select_i4" and scale:
             r["other_shapes"] = r.get("other_shapes", []) + scale
     if notes:

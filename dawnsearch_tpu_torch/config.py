@@ -37,10 +37,16 @@ class Config:
     # --- engine section ---
     # torch device the encoder and index live on; "cuda" needs a GPU
     device: str = "cuda"
-    # a bert-, mpnet- or roberta-family HF checkpoint: config.json +
-    # model.safetensors + vocab.txt, or vocab.json + merges.txt for
-    # roberta (none: MiniLM width, seeded weights)
+    # a bert-, mpnet-, roberta- or modernbert-family HF checkpoint:
+    # config.json + model.safetensors + vocab.txt, or vocab.json +
+    # merges.txt for roberta, or tokenizer.json for modernbert (none:
+    # MiniLM width, seeded weights)
     model_dir: str | None = None
+    # text put before each page's text and each query before they are
+    # embedded: the model card's prompts (nomic-ai/modernbert-embed-base:
+    # "search_document: " and "search_query: "); "" for models without
+    document_prompt: str = ""
+    query_prompt: str = ""
     embed_batch_size: int = 64  # cross-request batching cap
     # pages per ingest batch (tokenize + one fused encode + index write +
     # one store transaction); while no query ran in the last
@@ -52,11 +58,17 @@ class Config:
     # point with `if __name__ == "__main__":`
     ingest_workers: int = 0
     ingest_rate_limit: float = 0.0  # pages/s ceiling of ingest, 0 = none
+    # characters of a page's text kept for embedding and the store
+    # (DawnSearch's cap, page_source.rs:113); a long-context model wants
+    # more, or its window is wasted
+    ingest_max_text_chars: int = 2048
     # how recently a query must have run (seconds) to stop the merge above
     ingest_query_idle_s: float = 2.0
     warc_source: str = ""  # glob of local WARC files; "" = Common Crawl
     embed_max_wait_ms: float = 5.0  # batcher flush deadline
-    # 512 matches the reference's full BERT window (model.rs:123,147)
+    # 512 matches the reference's full BERT window (model.rs:123,147); a
+    # long-context model's grid runs on to its max_position_embeddings
+    # (ModernBERT: 8192), texts past the top bucket are cut there
     seq_buckets: tuple[int, ...] = (16, 32, 64, 128, 256, 512)
     compute_dtype: str = "bf16"  # encoder matmul dtype: "bf16" | "f32"
     attn_impl: str = "fused"  # "fused" (K5 / K6) | "xla" (einsum + K7)

@@ -33,8 +33,8 @@ import threading
 import time
 from typing import Iterator
 
-from dawnsearch_tpu_torch.ingest.pages import (ExtractedPage, Stages,
-                                               iter_pages)
+from dawnsearch_tpu_torch.ingest.pages import (MAX_TEXT, ExtractedPage,
+                                               Stages, iter_pages)
 from dawnsearch_tpu_torch.utils.logging import (METRICS, SPANS, span,
                                                 span_args, service_logger,
                                                 wait_span)
@@ -159,10 +159,11 @@ class CommonCrawlSource:
 STAGE_COUNTERS = ("ingest_extract_read_s", "ingest_extract_decode_s",
                   "ingest_extract_html_s", "ingest_extract_filter_s",
                   "ingest_records_read", "ingest_pages_kept",
-                  "ingest_extract_repaired")
+                  "ingest_extract_repaired", "ingest_text_truncated")
 
 
-def _extract_worker(spec_q, out_q, batch_size: int, tracing=None) -> None:
+def _extract_worker(spec_q, out_q, batch_size: int, tracing=None,
+                    max_text: int = MAX_TEXT) -> None:
     """Extraction worker process: WARC specs in, page-triple batches out.
 
     Runs torch-free (never touches a device) in its own interpreter, so
@@ -204,7 +205,7 @@ def _extract_worker(spec_q, out_q, batch_size: int, tracing=None) -> None:
         try:
             _, src = open_warc(opener)
             batch: list[tuple[str, str, str]] = []
-            for page in iter_pages(src, st):
+            for page in iter_pages(src, st, max_text):
                 batch.append((page.url, page.title, page.text))
                 if len(batch) >= batch_size:
                     ship(name, batch)
@@ -238,8 +239,10 @@ class ExtractionService:
                  workers: int = 0,
                  rate_limit: float = 0.0,
                  coalesce_max: int | None = None,
-                 query_idle_s: float | None = None):
+                 query_idle_s: float | None = None,
+                 max_text: int = MAX_TEXT):
         self.service = service
+        self.max_text = max_text  # characters of a page's text kept
         self.source = source if source is not None else CommonCrawlSource()
         self.batch_size = batch_size
         # pages/s ceiling (0 = unlimited). Ingest shares the chip with
@@ -498,7 +501,8 @@ class ExtractionService:
         SPANS.share(tracing)
         METRICS.gauge("ingest_workers", self.workers)
         procs = [ctx.Process(target=_extract_worker,
-                             args=(spec_q, out_q, self.batch_size, tracing),
+                             args=(spec_q, out_q, self.batch_size, tracing,
+                                   self.max_text),
                              daemon=True, name=f"extract-worker-{i}")
                  for i in range(self.workers)]
         for p in procs:
@@ -654,7 +658,7 @@ class ExtractionService:
                     batch: list[ExtractedPage] = []
                     drained = True  # stayed true -> whole file consumed
                     t_batch = time.perf_counter()
-                    for page in iter_pages(f, st):
+                    for page in iter_pages(f, st, self.max_text):
                         if self._stop.is_set():
                             return
                         batch.append(page)

@@ -5,7 +5,9 @@ post-extraction filters on top of the WARC-level ones in
 dawnsearch_tpu_torch.ingest.warc:
 
 - readability-cleaned text >= 400 chars   (page_source.rs:108-110)
-- title truncated to 200, text to 2048    (page_source.rs:112-113)
+- title truncated to 200, text to 2048    (page_source.rs:112-113; the
+                                          text cap is the node's
+                                          ingest_max_text_chars)
 - English only                            (page_source.rs:119-121)
 
 Emits ExtractedPage{url,title,text,combined} (page_source.rs:44-50);
@@ -58,14 +60,15 @@ class Stages:
     """What iter_pages spent on its records: seconds in each stage (read:
     inflate and parse, inside iter_warc_records; decode: a text/plain
     body to str; html: an HTML body's bytes to title and text; filter:
-    whitespace, length and language), the records read, the pages kept
-    and the HTML bodies that held invalid UTF-8 (`repaired`). While
+    whitespace, length and language), the records read, the pages kept,
+    the HTML bodies that held invalid UTF-8 (`repaired`) and the kept
+    pages whose text the cap cut (`truncated`). While
     `spans` is a list, each record appends an ("extract.record", t0_ns,
     t1_ns, args, "X") span on the wall clock
     (utils/logging.py::SpanRecorder.extend)."""
 
     __slots__ = ("read", "decode", "html", "filter", "records", "kept",
-                 "repaired", "spans")
+                 "repaired", "truncated", "spans")
 
     def __init__(self):
         self.spans: list | None = None
@@ -74,18 +77,20 @@ class Stages:
     def reset(self) -> None:
         """Zero the sums (not `spans`)."""
         self.read = self.decode = self.html = self.filter = 0.0
-        self.records = self.kept = self.repaired = 0
+        self.records = self.kept = self.repaired = self.truncated = 0
 
     def sums(self) -> tuple:
-        """(read, decode, html, filter, records, kept, repaired)."""
+        """(read, decode, html, filter, records, kept, repaired,
+        truncated)."""
         return (self.read, self.decode, self.html, self.filter,
-                self.records, self.kept, self.repaired)
+                self.records, self.kept, self.repaired, self.truncated)
 
 
-def iter_pages(source: str | BinaryIO,
-               stages: Stages | None = None) -> Iterator[ExtractedPage]:
-    """WARC path/stream -> filtered pages ready to embed+index; `stages`
-    gathers the time each stage took."""
+def iter_pages(source: str | BinaryIO, stages: Stages | None = None,
+               max_text: int = MAX_TEXT) -> Iterator[ExtractedPage]:
+    """WARC path/stream -> filtered pages ready to embed+index, each text
+    cut at `max_text` characters; `stages` gathers the time each stage
+    took."""
     st = stages if stages is not None else Stages()
     clock = time.perf_counter
     records = iter_warc_records(source)
@@ -121,10 +126,11 @@ def iter_pages(source: str | BinaryIO,
                                  "X"))
             if keep:
                 st.kept += 1
+                st.truncated += len(text) > max_text
                 yield ExtractedPage(
                     url=rec.url,
                     title=slice_up_to(title, MAX_TITLE),
-                    text=slice_up_to(text, MAX_TEXT),
+                    text=slice_up_to(text, max_text),
                 )
     finally:
         records.close()

@@ -77,13 +77,21 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     # "bert" | "roberta" | "mpnet": roberta takes offset position ids;
     # mpnet (models/mpnet.py) also drops token types and adds the shared
-    # relative-position score bias; the layer stack is the same
+    # relative-position score bias; the layer stack is the same;
+    # "modernbert" is a family of its own (models/modernbert.py)
     model_type: str = "bert"
     # the vocab's pad id (config.json; mpnet and roberta checkpoints use 1,
     # from which their position ids are offset); the node checks its
     # tokenizer's
     pad_token_id: int = 0
     relative_attention_num_buckets: int = 32  # mpnet only
+    # modernbert only (models/modernbert.py): every n-th layer from 0 is
+    # global, the others attend within local_attention // 2 positions;
+    # rotary positions with each kind's θ
+    global_attn_every_n_layers: int = 3
+    local_attention: int = 128
+    global_rope_theta: float = 160000.0
+    local_rope_theta: float = 10000.0
     # compute dtype of the projections; softmax and LayerNorm stay f32
     dtype: torch.dtype = torch.float32
     # "fused" = K5 (packed) or K6 attention kernels; "xla" = einsum attention
@@ -346,17 +354,18 @@ def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor | None = None,
 @torch.inference_mode()
 def encode_batch(model: EncoderStack, input_ids: torch.Tensor,
                  attention_mask: torch.Tensor, mask_padding: bool = True,
-                 include_padding: bool = False) -> torch.Tensor:
+                 include_padding: bool = False, **model_args) -> torch.Tensor:
     """Sentence embeddings: BERT or MPNet -> mean-pool -> L2 normalize,
     (B, H) f32 on the model's device (reference calculate_embedding,
     embedding_service.rs:97-139, minus tokenization). The model's class
     carries its family (the reference routes on cfg.model_type,
     bert.py:312-318); the pool follows the model's pool_impl. K8 reads
     the last hidden state in the compute dtype (the reference casts it to
-    f32 first, and K8's bf16 -> f32 conversion is exact)."""
+    f32 first, and K8's bf16 -> f32 conversion is exact). `model_args`
+    go to the model (ModernBERT's host `lengths`)."""
     fused = model.cfg.pool_impl == "fused"
     hidden = model(input_ids, attention_mask, mask_padding=mask_padding,
-                   cast=not fused)
+                   cast=not fused, **model_args)
     if fused:
         return fused_mean_pool(hidden, attention_mask,
                                include_padding=include_padding)

@@ -21,6 +21,7 @@ import torch
 
 from dawnsearch_tpu_torch.models.bert import (
     MINILM_L6, BertConfig, BertModel, Params, encode_batch)
+from dawnsearch_tpu_torch.models.modernbert import ModernBertModel
 from dawnsearch_tpu_torch.models.mpnet import MPNetModel
 from dawnsearch_tpu_torch.models.tokenizer import WordPieceTokenizer
 from dawnsearch_tpu_torch.models.tokenizer_bpe import ByteLevelBPETokenizer
@@ -28,12 +29,19 @@ from dawnsearch_tpu_torch.models.tokenizer_bpe_native import \
     NativeByteLevelBPETokenizer
 from dawnsearch_tpu_torch.models.tokenizer_native import \
     NativeWordPieceTokenizer
-from dawnsearch_tpu_torch.utils.logging import service_logger
+from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
 
 log = service_logger("Encoder")
 
 Tokenizer = (WordPieceTokenizer | NativeWordPieceTokenizer
              | ByteLevelBPETokenizer | NativeByteLevelBPETokenizer)
+
+# a grid whose top bucket is past this is a long-context one: its
+# dispatches are planned by padded tokens (plan_dispatches)
+SHORT_GRID = 512
+# padded tokens (B × S, bucketed) a long grid's dispatch may hold: the
+# largest dispatch of a 512-token grid, B 1024 × S 512
+TOKEN_BUDGET = 1024 * 512
 
 
 class SentenceEncoder:
@@ -48,8 +56,11 @@ class SentenceEncoder:
         include_padding_in_pool: bool = False,
         *,
         device,
+        document_prompt: str = "",
+        query_prompt: str = "",
     ):
-        family = MPNetModel if cfg.model_type == "mpnet" else BertModel
+        family = {"mpnet": MPNetModel, "modernbert": ModernBertModel}.get(
+            cfg.model_type, BertModel)
         self.model = family(cfg, params, device=device)
         self.tokenizer = tokenizer
         self.cfg = cfg
@@ -57,6 +68,10 @@ class SentenceEncoder:
         self.batch_buckets = sorted(batch_buckets)
         self.mask_padding = mask_padding
         self.include_padding_in_pool = include_padding_in_pool
+        # put before each page (document) and each query before it is
+        # tokenized: a retrieval model's prompts, "" for models without
+        self.document_prompt = document_prompt
+        self.query_prompt = query_prompt
         if self.seq_buckets[-1] > cfg.max_position_embeddings:
             raise ValueError("seq bucket exceeds max_position_embeddings")
 
@@ -72,11 +87,50 @@ class SentenceEncoder:
         i = bisect.bisect_left(buckets, n)
         return buckets[min(i, len(buckets) - 1)]
 
+    @property
+    def long_grid(self) -> bool:
+        return self.seq_buckets[-1] > SHORT_GRID
+
     def encode(self, texts: Sequence[str]) -> np.ndarray:
-        """Texts -> (N, H) float32 unit vectors."""
+        """Query texts -> (N, H) float32 unit vectors (the query prompt
+        put before each)."""
+        return self._encode_texts(texts, self.query_prompt)
+
+    def encode_documents(self, texts: Sequence[str]) -> np.ndarray:
+        """Page texts -> (N, H) float32 unit vectors (the document prompt
+        put before each)."""
+        return self._encode_texts(texts, self.document_prompt)
+
+    def _encode_texts(self, texts: Sequence[str], prompt: str) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.dim), dtype=np.float32)
-        return self.encode_tokenized(self.tokenize_texts(texts))
+        return self.encode_tokenized(self.tokenize_texts(texts, prompt))
+
+    def plan_dispatches(self, rows: Sequence[int], lengths: Sequence[int],
+                        max_batch: int) -> list[list[int]]:
+        """`rows` cut into the dispatches that encode them. A grid that
+        stops at SHORT_GRID: chunks of max_batch in the given order. A
+        long grid: rows sorted by token length (lengths[i] of rows[i]),
+        then cut where a chunk would pass max_batch rows or TOKEN_BUDGET
+        padded tokens (its batch bucket × the seq bucket of its longest
+        row)."""
+        if not self.long_grid:
+            return [list(rows[s:s + max_batch])
+                    for s in range(0, len(rows), max_batch)]
+        order = sorted(range(len(rows)), key=lambda i: lengths[i])
+        out: list[list[int]] = []
+        cur: list[int] = []
+        for i in order:
+            seq = self._bucket(self.seq_buckets, lengths[i])
+            n = len(cur) + 1
+            if cur and (n > max_batch or self._bucket(
+                    self.batch_buckets, n) * seq > TOKEN_BUDGET):
+                out.append(cur)
+                cur = []
+            cur.append(rows[i])
+        if cur:
+            out.append(cur)
+        return out
 
     def encode_tokenized(self, ids_list: list[list[int]]) -> np.ndarray:
         """Pre-tokenized id lists -> (N, H) float32 unit vectors. Rows sort
@@ -86,10 +140,10 @@ class SentenceEncoder:
             return np.zeros((0, self.dim), dtype=np.float32)
         order = sorted(range(len(ids_list)), key=lambda i: len(ids_list[i]))
         out = np.zeros((len(ids_list), self.dim), dtype=np.float32)
-        max_batch = self.batch_buckets[-1]
         pending = []
-        for start in range(0, len(order), max_batch):
-            chunk = order[start: start + max_batch]
+        for chunk in self.plan_dispatches(
+                order, [len(ids_list[i]) for i in order],
+                self.batch_buckets[-1]):
             pending.append(
                 (chunk, self.dispatch_chunk([ids_list[i] for i in chunk])))
         for chunk, vecs in pending:
@@ -128,9 +182,24 @@ class SentenceEncoder:
             mask[r, :2] = 1
         return input_ids, mask, real
 
-    def tokenize_texts(self, texts: Sequence[str]) -> list[list[int]]:
+    def tokenize_texts(self, texts: Sequence[str], prompt: str = ""
+                       ) -> list[list[int]]:
+        """Token ids of `prompt` + each text, cut at the top seq bucket;
+        the tokenizer counts what the cut drops in the same pass
+        (encoder_texts_truncated, encoder_tokens_truncated)."""
         max_seq = self.seq_buckets[-1]
-        return [self.tokenizer.encode(t, max_len=max_seq) for t in texts]
+        out: list[list[int]] = []
+        cut = texts_cut = 0
+        for t in texts:
+            ids, n = self.tokenizer.encode_counted(prompt + t, max_seq)
+            out.append(ids)
+            if n > max_seq:
+                texts_cut += 1
+                cut += n - max_seq
+        if texts_cut:
+            METRICS.inc_many({"encoder_texts_truncated": texts_cut,
+                              "encoder_tokens_truncated": cut})
+        return out
 
     def to_device(self, input_ids: np.ndarray, mask: np.ndarray
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -153,10 +222,12 @@ class SentenceEncoder:
         of bare [CLS][SEP] rows (dawnsearch_tpu/models/encoder.py:146-163),
         then synchronize once. On a card this builds and loads the kernels
         and grows the caching allocator before the first request. Buckets
-        past max_batch (bulk-ingest sizes) are left cold. Returns the
+        past max_batch (bulk-ingest sizes), and on a long grid those past
+        TOKEN_BUDGET (no dispatch takes them), are left cold. Returns the
         number of shapes run."""
         shapes = [(bsz, seq) for seq in self.seq_buckets
-                  for bsz in self.batch_buckets if bsz <= max_batch]
+                  for bsz in self.batch_buckets if bsz <= max_batch
+                  and (not self.long_grid or bsz * seq <= TOKEN_BUDGET)]
         for bsz, seq in shapes:
             ids = np.full((bsz, seq), self.tokenizer.pad_id, np.int32)
             ids[:, 0] = self.tokenizer.cls_id

@@ -161,10 +161,16 @@ class WordPieceTokenizer:
 
     def encode(self, text: str, max_len: int | None = None) -> list[int]:
         """[CLS] tokens [SEP], truncated to max_len total."""
+        return self.encode_counted(text, max_len)[0]
+
+    def encode_counted(self, text: str, max_len: int | None = None
+                       ) -> tuple[list[int], int]:
+        """encode(text, max_len), and the length of the ids uncut."""
         ids = [self.vocab.get(t, self.unk_id) for t in self.tokenize(text)]
+        n = len(ids) + 2
         if max_len is not None:
             ids = ids[: max_len - 2]
-        return [self.cls_id] + ids + [self.sep_id]
+        return [self.cls_id] + ids + [self.sep_id], n
 
     def encode_batch(
         self, texts: list[str], seq_len: int

@@ -28,6 +28,7 @@ import collections
 import functools
 import json
 import os
+import unicodedata
 
 from dawnsearch_tpu_torch.models.tokenizer import CLS, PAD, SEP, UNK, special_id
 
@@ -98,21 +99,103 @@ def _merge_pair(word: tuple[str, ...], a: str, b: str) -> tuple[str, ...]:
     return tuple(merged)
 
 
-class ByteLevelBPETokenizer:
-    """vocab.json + merges.txt -> the WordPieceTokenizer serving
-    interface (pad/unk/cls/sep ids, encode, encode_batch), so
-    SentenceEncoder and the ingest pipeline are tokenizer-agnostic."""
+_NORMALIZERS = ("NFC", "NFD", "NFKC", "NFKD")
 
-    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]]):
+
+def read_tokenizer_json(path: str) -> tuple[dict[str, int],
+                                            list[tuple[str, str]], dict]:
+    """A `tokenizers` tokenizer.json of a byte-level BPE (ModernBERT's,
+    GPT-2's) -> (vocab, merges, options). The vocab is the model's plus
+    the added tokens (so the specials resolve by name); merges are read
+    as "a b" strings or ["a", "b"] pairs. options: cls_id and sep_id from
+    the post-processor (TemplateProcessing: the special before and after
+    $A; RobertaProcessing: cls and sep), add_prefix_space from the
+    ByteLevel pre-tokenizer, and the normalizer (NFC, NFD, NFKC, NFKD or
+    None; any other is refused). Special tokens written in a text are not
+    split out of it before the BPE, as `tokenizers` would: a deployment's
+    page text does not hold them."""
+    with open(path, encoding="utf-8") as f:
+        data = json.load(f)
+    model = data.get("model") or {}
+    if model.get("type", "BPE") != "BPE":
+        raise ValueError(f"{path}: model type {model.get('type')!r} is not "
+                         "a byte-level BPE")
+    vocab = dict(model["vocab"])
+    merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+              for m in model.get("merges", [])]
+    for tok in data.get("added_tokens") or []:
+        vocab.setdefault(tok["content"], tok["id"])
+
+    def parts(node, kind):
+        if not node:
+            return []
+        if node.get("type") == "Sequence":
+            key = "pretokenizers" if kind == "pre" else (
+                "processors" if kind == "post" else "normalizers")
+            return [p for n in node.get(key, []) for p in parts(n, kind)]
+        return [node]
+
+    opts: dict = {"add_prefix_space": False, "normalizer": None}
+    for node in parts(data.get("normalizer"), "norm"):
+        if node.get("type") not in _NORMALIZERS:
+            raise ValueError(f"{path}: normalizer {node.get('type')!r} is "
+                             f"not supported ({', '.join(_NORMALIZERS)})")
+        opts["normalizer"] = node["type"]
+    for node in parts(data.get("pre_tokenizer"), "pre"):
+        if node.get("type") == "ByteLevel":
+            opts["add_prefix_space"] = bool(node.get("add_prefix_space"))
+    for node in parts(data.get("post_processor"), "post"):
+        if node.get("type") == "TemplateProcessing":
+            specials = node.get("special_tokens", {})
+            seq = [s["SpecialToken"]["id"] for s in node.get("single", [])
+                   if "SpecialToken" in s]
+            if seq:
+                opts["cls_id"] = specials[seq[0]]["ids"][0]
+                opts["sep_id"] = specials[seq[-1]]["ids"][0]
+        elif node.get("type") == "RobertaProcessing":
+            opts["cls_id"], opts["sep_id"] = node["cls"][1], node["sep"][1]
+    return vocab, merges, opts
+
+
+class ByteLevelBPETokenizer:
+    """vocab.json + merges.txt (or a tokenizer.json: `from_json`) -> the
+    WordPieceTokenizer serving interface (pad/unk/cls/sep ids, encode,
+    encode_batch), so SentenceEncoder and the ingest pipeline are
+    tokenizer-agnostic. cls_id / sep_id override the ids found by name;
+    `normalizer` (NFC, ...) and `add_prefix_space` (a space before a text
+    that does not start with one) apply to each text before the
+    pre-tokenizer, as a tokenizer.json's normalizer and ByteLevel
+    pre-tokenizer do."""
+
+    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
+                 cls_id: int | None = None, sep_id: int | None = None,
+                 add_prefix_space: bool = False,
+                 normalizer: str | None = None):
         self.vocab = vocab
         self.inv_vocab = {i: t for t, i in vocab.items()}
         self.ranks = {pair: i for i, pair in enumerate(merges)}
         self.pad_id = special_id(vocab, PAD)
         self.unk_id = special_id(vocab, UNK)
-        self.cls_id = special_id(vocab, CLS)   # <s>
-        self.sep_id = special_id(vocab, SEP)   # </s>
+        self.cls_id = special_id(vocab, CLS) if cls_id is None else cls_id
+        self.sep_id = special_id(vocab, SEP) if sep_id is None else sep_id
+        self.add_prefix_space = add_prefix_space
+        self.normalizer = normalizer
         self._b2u = byte_to_unicode()
         self._cache: dict[str, list[str]] = {}
+
+    @classmethod
+    def from_json(cls, path: str) -> "ByteLevelBPETokenizer":
+        vocab, merges, opts = read_tokenizer_json(path)
+        return cls(vocab, merges, **opts)
+
+    def prepare(self, text: str) -> str:
+        """The text the pre-tokenizer sees: normalized, and with the
+        prefix space where the file asks for one."""
+        if self.normalizer:
+            text = unicodedata.normalize(self.normalizer, text)
+        if self.add_prefix_space and text and not text.startswith(" "):
+            text = " " + text
+        return text
 
     # -- file I/O (HF layout: vocab.json token->id, merges.txt one
     # space-separated pair per line, optional "#version" header) --
@@ -192,7 +275,7 @@ class ByteLevelBPETokenizer:
         bucket will drop."""
         pieces: list[str] = []
         b2u = self._b2u
-        for m in _pattern().finditer(text):
+        for m in _pattern().finditer(self.prepare(text)):
             mapped = "".join(b2u[b] for b in m.group().encode("utf-8"))
             pieces.extend(self._bpe(mapped))
             if max_pieces is not None and len(pieces) >= max_pieces:
@@ -203,10 +286,18 @@ class ByteLevelBPETokenizer:
         """<s> pieces </s>, truncated to max_len total (HF
         truncation=True keeps the first max_len-2 pieces likewise)."""
         cap = None if max_len is None else max(max_len - 2, 0)
-        ids = [self.vocab.get(t, self.unk_id)
-               for t in self.tokenize(text, max_pieces=cap)]
-        if cap is not None:
-            ids = ids[:cap]
+        return self._specials(self.tokenize(text, max_pieces=cap), cap)
+
+    def encode_counted(self, text: str, max_len: int | None = None
+                       ) -> tuple[list[int], int]:
+        """encode(text, max_len), and the length of the ids uncut: the
+        pieces past the cut are merged too, once, only to count them."""
+        pieces = self.tokenize(text)
+        cap = None if max_len is None else max(max_len - 2, 0)
+        return self._specials(pieces, cap), len(pieces) + 2
+
+    def _specials(self, pieces: list[str], cap: int | None) -> list[int]:
+        ids = [self.vocab.get(t, self.unk_id) for t in pieces[:cap]]
         return [self.cls_id] + ids + [self.sep_id]
 
     def decode(self, ids: list[int], skip_special: bool = True) -> str:

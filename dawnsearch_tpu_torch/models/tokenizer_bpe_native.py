@@ -51,19 +51,21 @@ def _unmap(spelling: str, u2b: dict[str, int]) -> bytes | None:
 class NativeByteLevelBPETokenizer:
     """Drop-in for ByteLevelBPETokenizer (same encode contract)."""
 
-    MAX_IDS = 8192  # scratch bound, same as NativeWordPieceTokenizer
-
-    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]]):
+    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
+                 **options):
         lib = nativelib.get()
         if lib is None:
             raise RuntimeError("native library unavailable: "
                                f"{nativelib.build_error()}")
         self._lib = lib
         self.vocab = vocab
-        # special ids resolved exactly like the Python twin
-        py = ByteLevelBPETokenizer(vocab, [])
+        # special ids, the normalizer and the prefix space resolved
+        # exactly like the Python twin (options: its keyword arguments)
+        py = ByteLevelBPETokenizer(vocab, [], **options)
         self.pad_id, self.unk_id = py.pad_id, py.unk_id
         self.cls_id, self.sep_id = py.cls_id, py.sep_id
+        self._prepare = py.prepare if (py.normalizer or
+                                       py.add_prefix_space) else None
 
         u2b = unicode_to_byte()
         ventries: list[bytes] = []
@@ -90,6 +92,13 @@ class NativeByteLevelBPETokenizer:
             raise RuntimeError("dawn_bpe_new rejected the vocab/merges blob")
 
     @classmethod
+    def from_json(cls, path: str) -> "NativeByteLevelBPETokenizer":
+        from dawnsearch_tpu_torch.models.tokenizer_bpe import \
+            read_tokenizer_json
+        vocab, merges, opts = read_tokenizer_json(path)
+        return cls(vocab, merges, **opts)
+
+    @classmethod
     def from_files(cls, vocab_path: str, merges_path: str
                    ) -> "NativeByteLevelBPETokenizer":
         # the Python twin's reader (its regex import waits for a pattern)
@@ -98,14 +107,28 @@ class NativeByteLevelBPETokenizer:
         return cls(py.vocab, order)
 
     def encode(self, text: str, max_len: int | None = None) -> list[int]:
+        return self._encode(text, max_len, None)
+
+    def encode_counted(self, text: str, max_len: int | None = None
+                       ) -> tuple[list[int], int]:
+        """encode(text, max_len), and the length of the ids uncut (the
+        Python twin's contract)."""
+        full = ctypes.c_long(0)
+        return self._encode(text, max_len, ctypes.byref(full)), full.value
+
+    def _encode(self, text: str, max_len: int | None, full) -> list[int]:
+        if self._prepare is not None:
+            text = self._prepare(text)
+        raw = text.encode("utf-8", errors="ignore")
         # explicit None check: max_len=0 is a real cap (the Python twin
-        # returns just [cls, sep]), not "no limit"
-        cap = self.MAX_IDS if max_len is None else min(max_len, self.MAX_IDS)
+        # returns just [cls, sep]), not "no limit"; a byte is at most one
+        # piece, so len(raw) + 2 ids hold any text whole
+        cap = len(raw) + 2 if max_len is None else min(max_len, len(raw) + 2)
         # encode always emits <s>...</s>, so >= 2 ids even at cap < 2
         # (the Python twin's cap = max(max_len-2, 0) + specials)
         out = (ctypes.c_int32 * max(cap, 2))()
-        raw = text.encode("utf-8", errors="ignore")
-        n = self._lib.dawn_bpe_encode(self._handle, raw, len(raw), cap, out)
+        n = self._lib.dawn_bpe_encode(self._handle, raw, len(raw), cap, out,
+                                      full)
         return list(out[:n])
 
     def encode_batch(self, texts: list[str], seq_len: int
@@ -125,17 +148,22 @@ class NativeByteLevelBPETokenizer:
             lib.dawn_bpe_free(handle)
 
 
-def best_bpe_tokenizer(vocab_path: str, merges_path: str):
-    """Native when the library is loadable, Python otherwise. The Python
-    twin needs `regex`, which it imports at its first text: without the
-    library and without `regex` this raises now, naming both, rather than
-    at a node's first query."""
+def best_bpe_tokenizer(vocab_path: str, merges_path: str | None = None):
+    """Native when the library is loadable, Python otherwise, from
+    vocab.json + merges.txt or (merges_path None) a tokenizer.json. The
+    Python twin needs `regex`, which it imports at its first text:
+    without the library and without `regex` this raises now, naming both,
+    rather than at a node's first query."""
+    def make(cls):
+        if merges_path is None:
+            return cls.from_json(vocab_path)
+        return cls.from_files(vocab_path, merges_path)
     if native_available():
-        return NativeByteLevelBPETokenizer.from_files(vocab_path, merges_path)
+        return make(NativeByteLevelBPETokenizer)
     if importlib.util.find_spec("regex") is None:
         raise RuntimeError(
             "no byte-level BPE tokenizer can run here: the native library "
             f"did not build ({nativelib.build_error()}) and the Python "
             "tokenizer needs the `regex` module, which is not installed")
-    return ByteLevelBPETokenizer.from_files(vocab_path, merges_path)
+    return make(ByteLevelBPETokenizer)
 

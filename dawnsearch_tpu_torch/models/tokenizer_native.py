@@ -56,10 +56,20 @@ class NativeWordPieceTokenizer:
         return cls(read_vocab(path), lowercase=lowercase)
 
     def encode(self, text: str, max_len: int | None = None) -> list[int]:
+        return self._encode(text, max_len, None)
+
+    def encode_counted(self, text: str, max_len: int | None = None
+                       ) -> tuple[list[int], int]:
+        """encode(text, max_len), and the length of the ids uncut."""
+        full = ctypes.c_long(0)
+        return self._encode(text, max_len, ctypes.byref(full)), full.value
+
+    def _encode(self, text: str, max_len: int | None, full) -> list[int]:
         cap = min(max_len or self.MAX_IDS, self.MAX_IDS)
         out = (ctypes.c_int32 * cap)()
         raw = text.encode("utf-8", errors="ignore")
-        n = self._lib.dawn_tok_encode(self._handle, raw, len(raw), cap, out)
+        n = self._lib.dawn_tok_encode(self._handle, raw, len(raw), cap, out,
+                                      full)
         return list(out[:n])
 
     def encode_batch(self, texts: list[str], seq_len: int

@@ -104,9 +104,12 @@ def params_from_numpy(tree: Mapping[str, Any]) -> Params:
 
 # -- safetensors ----------------------------------------------------------
 
-def read_safetensors(path: str) -> dict[str, np.ndarray]:
+def read_safetensors(path: str, bf16: bool = False
+                     ) -> dict[str, np.ndarray]:
     """Every tensor of a safetensors file, as read-only numpy arrays over a
-    memory map (nothing is copied until a caller converts)."""
+    memory map (nothing is copied until a caller converts). bf16=True
+    also reads BF16 tensors, widened to f32 (a copy): ModernBERT
+    checkpoints are published in BF16."""
     size = os.path.getsize(path)
     with open(path, "rb") as f:
         head = f.read(8)
@@ -123,6 +126,15 @@ def read_safetensors(path: str) -> dict[str, np.ndarray]:
         if name == "__metadata__":
             continue
         tag, shape = info["dtype"], tuple(info["shape"])
+        if bf16 and tag == "BF16":
+            begin, end = info["data_offsets"]
+            if not 0 <= begin <= end <= data.size or \
+                    end - begin != 2 * int(np.prod(shape)):
+                raise ValueError(f"{path}: tensor {name!r} ({tag} {shape}) "
+                                 f"has bad data_offsets {info['data_offsets']}")
+            bits = data[begin:end].view("<u2").astype(np.uint32) << 16
+            out[name] = bits.view(np.float32).reshape(shape)
+            continue
         if tag not in ST_DTYPES:
             raise ValueError(f"{path}: tensor {name!r} has dtype {tag}, which "
                              f"this reader does not take (it reads "
@@ -301,8 +313,8 @@ def save_safetensors(params: Params, path: str,
 
 def config_from_hf(model_dir: str) -> BertConfig | None:
     """A BertConfig from model_dir/config.json (None without one), so any
-    BERT-, RoBERTa- or MPNet-family encoder loads by pointing model_dir at its
-    checkout. Refuses a non-gelu activation (every kernel computes exact erf
+    BERT-, RoBERTa-, MPNet- or ModernBERT-family encoder loads by pointing
+    model_dir at its checkout. Refuses a non-gelu activation (every kernel computes exact erf
     GELU) and an unknown family."""
     path = os.path.join(model_dir, "config.json")
     if not os.path.exists(path):
@@ -310,9 +322,13 @@ def config_from_hf(model_dir: str) -> BertConfig | None:
     with open(path) as f:
         hf = json.load(f)
     model_type = hf.get("model_type", "bert")
+    if model_type == "modernbert":
+        from dawnsearch_tpu_torch.models import modernbert
+        return modernbert.config_from_hf(hf, path)
     if model_type not in ("bert", "mpnet", "roberta"):
         raise ValueError(f"{path}: model_type={model_type!r} is not a "
-                         "supported encoder family (bert, mpnet, roberta)")
+                         "supported encoder family (bert, mpnet, roberta, "
+                         "modernbert)")
     act = hf.get("hidden_act", "gelu")
     if act != "gelu":
         raise ValueError(
@@ -350,9 +366,18 @@ def load_params(model_dir: str | None, cfg: BertConfig | None = None,
                 pool_impl=cfg.pool_impl, layer_impl=cfg.layer_impl)
     if cfg is None:
         cfg = MINILM_L6
+    modern = cfg.model_type == "modernbert"
+    if modern:
+        from dawnsearch_tpu_torch.models import modernbert
     if model_dir:
         for cand in ("model.safetensors", "pytorch_model.safetensors"):
             p = os.path.join(model_dir, cand)
             if os.path.exists(p):
+                if modern:
+                    return modernbert.from_hf_tensors(
+                        read_safetensors(p, bf16=True), cfg), True, cfg
                 return load_safetensors(p, cfg), True, cfg
-    return init_params(torch.Generator().manual_seed(seed), cfg), False, cfg
+    gen = torch.Generator().manual_seed(seed)
+    if modern:
+        return modernbert.init_params(gen, cfg), False, cfg
+    return init_params(gen, cfg), False, cfg

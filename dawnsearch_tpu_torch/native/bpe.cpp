@@ -23,7 +23,8 @@
 //     vocab blob:  u32 n, then n x [i32 id][u32 len][bytes]
 //     merges blob: u32 m, then m x [u32 la][bytes a][u32 lb][bytes b]
 //                  (rank = position)
-//   dawn_bpe_encode(h, text, len, max_len, out_ids) -> n ids written
+//   dawn_bpe_encode(h, text, len, max_len, out_ids, n_full) -> n ids
+//     written; n_full (nullable) gets the ids of the text uncut
 //   dawn_bpe_free(h)
 // encode is const and thread-safe EXCEPT for the bounded internal
 // cache, which is mutex-guarded.
@@ -282,9 +283,11 @@ void *dawn_bpe_new(const uint8_t *vocab_blob, long vlen,
 }
 
 // -> ids written to out_ids: <s> pieces </s>, pieces capped at
-// max_len-2 (tokenizer_bpe.py encode: cap = max(max_len-2, 0)).
+// max_len-2 (tokenizer_bpe.py encode: cap = max(max_len-2, 0)). With
+// n_full, the pre-tokens past the cap are merged too, only to count
+// them: *n_full is the length of the uncut <s> pieces </s>.
 long dawn_bpe_encode(void *handle, const char *text, long len, long max_len,
-                     int32_t *out_ids) {
+                     int32_t *out_ids, long *n_full) {
   auto *t = (const BpeTokenizer *)handle;
   long cap = max_len - 2 > 0 ? max_len - 2 : 0;
   std::vector<ByteRange> pre;
@@ -292,9 +295,19 @@ long dawn_bpe_encode(void *handle, const char *text, long len, long max_len,
   std::vector<int> ids;
   ids.reserve((size_t)cap + 2);
   ids.push_back(t->cls_id);
-  for (auto &r : pre) {
-    if ((long)ids.size() - 1 >= cap) break;
-    t->bpe(std::string(text + r.begin, r.end - r.begin), ids);
+  size_t k = 0;
+  for (; k < pre.size() && (long)ids.size() - 1 < cap; ++k)
+    t->bpe(std::string(text + pre[k].begin, pre[k].end - pre[k].begin), ids);
+  if (n_full) {
+    long pieces = (long)ids.size() - 1;
+    std::vector<int> rest;
+    for (; k < pre.size(); ++k) {
+      rest.clear();
+      t->bpe(std::string(text + pre[k].begin, pre[k].end - pre[k].begin),
+             rest);
+      pieces += (long)rest.size();
+    }
+    *n_full = pieces + 2;
   }
   if ((long)ids.size() > cap + 1) ids.resize(cap + 1);
   ids.push_back(t->sep_id);

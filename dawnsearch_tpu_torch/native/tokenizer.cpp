@@ -11,7 +11,8 @@
 //
 // C ABI (ctypes):
 //   dawn_tok_new(vocab_utf8, len)    vocab.txt contents, id = line no.
-//   dawn_tok_encode(h, text, len, max_len, out_ids) -> n ids written
+//   dawn_tok_encode(h, text, len, max_len, out_ids, n_full) -> n ids
+//     written; n_full (nullable) gets the ids of the text uncut
 //   dawn_tok_free(h)
 // Thread-safe after construction: encode is const and reads the vocab
 // map only, so one handle serves every thread.
@@ -229,9 +230,10 @@ void *dawn_tok_new(const char *vocab_utf8, long len) {
 }
 
 // -> number of ids written to out_ids (<= max_len). [CLS] ... [SEP],
-// truncated to max_len keeping the trailing [SEP] (tokenizer.py:136-141).
+// truncated to max_len keeping the trailing [SEP] (tokenizer.py:136-141);
+// *n_full, where given, the uncut length.
 long dawn_tok_encode(void *handle, const char *text, long len,
-                     long max_len, int32_t *out_ids) {
+                     long max_len, int32_t *out_ids, long *n_full) {
   auto *t = (Tokenizer *)handle;
   std::vector<std::pair<std::string, int>> words;
   t->basic((const uint8_t *)text, (size_t)len, words);
@@ -240,6 +242,7 @@ long dawn_tok_encode(void *handle, const char *text, long len,
   ids.push_back(t->cls_id);
   for (auto &w : words) t->wordpiece(w.first, w.second, ids);
   ids.push_back(t->sep_id);
+  if (n_full) *n_full = (long)ids.size();
   if ((long)ids.size() > max_len) {
     ids.resize(max_len);
     ids[max_len - 1] = t->sep_id;

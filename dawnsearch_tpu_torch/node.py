@@ -73,6 +73,9 @@ def check_config(cfg: Config) -> None:
                           ("wire_embedding", ("auto", "i24", "i8"))):
         if getattr(cfg, name) not in allowed:
             problems.append(f"unknown {name} {getattr(cfg, name)!r}")
+    if cfg.ingest_max_text_chars < 1:
+        problems.append(f"ingest_max_text_chars "
+                        f"{cfg.ingest_max_text_chars} is not a positive cap")
     if problems:
         raise ValueError("; ".join(problems))
     import torch
@@ -87,8 +90,9 @@ def make_encoder(cfg: Config):
     routes of the config (dawnsearch_tpu/node.py:33-97): the family and
     shape from model_dir/config.json, the weights from model.safetensors,
     and the tokenizer from vocab.json + merges.txt (byte-level BPE,
-    RoBERTa) or else vocab.txt (WordPiece: BERT's [PAD]/[CLS]/[SEP] or
-    MPNet's <pad>/<s>/</s>); without model_dir (or without those files)
+    RoBERTa), a tokenizer.json (byte-level BPE, ModernBERT) or else
+    vocab.txt (WordPiece: BERT's [PAD]/[CLS]/[SEP] or MPNet's
+    <pad>/<s>/</s>); without model_dir (or without those files)
     MiniLM width, weights from a seeded generator and a self-contained
     vocab. Each tokenizer is the native one when the library builds
     (models/tokenizer_native.py, tokenizer_bpe_native.py)."""
@@ -114,9 +118,12 @@ def make_encoder(cfg: Config):
         return path if path and os.path.exists(path) else None
 
     bpe_files = (in_model_dir("vocab.json"), in_model_dir("merges.txt"))
+    tok_json = in_model_dir("tokenizer.json")
     vocab_path = in_model_dir("vocab.txt")
     if all(bpe_files):
         tok = best_bpe_tokenizer(*bpe_files)
+    elif tok_json and not vocab_path:
+        tok = best_bpe_tokenizer(tok_json)
     elif vocab_path:
         tok = best_tokenizer(read_vocab(vocab_path))
     else:
@@ -127,7 +134,7 @@ def make_encoder(cfg: Config):
             log.warning("pretrained weights but no vocab.txt or vocab.json + "
                         "merges.txt: tokenization will not match the "
                         "checkpoint")
-    if pretrained and (all(bpe_files) or vocab_path) and \
+    if pretrained and (all(bpe_files) or tok_json or vocab_path) and \
             tok.pad_id != bert_cfg.pad_token_id:
         # the encoder pads with the tokenizer's pad id, and RoBERTa's and
         # MPNet's position ids are offset from config.json's: a checkpoint
@@ -145,7 +152,9 @@ def make_encoder(cfg: Config):
              type(tok).__name__)
     return SentenceEncoder(params, tok, cfg=bert_cfg,
                            seq_buckets=tuple(cfg.seq_buckets),
-                           device=cfg.device)
+                           device=cfg.device,
+                           document_prompt=cfg.document_prompt,
+                           query_prompt=cfg.query_prompt)
 
 
 def _sharded_mesh(cfg: Config):
@@ -279,7 +288,8 @@ class DawnNode:
         self.encoder = encoder if encoder is not None else make_encoder(cfg)
         self.batcher = EmbeddingBatcher(
             self.encoder.encode, max_batch=cfg.embed_batch_size,
-            max_wait_ms=cfg.embed_max_wait_ms)
+            max_wait_ms=cfg.embed_max_wait_ms,
+            documents_fn=getattr(self.encoder, "encode_documents", None))
         dim = self.encoder.dim
         self.provider = SearchProvider(
             data_dir=cfg.data_dir, dim=dim, index_dtype=cfg.index_dtype,
@@ -351,6 +361,7 @@ class DawnNode:
             self.service, source=source,
             batch_size=self.cfg.ingest_batch_size, ledger=ledger,
             workers=self.cfg.ingest_workers,
+            max_text=self.cfg.ingest_max_text_chars,
             rate_limit=self.cfg.ingest_rate_limit,
             query_idle_s=self.cfg.ingest_query_idle_s)
         self.extractor.start()

@@ -1,11 +1,15 @@
 """Build and bind the port's hand-written CUDA kernels (csrc/*.cu).
 
-One shared library with a plain C interface, compiled by nvcc for
-sm_90a at first use and loaded with ctypes. The build is keyed on a hash
-of the sources, the headers they include (csrc/*.cuh) and the flags, so
-a fresh checkout builds once and every later process (a node, a test,
-chip_smoke.py) loads the cached library. The library lands in the
-package's `_build/` directory, which git ignores.
+Shared libraries with a plain C interface, compiled by nvcc for sm_90a at
+first use and loaded with ctypes: `lib()` holds csrc/*.cu, the kernels of
+the BERT, MPNet and RoBERTa families and the index; `long_lib()` holds
+csrc/long/*.cu, ModernBERT's long-context kernels (ops/modernbert.py),
+built only when a ModernBERT model is built, so a node of another family
+never compiles them. A build is keyed on a hash of its sources, the
+headers they include (csrc/*.cuh, and csrc/long/*.cuh for the long set)
+and the flags, so a fresh checkout builds once and every later process (a
+node, a test, chip_smoke.py) loads the cached library. The libraries land
+in the package's `_build/` directory, which git ignores.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine need not have nvcc.
@@ -37,7 +41,10 @@ MAX_LN_WIDTH = 2048
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_long_lib: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None  # wall time of this process's build, if it built
+LONG = "long"  # csrc/long/: ModernBERT's kernels, a library of their own
+_NAMES = {"": "libdawn_kernels", LONG: "libdawn_long"}
 
 
 def _nvcc() -> str:
@@ -52,18 +59,22 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(subdir: str = "") -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, subdir, "*.cu")))
 
 
-def library_path() -> str:
+def library_path(subdir: str = "") -> str:
+    """The keyed library of csrc/<subdir>/*.cu."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     # the headers the sources include are part of the key
-    for src in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    if subdir:
+        headers += sorted(glob.glob(os.path.join(CSRC, subdir, "*.cuh")))
+    for src in _sources(subdir) + headers:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libdawn_kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{_NAMES[subdir]}-{h.hexdigest()[:16]}.so")
 
 
 def _run(cmd: list[str]) -> subprocess.Popen:
@@ -86,15 +97,15 @@ def _wait(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
     return "".join(outs)
 
 
-def build() -> str:
-    """Compile csrc/*.cu into the keyed library unless it exists; returns
-    its path. Each source compiles in its own nvcc, all at once, and one
+def build(subdir: str = "") -> str:
+    """Compile csrc/<subdir>/*.cu into the keyed library unless it exists;
+    returns its path. Each source compiles in its own nvcc, all at once, and one
     more links them; ptxas' register and shared-memory report of every
     kernel is kept beside the library (ptxas_report()). Concurrent
     builders (two processes on one checkout) take turns on a lock file;
     the library appears by atomic rename."""
     global BUILD_SECONDS
-    path = library_path()
+    path = library_path(subdir)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -103,11 +114,12 @@ def build() -> str:
         if os.path.exists(path):
             return path
         tmp = f"{path}.{os.getpid()}.tmp"
-        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+        objs = [f"{tmp}.{os.path.basename(src)}.o"
+                for src in _sources(subdir)]
         t0 = time.perf_counter()
         try:
             compiles = [[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                         obj, src] for src, obj in zip(_sources(), objs)]
+                         obj, src] for src, obj in zip(_sources(subdir), objs)]
             report = _wait([(cmd, _run(cmd)) for cmd in compiles])
             link = [_nvcc(), "-shared", "-o", tmp, *objs]
             _wait([(link, _run(link))])
@@ -118,7 +130,8 @@ def build() -> str:
         with open(path + ".ptxas.txt", "w") as f:
             f.write(report)
         os.replace(tmp, path)
-        BUILD_SECONDS = time.perf_counter() - t0
+        if not subdir:
+            BUILD_SECONDS = time.perf_counter() - t0
     return path
 
 
@@ -165,6 +178,25 @@ def lib() -> ctypes.CDLL:
             cdll.dawn_error_string.restype = ctypes.c_char_p
             _lib = cdll
         return _lib
+
+
+def long_lib() -> ctypes.CDLL:
+    """The loaded library of ModernBERT's kernels, csrc/long/*.cu (built
+    on first call; ops/modernbert.py documents its entries)."""
+    global _long_lib
+    with _lock:
+        if _long_lib is None:
+            cdll = ctypes.CDLL(build(LONG))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            cdll.dawn_long_embed_ln.argtypes = [p, p, p, p, p, i, i, i, f, p]
+            cdll.dawn_long_gemm.argtypes = [p, p, i, p, p, p, p, p, p, i, i,
+                                            i, i, i, f, p]
+            cdll.dawn_long_attention.argtypes = [p, p, p, i, i, i, i, i, f, p]
+            for fn in (cdll.dawn_long_embed_ln, cdll.dawn_long_gemm,
+                       cdll.dawn_long_attention):
+                fn.restype = i
+            _long_lib = cdll
+        return _long_lib
 
 
 def check(err: int, what: str) -> None:

@@ -141,8 +141,11 @@ class EmbeddingBatcher(CoalescingBatcher):
         encode_fn: Callable[[Sequence[str]], np.ndarray],
         max_batch: int = 64,
         max_wait_ms: float = 5.0,
+        documents_fn: Callable[[Sequence[str]], np.ndarray] | None = None,
     ):
         self._encode = encode_fn
+        # page texts (embed_many) may take another prompt than queries
+        self._documents = documents_fn or encode_fn
         super().__init__(self._process_texts, max_batch=max_batch,
                          max_wait_ms=max_wait_ms, name="embed")
 
@@ -159,7 +162,7 @@ class EmbeddingBatcher(CoalescingBatcher):
     def embed_many(self, texts: Sequence[str],
                    timeout: float | None = 60.0) -> np.ndarray:
         """Batch entry point for ingestion — bypasses the queue, one call."""
-        return self._encode(list(texts))
+        return self._documents(list(texts))
 
 
 class SearchBatcher(CoalescingBatcher):

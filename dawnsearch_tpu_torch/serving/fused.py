@@ -22,7 +22,7 @@ from dawnsearch_tpu_torch.index.flat import (FlatIndex, quantize_rows_i8,
 from dawnsearch_tpu_torch.models.bert import encode_batch
 from dawnsearch_tpu_torch.ops import scan_select
 from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
-from dawnsearch_tpu_torch.utils.logging import METRICS, span
+from dawnsearch_tpu_torch.utils.logging import METRICS, SPANS, span
 
 
 def _encode(encoder, input_ids: np.ndarray, mask: np.ndarray,
@@ -30,15 +30,20 @@ def _encode(encoder, input_ids: np.ndarray, mask: np.ndarray,
     """Enqueue one forward of a padded (B, S) batch holding `real` real
     tokens. Counts encoder_tokens_real and encoder_tokens_padded (B × S,
     padding rows included); span encoder.forward (args B, S, real) while
-    a capture runs."""
+    a capture runs; a long-context model (ModernBERT) then also gets the
+    rows' real lengths from the host, for its spans' args."""
     B, S = input_ids.shape
     METRICS.inc_many({"encoder_tokens_real": real,
                       "encoder_tokens_padded": B * S})
+    extra = {}
+    if SPANS.on and getattr(encoder.model, "LONG", False):
+        extra["lengths"] = mask.sum(axis=1)
     with span("encoder.forward", B=B, S=S, real=real):
         input_ids, mask = encoder.to_device(input_ids, mask)
         return encode_batch(encoder.model, input_ids, mask,
                             mask_padding=encoder.mask_padding,
-                            include_padding=encoder.include_padding_in_pool)
+                            include_padding=encoder.include_padding_in_pool,
+                            **extra)
 
 
 class FusedQueryPath:
@@ -62,7 +67,8 @@ class FusedQueryPath:
         kf = ix.device_fetch_width(k_eff) if ix.device_rerank else k_eff
         with METRICS.timer("fused_query_dispatch"):
             enc = self.encoder
-            emb = _encode(enc, *enc.pad_counted(enc.tokenize_texts(texts)))
+            emb = _encode(enc, *enc.pad_counted(
+                enc.tokenize_texts(texts, enc.query_prompt)))
             if ix.fused_eligible():
                 d, i = scan_select.search_select(ix._codes, ix._scales, emb,
                                                  ix.count, kf)
@@ -98,6 +104,24 @@ def _chunk_by_bucket(ingest_fn, encoder, texts, token_ids):
     return np.concatenate(outs)
 
 
+def plans_by_length(path) -> bool:
+    """The ingest path's encoder has a long grid: plan_ingest wants the
+    pages' token ids."""
+    return getattr(path.encoder, "long_grid", False)
+
+
+def plan_ingest(path, rows: list[int], token_ids) -> list[list[int]]:
+    """`rows` (indexes of a batch's pages, whose ids are token_ids[i]) cut
+    into the sub-batches an ingest path's dispatch() takes: chunks of its
+    max_batch in order, or on a long grid by padded tokens
+    (SentenceEncoder.plan_dispatches)."""
+    maxb = path.max_batch or max(len(rows), 1)
+    plan = getattr(path.encoder, "plan_dispatches", None)
+    if plan is None or token_ids is None:
+        return [rows[s:s + maxb] for s in range(0, len(rows), maxb)]
+    return plan(rows, [len(token_ids[i]) for i in rows], maxb)
+
+
 class FusedIngestPath:
     """Batched page ingest against an i8 or i4 FlatIndex: encode ->
     quantize -> write rows in place (and the f16 shadow, when kept). i4
@@ -131,7 +155,7 @@ class FusedIngestPath:
         insert overwrites them."""
         enc = self.encoder
         ids_list = (token_ids if token_ids is not None
-                    else enc.tokenize_texts(texts))
+                    else enc.tokenize_texts(texts, enc.document_prompt))
         ix = self.index
         n = len(texts)
         input_ids, mask, real = enc.pad_counted(ids_list)
@@ -210,7 +234,7 @@ class ShardedFusedIngestPath:
         ix = self.index
         n = len(texts)
         ids_list = (token_ids if token_ids is not None
-                    else enc.tokenize_texts(texts))
+                    else enc.tokenize_texts(texts, enc.document_prompt))
         # grows shards as needed; at max_capacity it re-plans within each
         # shard's room and raises only when the rows fit nowhere
         per_shard, uids = ix.plan_insert(n)

@@ -105,7 +105,8 @@ def add_spans(path: str, events: list, names: dict) -> None:
     base_ns = int(m.group(1)) if m else 0
     spans = chrome_events(events, names, base_ns)
     rest = data[start:]
-    sep = b"" if rest.lstrip().startswith(b"]") else b","
+    # no comma before a closing bracket, nor without a span to separate
+    sep = b"" if not spans or rest.lstrip().startswith(b"]") else b","
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(data[:start])

@@ -286,8 +286,8 @@ class SearchService:
         re-tokenizes internally anyway)."""
         if self._fused_ingest is None:
             return None
-        return self._fused_ingest.encoder.tokenize_texts(
-            self._combined(pages))
+        enc = self._fused_ingest.encoder
+        return enc.tokenize_texts(self._combined(pages), enc.document_prompt)
 
     def insert_pages(self, pages: Sequence[tuple[str, str, str]],
                      from_network: bool = False,
@@ -326,6 +326,8 @@ class SearchService:
             # ingest.screen, ingest.dispatch, ingest.readback,
             # ingest.store) while a profile capture runs; the screen's,
             # readback's and store's seconds are counters too.
+            from dawnsearch_tpu_torch.serving.fused import (plan_ingest,
+                                                           plans_by_length)
             fi = self._fused_ingest
             with _holding(self._ingest_lock, "ingest.lock.wait"):
                 with span("ingest.screen", pages=len(urls)):
@@ -334,7 +336,11 @@ class SearchService:
                     METRICS.inc("ingest_screen_s", time.perf_counter() - t0)
                 kept = [i for i, ok in enumerate(keep) if ok]
                 ids = [None] * len(pages)
-                maxb = fi.max_batch or max(len(kept), 1)
+                if token_ids is None and kept and plans_by_length(fi):
+                    token_ids = self.tokenize_pages(pages)
+                # sub-batches: chunks of the top batch bucket, or on a
+                # long-context grid by padded tokens
+                plan = plan_ingest(fi, kept, token_ids)
 
                 def finish(sub, emb_dev, base, part):
                     with span("ingest.readback", pages=len(sub),
@@ -358,17 +364,16 @@ class SearchService:
                 from collections import deque
                 pending: deque = deque()  # dispatched, not yet stored
                 try:
-                    for s in range(0, len(kept), maxb):
-                        sub = kept[s: s + maxb]
+                    for part, sub in enumerate(plan):
                         tk = ([token_ids[i] for i in sub]
                               if token_ids is not None else None)
                         with _holding(self._lock, "ingest.lock.wait"), \
                                 span("ingest.dispatch", pages=len(sub),
-                                     part=s // maxb):
+                                     part=part):
                             base = len(self.provider.index)
                             emb_dev = fi.dispatch(
                                 [combined[i] for i in sub], token_ids=tk)
-                        pending.append((sub, emb_dev, base, s // maxb))
+                        pending.append((sub, emb_dev, base, part))
                         if len(pending) > 1:
                             finish(*pending.popleft())
                     while pending:

@@ -120,14 +120,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dawn_tok_new.restype = p
     lib.dawn_tok_new.argtypes = [c, n]
     lib.dawn_tok_encode.restype = n
-    lib.dawn_tok_encode.argtypes = [p, c, n, n, out]
+    lib.dawn_tok_encode.argtypes = [p, c, n, n, out, ctypes.POINTER(n)]
     lib.dawn_tok_free.restype = None
     lib.dawn_tok_free.argtypes = [p]
     # byte-level BPE (bpe.cpp)
     lib.dawn_bpe_new.restype = p
     lib.dawn_bpe_new.argtypes = [c, n, c, n, i32, i32, i32]
     lib.dawn_bpe_encode.restype = n
-    lib.dawn_bpe_encode.argtypes = [p, c, n, n, out]
+    lib.dawn_bpe_encode.argtypes = [p, c, n, n, out, ctypes.POINTER(n)]
     lib.dawn_bpe_free.restype = None
     lib.dawn_bpe_free.argtypes = [p]
     # HTML extraction (extract.cpp)

@@ -1395,3 +1395,142 @@ def test_bf16_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
                                      12).dtype == bf
     assert attention.fused_mean_pool(x, (bias == 0).int()).dtype == \
         torch.float32
+
+
+# -- ModernBERT's long-context kernels (csrc/long/, ops/modernbert.py) -----
+# Each against its plain twin on the same bf16 operands: the GEMM
+# epilogues to the bf16 rounding of the twin's f32 result (per-row cosine
+# >= 0.9999, the twin rounds at the same points, the sums run in another
+# order), the attention to per-row cosine >= 0.999 (the kernel rounds p to
+# bf16 against a running max, the twin keeps p in f32), at S = 128, 1,024
+# and 8,192 with ragged lengths, windowed and global; then the windowed
+# launch's cost against the global one's at B = 32, S = 8,192.
+
+def _mb():
+    from dawnsearch_tpu_torch.ops import modernbert
+    return modernbert
+
+
+def _rowcos(got, want):
+    return torch.nn.functional.cosine_similarity(got.float(), want.float(),
+                                                 dim=-1)
+
+
+@pytest.mark.parametrize("B,S,nh,lens", [
+    (3, 128, 12, (128, 77, 2)), (2, 1024, 4, (1024, 613)),
+    (2, 8192, 2, (8192, 3001))])
+@pytest.mark.parametrize("window", [None, 64])
+def test_long_attention_matches_plain(cuda, B, S, nh, lens, window):
+    mb = _mb()
+    g = torch.Generator(device=cuda).manual_seed(S + (window or 0))
+    qkv = (torch.randn((B * S, 3 * nh * 64), generator=g, device=cuda)
+           * 1.5).to(torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = mb.attention(qkv, lengths, B, S, nh, window)
+    want = mb.attention_plain(qkv, lengths, B, S, nh, window)
+    live = (torch.arange(S, device=cuda)[None] < lengths[:, None].long()
+            ).reshape(-1)
+    assert torch.isfinite(got).all()
+    assert float(_rowcos(got[live], want[live]).min()) >= 0.999
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("M,S", [(3 * 128, 128), (2 * 1024 + 0, 1024)])
+def test_long_gemm_epilogues_match_plain(cuda, M, S):
+    mb = _mb()
+    H, I, nh, bf = 768, 1152, 12, torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(M)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * std
+    a = rnd(M, H).to(bf)
+    cos, sin = mb.rope_tables(8192, 64, 160000.0, cuda)
+    wq = rnd(H, 3 * H, std=0.05).to(bf)
+    got = mb.qkv_rope(a, wq, cos, sin, S, nh)
+    want = mb.qkv_rope_plain(a, wq, cos, sin, S, nh)
+    assert float(_rowcos(got, want).min()) >= 0.9999
+    wi = rnd(H, 2 * I, std=0.05).to(bf)
+    got = mb.geglu(a, mb.interleave_gate(wi))
+    want = mb.geglu_plain(a, wi)
+    assert float(_rowcos(got, want).min()) >= 0.9999
+    resid, s = rnd(M, H), 1.0 + rnd(H, std=0.1)
+    wo = rnd(I, H, std=0.05).to(bf)
+    ctx = rnd(M, I).to(bf)
+    for out in (bf, torch.float32):
+        h, y = mb.resid_ln(ctx, wo, resid, s, 1e-5, out)
+        h2, y2 = mb.resid_ln_plain(ctx, wo, resid, s, 1e-5, out)
+        assert y.dtype == out
+        assert float((h - h2).abs().max()) <= 1e-3
+        assert float(_rowcos(y, y2).min()) >= 0.9999
+    table, ids = rnd(1000, H), torch.randint(0, 1000, (M,), device=cuda)
+    x, a2 = mb.embed_ln(table, ids, s, 1e-5, bf)
+    x2, _ = mb.embed_ln_plain(table, ids, s, 1e-5, bf)
+    assert float((x - x2).abs().max()) <= 1e-4
+    assert torch.equal(a2, x.to(bf))
+
+
+def test_long_kernels_refuse_what_they_do_not_take(cuda):
+    mb = _mb()
+    bf = torch.bfloat16
+    qkv = torch.zeros((2 * 32, 3 * 384), device=cuda, dtype=bf)
+    lens = torch.full((2,), 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="heads of 64"):
+        mb.attention(qkv, lens, 2, 32, 12, None)      # hd 32
+    with pytest.raises(ValueError, match="S % 16"):
+        mb.attention(torch.zeros((2 * 8200, 3 * 768), device=cuda, dtype=bf),
+                     lens, 2, 8200, 12, None)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mb.attention(qkv.float()[:, :3 * 384], lens, 2, 32, 6, None)
+    with pytest.raises(ValueError, match="N % 128"):
+        mb.geglu(torch.zeros((64, 768), device=cuda, dtype=bf),
+                 torch.zeros((768, 200), device=cuda, dtype=bf))
+
+
+def test_long_local_attention_costs_a_fraction_of_global(cuda):
+    """At B = 32, S = 8,192 (nh 12) a windowed launch (window 64) takes
+    under 1/8 of a global one's time: it visits 3 key tiles a query tile
+    where the global one visits 128."""
+    mb = _mb()
+    B, S, nh = 32, 8192, 12
+    qkv = torch.randn((B * S, 3 * nh * 64), device=cuda).to(torch.bfloat16)
+    lens = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    times = {}
+    for window in (64, None, 64, None):
+        mb.attention(qkv, lens, B, S, nh, window)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(3):
+            mb.attention(qkv, lens, B, S, nh, window)
+        t1.record()
+        torch.cuda.synchronize()
+        times[window] = t0.elapsed_time(t1) / 3
+    print(f"long attention B={B} S={S}: local {times[64]:.3f} ms, global "
+          f"{times[None]:.3f} ms")
+    assert times[64] < times[None] / 8
+
+
+def test_modernbert_on_the_card_matches_its_cpu_route(cuda):
+    """Two layers (a global and a local) at ModernBERT-base widths: the
+    kernel route in bf16 against the CPU route (the plain twins) in f32 on
+    the same weights, per-row cosine of the pooled embeddings >= 0.999;
+    every projection and attention on the long kernels."""
+    import dataclasses
+
+    from dawnsearch_tpu_torch.models import modernbert as M
+    cfg = dataclasses.replace(M.MODERNBERT_BASE, num_layers=2,
+                              dtype=torch.bfloat16, pool_impl="fused")
+    params = M.init_params(torch.Generator().manual_seed(3), cfg)
+    params["embeddings"]["word"] *= 25.0
+    B, S = 3, 512
+    ids = torch.randint(0, cfg.vocab_size, (B, S))
+    mask = (torch.arange(S)[None] < torch.tensor([512, 300, 9])[:, None]
+            ).to(torch.int32)
+    mb = _mb()
+    before = dict(mb.launches)
+    card = bert.encode_batch(M.ModernBertModel(cfg, params, device=cuda),
+                             ids.to(cuda), mask.to(cuda)).cpu()
+    assert all(mb.launches[k] > before[k] for k in mb.launches)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32, pool_impl="xla")
+    want = bert.encode_batch(M.ModernBertModel(cpu_cfg, params,
+                                               device="cpu"), ids, mask)
+    assert float(_rowcos(card, want).min()) >= 0.999

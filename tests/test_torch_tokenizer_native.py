@@ -80,6 +80,18 @@ def test_fuzz_matches_reference(port, ref, seed):
             repr(text)
 
 
+@pytest.mark.parametrize("native", [False, True])
+def test_encode_counted_gives_the_cut_ids_and_the_uncut_length(port, vocab,
+                                                               native):
+    tok = port if native else WordPieceTokenizer(vocab)
+    for text in _fuzz(2, 40) + [" ".join(CORPUS + TRICKY) * 6]:
+        whole = len(tok.encode(text))
+        for max_len in (2, 8, 32, 512):
+            ids, n = tok.encode_counted(text, max_len)
+            assert ids == tok.encode(text, max_len=max_len), repr(text)
+            assert n == whole
+
+
 def test_encode_batch_matches_reference(port, ref):
     assert port.encode_batch(CORPUS + TRICKY, seq_len=24) == \
         ref.encode_batch(CORPUS + TRICKY, seq_len=24)

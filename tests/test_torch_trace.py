@@ -365,3 +365,17 @@ def test_worker_stages_reach_metrics_and_the_trace(ingest_run):
     assert ph["ingest.tokenize"] == "X" and ph["ingest.insert.wait"] == "X"
     assert ph["extract.collect.wait"] == "b"
     assert ph["ingest.tokenize.wait"] == "b"
+
+
+def test_add_spans_without_a_span_keeps_the_trace_json(tmp_path):
+    """A capture in which no span closed (a slow CPU node) still writes
+    a trace that parses: no comma before the profiler's own events."""
+    import json as _json
+
+    from dawnsearch_tpu_torch.serving.http_service import add_spans
+    path = tmp_path / "t.json"
+    path.write_text('{"baseTimeNanoseconds": 1000, "traceEvents": '
+                    '[{"ph": "X", "cat": "kernel", "name": "k", "ts": 1, '
+                    '"dur": 2}]}')
+    add_spans(str(path), [], {})
+    assert len(_json.loads(path.read_text())["traceEvents"]) == 1
