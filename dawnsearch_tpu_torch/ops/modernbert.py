@@ -30,10 +30,17 @@ and v as column views of qkv (row stride 3H) and each sequence's real
 length (int32, (B,)): keys at or past a sequence's length are masked,
 key tiles wholly past it are skipped, and query rows at or past it are
 written as zeros (their values reach no real row: every later step is
-row-wise, and their keys are masked). A windowed instance visits only the
+row-wise, and their keys are masked). Softmax runs online in f32 with p
+rounded to bf16 for PV, in one of two kernels chosen by the window (the
+notes are in csrc/long/attention_long.cu). The global one is FLOP bound
+and built for Hopper: a CTA owns 128 query rows of one (sequence, head),
+a producer warp streams 128-key K and V tiles by TMA into a two-stage
+ring, and two consumer warpgroups compute QKᵀ and PV with wgmma (P from
+registers), one's softmax running while the other's products do; the
+rows of the last tile past the length are masked (scores) and zeroed (V),
+so whatever they hold contributes nothing. The windowed one is bytes
+bound and keeps the mma.sync design over 64-key tiles: it visits only the
 key tiles that meet the band, so its cost follows the window, not S.
-Softmax runs online in f32 over 64-key tiles with p rounded to bf16 for
-PV (the kernel's notes are in csrc/long/attention.cu).
 
 Every wrapper launches its kernel for a CUDA tensor and runs its plain
 twin for a CPU tensor; a CUDA input outside a kernel's envelope raises.

@@ -1402,9 +1402,13 @@ def test_bf16_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
 # epilogues to the bf16 rounding of the twin's f32 result (per-row cosine
 # >= 0.9999, the twin rounds at the same points, the sums run in another
 # order), the attention to per-row cosine >= 0.999 (the kernel rounds p to
-# bf16 against a running max, the twin keeps p in f32), at S = 128, 1,024
-# and 8,192 with ragged lengths, windowed and global; then the windowed
-# launch's cost against the global one's at B = 32, S = 8,192.
+# bf16 against a running max, the twin keeps p in f32), windowed and
+# global, at S = 16 to 8,192 (the 1.5x buckets 48, 96, 1,536 and 6,144
+# among them, which a 128-row tile does not divide) with ragged lengths:
+# at the edges of a 64- and a 128-key tile (1, 63-65, 127-129), S - 1 and
+# 0; the global kernel bit-equal whatever the rows past each length hold
+# (zeros or NaN) and from launch to launch; then the windowed launch's
+# cost against the global one's at B = 32, S = 8,192.
 
 def _mb():
     from dawnsearch_tpu_torch.ops import modernbert
@@ -1418,7 +1422,10 @@ def _rowcos(got, want):
 
 @pytest.mark.parametrize("B,S,nh,lens", [
     (3, 128, 12, (128, 77, 2)), (2, 1024, 4, (1024, 613)),
-    (2, 8192, 2, (8192, 3001))])
+    (2, 8192, 2, (8192, 3001)), (3, 16, 12, (16, 1, 0)),
+    (3, 48, 12, (48, 47, 17)), (4, 96, 12, (96, 65, 64, 95)),
+    (9, 1536, 12, (1536, 1, 63, 64, 65, 127, 128, 129, 1535)),
+    (3, 6144, 4, (6144, 0, 6143)), (2, 8192, 12, (8191, 129))])
 @pytest.mark.parametrize("window", [None, 64])
 def test_long_attention_matches_plain(cuda, B, S, nh, lens, window):
     mb = _mb()
@@ -1433,6 +1440,37 @@ def test_long_attention_matches_plain(cuda, B, S, nh, lens, window):
     assert torch.isfinite(got).all()
     assert float(_rowcos(got[live], want[live]).min()) >= 0.999
     assert not got[~live].any()
+
+
+def test_long_global_attention_ignores_rows_past_each_length(cuda):
+    """Whatever the qkv rows at or past a sequence's length hold (zeros or
+    NaN, in q, k and v alike), the output is the same bits, and a second
+    launch on the same input gives them again: masked keys contribute
+    exactly zero, padded query rows are written as zeros, nothing is
+    summed in a varying order. S 96 and 1,536 are not multiples of the
+    128-row tile, so a tile also reads the next sequence's rows."""
+    mb = _mb()
+    for B, S, nh, lens in ((4, 96, 12, (96, 0, 1, 65)),
+                           (4, 1536, 12, (1535, 129, 128, 700)),
+                           (2, 8192, 12, (8191, 4000))):
+        g = torch.Generator(device=cuda).manual_seed(S)
+        qkv = (torch.randn((B * S, 3 * nh * 64), generator=g, device=cuda)
+               * 1.5).to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        past = (torch.arange(S, device=cuda)[None] >= lengths[:, None].long()
+                ).reshape(-1)
+        for window in (None, 64):
+            zero = qkv.clone()
+            zero[past] = 0.0
+            nan = qkv.clone()
+            nan[past] = float("nan")
+            want = mb.attention(zero, lengths, B, S, nh, window)
+            got = mb.attention(nan, lengths, B, S, nh, window)
+            again = mb.attention(nan, lengths, B, S, nh, window)
+            assert torch.isfinite(want).all()
+            assert torch.equal(got, want), (S, window)
+            assert torch.equal(again, got), (S, window)
+            assert not got[past].any()
 
 
 @pytest.mark.parametrize("M,S", [(3 * 128, 128), (2 * 1024 + 0, 1024)])
