@@ -29,7 +29,7 @@ from dawnsearch_tpu_torch.models.tokenizer_bpe_native import \
     NativeByteLevelBPETokenizer
 from dawnsearch_tpu_torch.models.tokenizer_native import \
     NativeWordPieceTokenizer
-from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger
+from dawnsearch_tpu_torch.utils.logging import METRICS, SPANS, service_logger
 
 log = service_logger("Encoder")
 
@@ -62,6 +62,9 @@ class SentenceEncoder:
         family = {"mpnet": MPNetModel, "modernbert": ModernBertModel}.get(
             cfg.model_type, BertModel)
         self.model = family(cfg, params, device=device)
+        # ModernBERT's spans take the rows' real lengths from the host
+        # while a capture runs (forward)
+        self._host_lengths = family is ModernBertModel
         self.tokenizer = tokenizer
         self.cfg = cfg
         self.seq_buckets = sorted(seq_buckets)
@@ -209,13 +212,20 @@ class SentenceEncoder:
 
     def dispatch_chunk(self, ids_list: list[list[int]]) -> torch.Tensor:
         """Pad to buckets and enqueue one forward; -> (bsz, H) on device."""
-        return self._forward(*self.pad_batch(ids_list))
+        return self.forward(*self.pad_batch(ids_list))
 
-    def _forward(self, input_ids: np.ndarray, mask: np.ndarray
-                 ) -> torch.Tensor:
+    def forward(self, input_ids: np.ndarray, mask: np.ndarray
+                ) -> torch.Tensor:
+        """Enqueue one forward of a padded (B, S) batch; -> (B, H) unit
+        vectors on the device, without waiting. While a capture runs, a
+        model whose spans count real tokens (ModernBERT) also gets the
+        rows' lengths from the host."""
+        extra = ({"lengths": mask.sum(axis=1)}
+                 if SPANS.on and self._host_lengths else {})
         return encode_batch(self.model, *self.to_device(input_ids, mask),
                             mask_padding=self.mask_padding,
-                            include_padding=self.include_padding_in_pool)
+                            include_padding=self.include_padding_in_pool,
+                            **extra)
 
     def warmup(self, max_batch: int = 256) -> int:
         """Run one forward on every (seq bucket, batch bucket <= max_batch)
@@ -234,7 +244,7 @@ class SentenceEncoder:
             ids[:, 1] = self.tokenizer.sep_id
             mask = np.zeros((bsz, seq), np.int32)
             mask[:, :2] = 1
-            self._forward(ids, mask)
+            self.forward(ids, mask)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         log.info("encoder warmup complete (%d shapes)", len(shapes))

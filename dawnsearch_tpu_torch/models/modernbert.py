@@ -183,8 +183,6 @@ class ModernBertModel(nn.Module):
     `lengths` the real tokens `real` and the keys they attend to `keys`)
     and its FFN `encoder.ffn` (B, S), while a capture runs."""
 
-    LONG = True  # serving/fused.py hands it the host lengths under a capture
-
     def __init__(self, cfg: BertConfig, params: Params, *, device):
         super().__init__()
         self.cfg = cfg

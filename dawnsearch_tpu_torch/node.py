@@ -301,8 +301,8 @@ class DawnNode:
             from dawnsearch_tpu_torch.net.udp_service import UdpService
             self.udp = UdpService(cfg, self.instance_id)
         self.service = SearchService(
-            self.provider, self.batcher, instance_id=self.instance_id,
-            k=cfg.search_k, remote=self.udp)
+            self.provider, self.batcher, encoder=self.encoder,
+            instance_id=self.instance_id, k=cfg.search_k, remote=self.udp)
         if self.udp is not None:
             self.udp.attach(self.service)
 

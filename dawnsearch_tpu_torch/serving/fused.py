@@ -1,28 +1,46 @@
 """Fused query and ingest paths: text -> embedding -> index, on one stream.
 
-Port of dawnsearch_tpu/serving/fused.py (FusedQueryPath, FusedIngestPath,
-_chunk_by_bucket). The reference fuses each path into one jitted program;
-here each path enqueues its work on the device's current stream without
-waiting: the encoder's K1 launches, then the index search (the K2 or K3
-selector at and above scan_select.MIN_ROWS, the chunked exact search
-below) or the i8 / i4 quantize and in-place row write (bf16 indexes ingest
-through the provider's add, as in the reference). The caller reads the
-result back outside its device lock. ShardedFusedIngestPath is the
-ingest path of a ShardedFlatIndex: one encode on the encoder's device,
-then each shard's rows are copied to its device and written there.
+Port of dawnsearch_tpu/serving/fused.py (FusedQueryPath, FusedIngestPath).
+The reference fuses each path into one jitted program; here each path
+enqueues its work on the device's current stream without waiting: the
+encoder's K1 launches, then the index search (the K2 or K3 selector at
+and above scan_select.MIN_ROWS, the chunked exact search below) or the i8
+/ i4 quantize and in-place row write (bf16 indexes ingest through the
+provider's add, as in the reference). The caller reads the result back
+outside its device lock. ShardedFusedIngestPath is the ingest path of a
+ShardedFlatIndex: one encode on the encoder's device, then each shard's
+rows are copied to its device and written there. Both ingest paths run
+their pages through one pipelined loop (IngestPath.run), in the
+dispatches the encoder plans.
 """
 
 from __future__ import annotations
+
+import threading
+from collections import deque
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 from dawnsearch_tpu_torch.index.flat import (FlatIndex, quantize_rows_i8,
                                              rerank_kernel, search_kernel)
-from dawnsearch_tpu_torch.models.bert import encode_batch
 from dawnsearch_tpu_torch.ops import scan_select
 from dawnsearch_tpu_torch.ops.quant import quantize_i4_vals, write_rows_i4
-from dawnsearch_tpu_torch.utils.logging import METRICS, SPANS, span
+from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger, span
+
+log = service_logger("Search")
+
+
+@contextmanager
+def holding(lock, wait_span: str):
+    """Hold `lock`; the wait for it is span `wait_span`."""
+    with span(wait_span):
+        lock.acquire()
+    try:
+        yield
+    finally:
+        lock.release()
 
 
 def _encode(encoder, input_ids: np.ndarray, mask: np.ndarray,
@@ -30,20 +48,12 @@ def _encode(encoder, input_ids: np.ndarray, mask: np.ndarray,
     """Enqueue one forward of a padded (B, S) batch holding `real` real
     tokens. Counts encoder_tokens_real and encoder_tokens_padded (B × S,
     padding rows included); span encoder.forward (args B, S, real) while
-    a capture runs; a long-context model (ModernBERT) then also gets the
-    rows' real lengths from the host, for its spans' args."""
+    a capture runs."""
     B, S = input_ids.shape
     METRICS.inc_many({"encoder_tokens_real": real,
                       "encoder_tokens_padded": B * S})
-    extra = {}
-    if SPANS.on and getattr(encoder.model, "LONG", False):
-        extra["lengths"] = mask.sum(axis=1)
     with span("encoder.forward", B=B, S=S, real=real):
-        input_ids, mask = encoder.to_device(input_ids, mask)
-        return encode_batch(encoder.model, input_ids, mask,
-                            mask_padding=encoder.mask_padding,
-                            include_padding=encoder.include_padding_in_pool,
-                            **extra)
+        return encoder.forward(input_ids, mask)
 
 
 class FusedQueryPath:
@@ -90,74 +100,100 @@ class FusedQueryPath:
         return emb[:n], d[:n, :k], i[:n, :k]
 
 
-def _chunk_by_bucket(ingest_fn, encoder, texts, token_ids):
-    """Split a batch at the encoder's largest batch bucket and recurse
-    through `ingest_fn` — any caller-chosen ingest batch size is safe
-    regardless of the bucket grid. Returns None when no split needed."""
-    maxb = getattr(encoder, "batch_buckets", [len(texts)])[-1]
-    if len(texts) <= maxb:
-        return None
-    outs = []
-    for s in range(0, len(texts), maxb):
-        tk = token_ids[s:s + maxb] if token_ids is not None else None
-        outs.append(ingest_fn(texts[s:s + maxb], token_ids=tk))
-    return np.concatenate(outs)
+class IngestPath:
+    """What both ingest paths share: the encoder, the index and the
+    pipelined ingest loop (run, and ingest on top of it). A subclass adds
+    supports() and dispatch(ids_list), which enqueues encode + quantize +
+    index write for at most max_batch pages' token ids, advances the
+    index's count and returns the (padded) embeddings on the device
+    without waiting."""
+
+    def __init__(self, encoder, index):
+        self.encoder = encoder
+        self.index = index
+
+    @property
+    def max_batch(self) -> int:
+        """Largest batch dispatch() accepts: the encoder's top batch
+        bucket. The extraction pipeline coalesces idle-time batches up to
+        about this size."""
+        return self.encoder.batch_buckets[-1]
+
+    def run(self, ids, rows: list[int], lock, finish) -> None:
+        """Encode and write the pages `rows` (ids[i] holds page i's token
+        ids) in the dispatches the encoder plans. Each dispatch is
+        enqueued holding `lock` (span ingest.dispatch, args pages and
+        part), with base = len(index) taken before it. Dispatches are
+        pipelined one deep: sub-batch i+1 is enqueued before
+        finish(sub, emb_dev, base, part) reads sub-batch i back, hiding
+        the fixed dispatch cost. If anything fails, every sub-batch
+        already dispatched is still finished before the error propagates:
+        its device rows have landed, so the store must take them too."""
+        plan = self.encoder.plan_dispatches(
+            rows, [len(ids[i]) for i in rows], self.max_batch)
+        pending: deque = deque()  # dispatched, not yet finished
+        try:
+            for part, sub in enumerate(plan):
+                with holding(lock, "ingest.lock.wait"), \
+                        span("ingest.dispatch", pages=len(sub), part=part):
+                    base = len(self.index)
+                    emb_dev = self.dispatch([ids[i] for i in sub])
+                pending.append((sub, emb_dev, base, part))
+                if len(pending) > 1:
+                    finish(*pending.popleft())
+            while pending:
+                finish(*pending.popleft())
+        except BaseException:
+            while pending:
+                try:
+                    finish(*pending.popleft())
+                except Exception:
+                    log.exception(
+                        "in-flight sub-batch store failed during ingest "
+                        "error unwind (store/index may diverge; next "
+                        "insert will reconcile)")
+            raise
+
+    def ingest(self, texts: list[str],
+               token_ids: list[list[int]] | None = None) -> np.ndarray:
+        """Embed + append `texts` to the index through run(); returns (n,
+        H) f32 embeddings in input order (on a long grid the index rows
+        follow the encoder's length-sorted plan). Caller must hold the
+        provider lock."""
+        enc = self.encoder
+        ids = (token_ids if token_ids is not None
+               else enc.tokenize_texts(texts, enc.document_prompt))
+        out = np.zeros((len(texts), enc.dim), np.float32)
+
+        def finish(sub, emb_dev, base, part):
+            with METRICS.timer("fused_ingest"):
+                out[sub] = emb_dev[: len(sub)].cpu().numpy()
+
+        self.run(ids, list(range(len(texts))), threading.Lock(), finish)
+        return out
 
 
-def plans_by_length(path) -> bool:
-    """The ingest path's encoder has a long grid: plan_ingest wants the
-    pages' token ids."""
-    return getattr(path.encoder, "long_grid", False)
-
-
-def plan_ingest(path, rows: list[int], token_ids) -> list[list[int]]:
-    """`rows` (indexes of a batch's pages, whose ids are token_ids[i]) cut
-    into the sub-batches an ingest path's dispatch() takes: chunks of its
-    max_batch in order, or on a long grid by padded tokens
-    (SentenceEncoder.plan_dispatches)."""
-    maxb = path.max_batch or max(len(rows), 1)
-    plan = getattr(path.encoder, "plan_dispatches", None)
-    if plan is None or token_ids is None:
-        return [rows[s:s + maxb] for s in range(0, len(rows), maxb)]
-    return plan(rows, [len(token_ids[i]) for i in rows], maxb)
-
-
-class FusedIngestPath:
+class FusedIngestPath(IngestPath):
     """Batched page ingest against an i8 or i4 FlatIndex: encode ->
     quantize -> write rows in place (and the f16 shadow, when kept). i4
     rows go through the row-block read-modify-write at `count`
     (ops/quant.write_rows_i4)."""
 
-    def __init__(self, encoder, index: FlatIndex):
-        self.encoder = encoder
-        self.index = index
-
     @staticmethod
     def supports(index) -> bool:
         return isinstance(index, FlatIndex) and index.dtype in ("i8", "i4")
 
-    @property
-    def max_batch(self) -> int | None:
-        """Largest batch dispatch() accepts (the encoder's top batch
-        bucket); None = unbounded. Serving loops sub-batch at this size
-        so searches can interleave between ingest dispatches."""
-        buckets = getattr(self.encoder, "batch_buckets", None)
-        return buckets[-1] if buckets else None
-
-    def dispatch(self, texts: list[str],
-                 token_ids: list[list[int]] | None = None) -> torch.Tensor:
+    def dispatch(self, ids_list: list[list[int]]) -> torch.Tensor:
         """Enqueue encode + quantize + index write for one bucket-sized
-        batch (len(texts) <= max_batch); bumps count and returns the
+        batch (len(ids_list) <= max_batch); bumps count and returns the
         (padded) embeddings on the device without waiting. Caller holds
         the device-state lock for this call and reads the result back
         outside it. Rows past n in the padded batch are written too: they
         sit past `count`, are masked out of every search, and the next
         insert overwrites them."""
         enc = self.encoder
-        ids_list = (token_ids if token_ids is not None
-                    else enc.tokenize_texts(texts, enc.document_prompt))
         ix = self.index
-        n = len(texts)
+        n = len(ids_list)
         input_ids, mask, real = enc.pad_counted(ids_list)
         bsz = input_ids.shape[0]
         if ix.max_capacity is not None:
@@ -187,30 +223,14 @@ class FusedIngestPath:
         ix.count += n
         return emb
 
-    def ingest(self, texts: list[str],
-               token_ids: list[list[int]] | None = None) -> np.ndarray:
-        """Embed + append `texts` to the index; returns (n, H) f32
-        embeddings for durable storage. Caller must hold the provider
-        lock."""
-        chunked = _chunk_by_bucket(self.ingest, self.encoder, texts, token_ids)
-        if chunked is not None:
-            return chunked
-        with METRICS.timer("fused_ingest"):
-            emb = self.dispatch(texts, token_ids=token_ids).cpu().numpy()
-        return emb[: len(texts)]
 
-
-class ShardedFusedIngestPath:
+class ShardedFusedIngestPath(IngestPath):
     """Batched page ingest against an i8 or i4 ShardedFlatIndex (reference
     serving/fused.py::ShardedFusedIngestPath): encode once on the
     encoder's device (K1), quantize there (i8 codes, or i4 nibble values
     and scales), then copy each shard's rows, as the index's stripe plan
     assigns them, to the shard's device and write them in place at the
     shard's fill. A shard that receives no rows is not written."""
-
-    def __init__(self, encoder, index):
-        self.encoder = encoder
-        self.index = index
 
     @staticmethod
     def supports(index) -> bool:
@@ -219,25 +239,16 @@ class ShardedFusedIngestPath:
         return (isinstance(index, ShardedFlatIndex)
                 and index.dtype in ("i8", "i4"))
 
-    @property
-    def max_batch(self) -> int | None:
-        buckets = getattr(self.encoder, "batch_buckets", None)
-        return buckets[-1] if buckets else None
-
-    def dispatch(self, texts: list[str],
-                 token_ids: list[list[int]] | None = None) -> torch.Tensor:
+    def dispatch(self, ids_list: list[list[int]]) -> torch.Tensor:
         """Enqueue encode + quantize + every shard's write for one
         bucket-sized batch; advances the counts and returns the (padded)
         embeddings on the encoder's device without waiting (the
         FusedIngestPath.dispatch contract)."""
         enc = self.encoder
         ix = self.index
-        n = len(texts)
-        ids_list = (token_ids if token_ids is not None
-                    else enc.tokenize_texts(texts, enc.document_prompt))
         # grows shards as needed; at max_capacity it re-plans within each
         # shard's room and raises only when the rows fit nowhere
-        per_shard, uids = ix.plan_insert(n)
+        per_shard, uids = ix.plan_insert(len(ids_list))
         with METRICS.timer("fused_ingest_dispatch"):
             emb = _encode(enc, *enc.pad_counted(ids_list))
             if ix.dtype == "i4":
@@ -253,15 +264,3 @@ class ShardedFusedIngestPath:
                         torch.from_numpy(uids[per_shard[g]].astype(np.int32)))
             ix.write_planned([len(p) for p in per_shard], uids, take)
         return emb
-
-    def ingest(self, texts: list[str],
-               token_ids: list[list[int]] | None = None) -> np.ndarray:
-        """Embed + stripe-append `texts` across the shards; returns (n, H)
-        f32 embeddings for durable storage. Caller must hold the provider
-        lock."""
-        chunked = _chunk_by_bucket(self.ingest, self.encoder, texts, token_ids)
-        if chunked is not None:
-            return chunked
-        with METRICS.timer("fused_ingest"):
-            emb = self.dispatch(texts, token_ids=token_ids).cpu().numpy()
-        return emb[: len(texts)]

@@ -31,27 +31,17 @@ from __future__ import annotations
 
 import threading
 import time
-from contextlib import contextmanager
 from typing import Protocol, Sequence
 
 import numpy as np
 
 from dawnsearch_tpu_torch.index.provider import FoundPage, SearchProvider, SearchResult
 from dawnsearch_tpu_torch.ops.topk import BestResults
-from dawnsearch_tpu_torch.utils.logging import METRICS, service_logger, span
-
-log = service_logger("Search")
-
-
-@contextmanager
-def _holding(lock, wait_span: str):
-    """Hold `lock`; the wait for it is span `wait_span`."""
-    with span(wait_span):
-        lock.acquire()
-    try:
-        yield
-    finally:
-        lock.release()
+from dawnsearch_tpu_torch.serving.fused import (FusedIngestPath,
+                                                FusedQueryPath,
+                                                ShardedFusedIngestPath,
+                                                holding)
+from dawnsearch_tpu_torch.utils.logging import METRICS, span
 
 
 class RemoteBackend(Protocol):
@@ -79,6 +69,7 @@ class SearchService:
         self,
         provider: SearchProvider,
         batcher,  # EmbeddingBatcher (duck-typed for tests)
+        encoder=None,  # SentenceEncoder behind the fused paths
         instance_id: str = "",
         k: int = 20,
         remote: RemoteBackend | None = None,
@@ -130,10 +121,6 @@ class SearchService:
         self._fused = None
         self._text_batcher = None
         self._warm_buckets: set = set()  # (k, fused) buckets seen once
-        encoder = getattr(batcher, "_encode", None)
-        encoder = getattr(encoder, "__self__", None)  # bound .encode
-        from dawnsearch_tpu_torch.serving.fused import (
-            FusedIngestPath, FusedQueryPath, ShardedFusedIngestPath)
         self._fused_ingest = None
         if encoder is not None and hasattr(encoder, "tokenize_texts"):
             if FusedQueryPath.supports(provider.index):
@@ -184,7 +171,7 @@ class SearchService:
             # Lock only around dispatch; the execution wait (readback),
             # store-side re-rank and metadata join run outside it so an
             # in-flight ingest batch can enqueue between queries.
-            with _holding(self._lock, "query.lock.wait"), \
+            with holding(self._lock, "query.lock.wait"), \
                     span("query.dispatch", queries=len(texts)):
                 emb_d, d_d, i_d, k_eff = self._fused.dispatch(
                     texts, k_fetch)
@@ -300,47 +287,33 @@ class SearchService:
         `token_ids` (from tokenize_pages) skips in-lock tokenization."""
         if not pages:
             return []
-        combined = self._combined(pages)
         urls = [p[0] for p in pages]
         titles = [p[1] for p in pages]
         texts = [p[2] for p in pages]
         if self._fused_ingest is not None:
-            # One device program per sub-batch: encode -> quantize ->
-            # index write. The device-state lock is held only while each
-            # program is ENQUEUED; the execution wait (embedding
-            # readback) and the SQLite batch write happen outside it, so
-            # concurrent queries dispatch between sub-batches instead of
-            # stacking up behind a whole batch's device execution.
-            # Sub-batches are SOFTWARE-PIPELINED one deep: batch i+1's
-            # work is enqueued BEFORE batch i's readback blocks, hiding
-            # the fixed dispatch cost (store_pages gets the device-row
-            # base captured at dispatch time since len(index) has
-            # already advanced past it). Consistency
-            # note: index rows land before their store rows commit (now
-            # up to TWO sub-batches ahead); results_from_ids drops ids
-            # the store can't join yet, so a query racing an insert
-            # simply doesn't see the newest sub-batches (the reference's
-            # actor mailbox has the same insert-then-search ordering,
-            # dawnsearch.rs:64-78).
-            # Each step is a span on this thread (ingest.lock.wait,
-            # ingest.screen, ingest.dispatch, ingest.readback,
-            # ingest.store) while a profile capture runs; the screen's,
-            # readback's and store's seconds are counters too.
-            from dawnsearch_tpu_torch.serving.fused import (plan_ingest,
-                                                           plans_by_length)
-            fi = self._fused_ingest
-            with _holding(self._ingest_lock, "ingest.lock.wait"):
+            # The ingest loop (IngestPath.run) holds the device-state lock
+            # only while each sub-batch is enqueued; finish reads it back
+            # and stores it outside that lock, so concurrent queries
+            # dispatch between sub-batches. store_pages gets the device-row
+            # base taken at dispatch: the pipelined loop has already
+            # moved len(index) past it. Index rows land before their store
+            # rows commit (up to two sub-batches ahead); results_from_ids
+            # drops ids the store can't join yet, so a query racing an
+            # insert simply doesn't see the newest sub-batches (the
+            # reference's actor mailbox has the same insert-then-search
+            # ordering, dawnsearch.rs:64-78). The screen's, readback's and
+            # store's seconds are counters, and each step is a span while a
+            # profile capture runs.
+            with holding(self._ingest_lock, "ingest.lock.wait"):
                 with span("ingest.screen", pages=len(urls)):
                     t0 = time.perf_counter()
                     keep = self.provider.screen(urls)
                     METRICS.inc("ingest_screen_s", time.perf_counter() - t0)
                 kept = [i for i, ok in enumerate(keep) if ok]
                 ids = [None] * len(pages)
-                if token_ids is None and kept and plans_by_length(fi):
-                    token_ids = self.tokenize_pages(pages)
-                # sub-batches: chunks of the top batch bucket, or on a
-                # long-context grid by padded tokens
-                plan = plan_ingest(fi, kept, token_ids)
+                if token_ids is None and kept:  # the kept pages' ids
+                    token_ids = dict(zip(kept, self.tokenize_pages(
+                        [pages[i] for i in kept])))
 
                 def finish(sub, emb_dev, base, part):
                     with span("ingest.readback", pages=len(sub),
@@ -361,40 +334,9 @@ class SearchService:
                     for i, sid in zip(sub, stored):
                         ids[i] = sid
 
-                from collections import deque
-                pending: deque = deque()  # dispatched, not yet stored
-                try:
-                    for part, sub in enumerate(plan):
-                        tk = ([token_ids[i] for i in sub]
-                              if token_ids is not None else None)
-                        with _holding(self._lock, "ingest.lock.wait"), \
-                                span("ingest.dispatch", pages=len(sub),
-                                     part=part):
-                            base = len(self.provider.index)
-                            emb_dev = fi.dispatch(
-                                [combined[i] for i in sub], token_ids=tk)
-                        pending.append((sub, emb_dev, base, part))
-                        if len(pending) > 1:
-                            finish(*pending.popleft())
-                    while pending:
-                        finish(*pending.popleft())
-                except BaseException:
-                    # a failure mid-pipeline must not strand dispatched
-                    # batches: their device rows HAVE landed, so store
-                    # them — otherwise store and index silently diverge
-                    # and the next insert pays a full rebuild-from-store
-                    while pending:
-                        batch = pending.popleft()
-                        try:
-                            finish(*batch)
-                        except Exception:
-                            log.exception(
-                                "in-flight sub-batch store failed during"
-                                " ingest error unwind (store/index may"
-                                " diverge; next insert will reconcile)")
-                    raise
+                self._fused_ingest.run(token_ids, kept, self._lock, finish)
         else:
-            embs = self.batcher.embed_many(combined)
+            embs = self.batcher.embed_many(self._combined(pages))
             # LOCK ORDER: ingest gate strictly OUTSIDE the device lock,
             # everywhere (provider.insert_pages takes gate->device
             # itself; save() takes gate->device) — taking the device

@@ -16,8 +16,10 @@ lengths.
 - the weights loader with and without HF's `model.` prefix, from F32 and
   BF16 files; the configs it refuses;
 - the encoder's dispatch plan (a 512-token grid exactly as before, a long
-  one sorted and cut by padded tokens), the truncation counters, the
-  prompts, and a node serving a ModernBERT model_dir over HTTP.
+  one sorted and cut by padded tokens), which the fused ingest path
+  dispatches as planned, its attention spans' real tokens and keys from
+  the host lengths, the truncation counters, the prompts, and a node
+  serving a ModernBERT model_dir over HTTP.
 """
 
 import dataclasses
@@ -289,6 +291,70 @@ def test_dispatch_plan_long_grid_sorts_and_keeps_the_budget():
         S = enc._bucket(enc.seq_buckets, max(lengths[r] for r in p))
         assert enc._bucket(enc.batch_buckets, len(p)) * S <= TOKEN_BUDGET
     assert any(len(p) == 64 for p in plan)  # 64 pages at S 8,192
+
+
+def test_fused_ingest_dispatches_the_encoders_plan(monkeypatch):
+    """FusedIngestPath.ingest on a long grid dispatches exactly the
+    encoder's plan (TOKEN_BUDGET lowered so that it cuts many times, as
+    the top batch bucket alone never would) and returns the embeddings in
+    input order."""
+    from dawnsearch_tpu_torch.index.flat import FlatIndex
+    from dawnsearch_tpu_torch.models import encoder as E
+    from dawnsearch_tpu_torch.serving.fused import FusedIngestPath
+    monkeypatch.setattr(E, "TOKEN_BUDGET", 256)
+    enc = _encoder((16, 32, 64, 1024))
+    rng = np.random.default_rng(2)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 999, n))
+             for n in rng.integers(1, 60, 24)]
+    ids = enc.tokenize_texts(texts)
+    plan = enc.plan_dispatches(list(range(len(texts))),
+                               [len(i) for i in ids], enc.batch_buckets[-1])
+    assert len(plan) > 2
+    path = FusedIngestPath(enc, FlatIndex(dim=enc.dim, device="cpu"))
+    seen = []
+    dispatch = path.dispatch
+
+    def spy(ids_list):
+        seen.append(ids_list)
+        return dispatch(ids_list)
+    monkeypatch.setattr(path, "dispatch", spy)
+    emb = path.ingest(texts)
+    assert seen == [[ids[r] for r in sub] for sub in plan]
+    assert path.index.count == len(texts)
+    np.testing.assert_allclose(emb, enc.encode_documents(texts), atol=1e-5)
+
+
+def test_fused_ingest_spans_carry_the_host_lengths():
+    """A ModernBERT encoder through the fused ingest path while spans are
+    recorded: each layer's encoder.attn span carries `real` and `keys`
+    summed from the batch's host lengths (ops.modernbert.band_keys)."""
+    from dawnsearch_tpu_torch.index.flat import FlatIndex
+    from dawnsearch_tpu_torch.serving.fused import FusedIngestPath
+    from dawnsearch_tpu_torch.utils.logging import SPANS
+    enc = _encoder((16, 32, 64, 1024))
+    texts = [" ".join(["w"] * n) for n in (40, 17, 3, 9, 25, 1, 60, 12)]
+    lengths = [len(i) for i in enc.tokenize_texts(texts)]
+    path = FusedIngestPath(enc, FlatIndex(dim=enc.dim, device="cpu"))
+    SPANS.start()
+    try:
+        path.ingest(texts)
+    finally:
+        SPANS.stop()
+        events, _ = SPANS.take()
+    args = {}
+    for name, *_, a, _ph in events:
+        args.setdefault(name, []).append(a)
+    # eight pages: one dispatch at batch bucket 8, no padding rows
+    assert args["encoder.forward"] == [{"B": 8, "S": 64,
+                                        "real": sum(lengths)}]
+    attn = args["encoder.attn"]
+    assert [a["kind"] for a in attn] == [
+        "global" if enc.model.is_global(i) else "local"
+        for i in range(HF["num_hidden_layers"])]
+    for a in attn:
+        window = None if a["kind"] == "global" else a["window"]
+        assert a["real"] == sum(lengths)
+        assert a["keys"] == sum(mb.band_keys(n, window) for n in lengths)
 
 
 def test_truncation_counters_and_prompts():

@@ -5,7 +5,9 @@ Both services run on in-memory providers with the same bridged weights,
 the same vocab and the same 64 inserted pages; text queries must return
 the same page ids in the same order, below and above the fused-selector
 gate. The fused ingest into an i4 index writes the reference's bytes, and
-the fused query over i4 and bf16 indexes returns the reference's ids. The model is narrow (H=128, 4 heads of 32, I=256, 2 layers) but
+the fused query over i4 and bf16 indexes returns the reference's ids. A
+dispatch that fails mid-insert leaves as many rows stored as indexed. The
+model is narrow (H=128, 4 heads of 32, I=256, 2 layers) but
 inside the reference's whole-layer kernel envelope (H % 128 == 0,
 128 % head_dim == 0), so the reference serves through its K1 kernel in
 interpret mode, not its per-op fallback.
@@ -128,7 +130,7 @@ def test_text_search_matches_reference(tree, vocab, ref_encoder, fused_gate,
         data_dir=None, dim=H, verify_on_load=False, device="cpu",
         index_factory=_factory(
             lambda **kw: FlatIndex(dim=H, device="cpu", **kw), exact)),
-        port_b, instance_id="port")
+        port_b, encoder=enc, instance_id="port")
     try:
         assert isinstance(port.provider.index, FlatIndex)
         assert port._fused is not None and port._fused_ingest is not None
@@ -347,6 +349,47 @@ def test_node_serves_each_index_tier(tree, vocab, tmp_path, dtype):
         assert len(node.provider.index) == 12
     finally:
         node.stop()
+
+
+def test_insert_pages_stores_what_was_dispatched_when_a_dispatch_fails(
+        tree, vocab, monkeypatch):
+    """A top batch bucket of 8 cuts 20 pages into three dispatches, and
+    the second raises. The first sub-batch's device rows have landed, so
+    it is still stored: the store holds as many rows as the index, the
+    error reaches the caller, and the next insert takes the rest."""
+    enc = SentenceEncoder(params_from_numpy(tree), WordPieceTokenizer(vocab),
+                          cfg=BertConfig(**SHAPE), device="cpu",
+                          seq_buckets=(16, 32), batch_buckets=(1, 8))
+    svc = SearchService(SearchProvider(
+        data_dir=None, dim=H, verify_on_load=False, device="cpu",
+        index_factory=lambda: FlatIndex(dim=H, device="cpu")),
+        EmbeddingBatcher(enc.encode, max_batch=8), encoder=enc,
+        instance_id="port")
+    try:
+        fi = svc._fused_ingest
+        dispatch, calls = fi.dispatch, []
+
+        def flaky(ids_list):
+            calls.append(len(ids_list))
+            if len(calls) == 2:
+                raise RuntimeError("device fault")
+            return dispatch(ids_list)
+        monkeypatch.setattr(fi, "dispatch", flaky)
+        pages = [(f"https://u/{i}", f"T{i}", t)
+                 for i, t in enumerate(PAGES[:20])]
+        with pytest.raises(RuntimeError, match="device fault"):
+            svc.insert_pages(pages)
+        prov = svc.provider
+        assert calls == [8, 8]
+        assert len(prov.store) == len(prov.index) == 8
+        assert [prov.store.get(i)[0].url for i in (1, 8)] == \
+            ["https://u/0", "https://u/7"]
+        assert svc.insert_pages(pages) == [None] * 8 + list(range(9, 21))
+        assert len(prov.store) == len(prov.index) == 20
+        got = svc.text_search(PAGES[13], search_remote=False)
+        assert got.pages[0].url == "https://u/13"
+    finally:
+        svc.shutdown()
 
 
 def test_fused_ingest_i4_writes_the_references_bytes(tree, vocab, ref_encoder):

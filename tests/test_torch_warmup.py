@@ -54,12 +54,12 @@ def test_warmup_runs_the_references_shapes(buckets):
     reference's warmup: len(seq_buckets) x #(batch buckets <= 256)."""
     port = _encoder(**buckets)
     seen = []
-    forward = port._forward
+    forward = port.forward
 
     def record(ids, mask):
         seen.append((ids.copy(), mask.copy()))
         return forward(ids, mask)
-    port._forward = record
+    port.forward = record
     n = port.warmup()
 
     ref = RefEncoder({}, RefTokenizer(VOCAB), **buckets)
