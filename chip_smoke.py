@@ -18,8 +18,10 @@ Phases, each printing one progress line; any failure exits non-zero:
             English filter) and, apart, the WARC parser (native/warc.cpp,
             -lz; a failure there is printed and leaves ingest the Python
             reader), and nvcc builds csrc/*.cu (one nvcc per source, in
-            parallel), all into dawnsearch_tpu_torch/_build/; prints each
-            build's time and ptxas' registers
+            parallel) and csrc/long/*.cu (ModernBERT's library), all into
+            dawnsearch_tpu_torch/_build/; prints each build's time, ptxas'
+            registers and every ptxas warning of each library by entry
+            (C7518, wgmma serialised, among them)
   k1        whole-layer kernel vs bert_layer_plain, bf16, ragged masks: at
             MiniLM width (H=384, hd 32) at (B, S) = (64, 128), (8, 512) and
             (64, 16: short queries), at BERT-base width (H=768, hd 64,
@@ -581,22 +583,51 @@ def phase_build() -> None:
         say(f"phase build: {os.path.relpath(path, HERE)} ready in "
             f"{time.perf_counter() - t0:.1f} s "
             f"({'g++ ' + format(built, '.1f') + ' s' if built else 'cached'})")
-    t0 = time.perf_counter()
-    path = _cuda.build()
-    _cuda.lib()
-    built = _cuda.BUILD_SECONDS
-    say(f"phase build: {os.path.relpath(path, HERE)} ready in "
-        f"{time.perf_counter() - t0:.1f} s "
-        f"({'nvcc ' + format(built, '.1f') + ' s' if built else 'cached'})")
-    # ptxas -v: "Compiling entry function '<mangled>' ..." then "Used N
-    # registers, ..." for each kernel
-    entry = None
-    for line in _cuda.ptxas_report().splitlines():
+    for sub, load in (("", _cuda.lib), (_cuda.LONG, _cuda.long_lib)):
+        t0 = time.perf_counter()
+        path = _cuda.build(sub)
+        load()
+        built = _cuda.BUILD_SECONDS  # the main library's build only
+        say(f"phase build: {os.path.relpath(path, HERE)} ready in "
+            f"{time.perf_counter() - t0:.1f} s" + ("" if sub else (
+                f" (nvcc {built:.1f} s)" if built else " (cached)")))
+        report = _cuda.ptxas_report(sub)
+        for entry, line in ptxas_registers(report):
+            say(f"phase build: ptxas {entry}: {line}")
+        warnings = ptxas_warnings(report)
+        say(f"phase build: {os.path.basename(path)}: {len(warnings)} ptxas "
+            f"warning(s), {sum('C7518' in w for _, w in warnings)} C7518")
+        for entry, line in warnings:
+            say(f"phase build: ptxas warning {entry or '(no entry)'}: {line}")
+
+
+def ptxas_registers(report: str) -> list[tuple[str, str]]:
+    """(entry, "Used N registers, ...") for each kernel of a ptxas -v
+    report: "Compiling entry function '<mangled>'" is followed by its
+    "Used ..." line."""
+    out, entry = [], None
+    for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "Used" in line and "registers" in line and entry:
-            say(f"phase build: ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+            out.append((entry, line.split(":", 1)[-1].strip()))
             entry = None
+    return out
+
+
+def ptxas_warnings(report: str) -> list[tuple[str, str]]:
+    """(entry, text) for each ptxas warning of a -v report: the entry is
+    the mangled name the warning quotes, else the entry ptxas was
+    compiling when it printed it ("" before any)."""
+    out, entry = [], ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif line.lstrip().startswith("ptxas") and "warning" in line:
+            quoted = [q for q in line.split("'")[1::2] if q.startswith("_Z")]
+            out.append((quoted[0] if quoted else entry,
+                        line.split("warning", 1)[1].lstrip(" :").strip()))
+    return out
 
 
 def bound(ops: float, kind: str, nbytes: float) -> dict:

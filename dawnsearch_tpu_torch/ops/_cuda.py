@@ -135,10 +135,10 @@ def build(subdir: str = "") -> str:
     return path
 
 
-def ptxas_report() -> str:
-    """ptxas' -v output of the build of the current sources ("" if this
-    checkout has not built them)."""
-    report = library_path() + ".ptxas.txt"
+def ptxas_report(subdir: str = "") -> str:
+    """ptxas' -v output of the build of the current sources of
+    csrc/<subdir> ("" if this checkout has not built them)."""
+    report = library_path(subdir) + ".ptxas.txt"
     if not os.path.exists(report):
         return ""
     with open(report) as f:

@@ -1407,8 +1407,11 @@ def test_bf16_on_cuda_never_reaches_the_plain_twin(cuda, monkeypatch):
 # among them, which a 128-row tile does not divide) with ragged lengths:
 # at the edges of a 64- and a 128-key tile (1, 63-65, 127-129), S - 1 and
 # 0; the global kernel bit-equal whatever the rows past each length hold
-# (zeros or NaN) and from launch to launch; then the windowed launch's
-# cost against the global one's at B = 32, S = 8,192.
+# (zeros or NaN) and from launch to launch; the GEMMs on every tile path
+# of their persistent schedule (64- and 128-row tiles, ragged last tiles,
+# tile counts no multiple of the grid) and bit-equal from launch to
+# launch; then the windowed launch's cost against the global one's at B =
+# 32, S = 8,192.
 
 def _mb():
     from dawnsearch_tpu_torch.ops import modernbert
@@ -1473,38 +1476,77 @@ def test_long_global_attention_ignores_rows_past_each_length(cuda):
             assert not got[past].any()
 
 
-@pytest.mark.parametrize("M,S", [(3 * 128, 128), (2 * 1024 + 0, 1024)])
-def test_long_gemm_epilogues_match_plain(cuda, M, S):
-    mb = _mb()
-    H, I, nh, bf = 768, 1152, 12, torch.bfloat16
+# (M, S): 64-row tiles (3·128 and 400 rows: too few 128-row tiles to
+# fill the card, 400 a ragged last tile), 128-row tiles (2,048), a ragged
+# last 128-row tile (131·128 + 16), and 300 row blocks, whose tiles (2,700
+# of 128 x 256, 5,400 of 128 x 128) and LayerNorm clusters are no multiple
+# of the persistent grid
+LONG_GEMM_SHAPES = [(3 * 128, 128), (2 * 1024 + 0, 1024), (400, 16),
+                    (131 * 128 + 16, 16), (300 * 128, 128)]
+
+
+def _long_gemm_operands(cuda, M):
     g = torch.Generator(device=cuda).manual_seed(M)
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=cuda) * std
-    a = rnd(M, H).to(bf)
+    H, I, bf = 768, 1152, torch.bfloat16
+    return {"a": rnd(M, H).to(bf), "wq": rnd(H, 3 * H, std=0.05).to(bf),
+            "wi": rnd(H, 2 * I, std=0.05).to(bf),
+            "wo": rnd(H, H, std=0.05).to(bf),
+            "wo2": rnd(I, H, std=0.05).to(bf), "ctx": rnd(M, I).to(bf),
+            "resid": rnd(M, H), "s": 1.0 + rnd(H, std=0.1),
+            "table": rnd(1000, H)}
+
+
+@pytest.mark.parametrize("M,S", LONG_GEMM_SHAPES)
+def test_long_gemm_epilogues_match_plain(cuda, M, S):
+    mb = _mb()
+    nh, bf = 12, torch.bfloat16
+    o = _long_gemm_operands(cuda, M)
+    a = o["a"]
     cos, sin = mb.rope_tables(8192, 64, 160000.0, cuda)
-    wq = rnd(H, 3 * H, std=0.05).to(bf)
-    got = mb.qkv_rope(a, wq, cos, sin, S, nh)
-    want = mb.qkv_rope_plain(a, wq, cos, sin, S, nh)
+    got = mb.qkv_rope(a, o["wq"], cos, sin, S, nh)
+    want = mb.qkv_rope_plain(a, o["wq"], cos, sin, S, nh)
     assert float(_rowcos(got, want).min()) >= 0.9999
-    wi = rnd(H, 2 * I, std=0.05).to(bf)
-    got = mb.geglu(a, mb.interleave_gate(wi))
-    want = mb.geglu_plain(a, wi)
+    got = mb.geglu(a, mb.interleave_gate(o["wi"]))
+    want = mb.geglu_plain(a, o["wi"])
     assert float(_rowcos(got, want).min()) >= 0.9999
-    resid, s = rnd(M, H), 1.0 + rnd(H, std=0.1)
-    wo = rnd(I, H, std=0.05).to(bf)
-    ctx = rnd(M, I).to(bf)
-    for out in (bf, torch.float32):
-        h, y = mb.resid_ln(ctx, wo, resid, s, 1e-5, out)
-        h2, y2 = mb.resid_ln_plain(ctx, wo, resid, s, 1e-5, out)
-        assert y.dtype == out
-        assert float((h - h2).abs().max()) <= 1e-3
-        assert float(_rowcos(y, y2).min()) >= 0.9999
-    table, ids = rnd(1000, H), torch.randint(0, 1000, (M,), device=cuda)
-    x, a2 = mb.embed_ln(table, ids, s, 1e-5, bf)
-    x2, _ = mb.embed_ln_plain(table, ids, s, 1e-5, bf)
+    resid, s = o["resid"], o["s"]
+    for x, w in ((a, o["wo"]), (o["ctx"], o["wo2"])):  # K = 768, 1,152
+        for out in (bf, torch.float32):
+            h, y = mb.resid_ln(x, w, resid, s, 1e-5, out)
+            h2, y2 = mb.resid_ln_plain(x, w, resid, s, 1e-5, out)
+            assert y.dtype == out
+            assert float((h - h2).abs().max()) <= 1e-3
+            assert float(_rowcos(y, y2).min()) >= 0.9999
+    ids = torch.randint(0, 1000, (M,), device=cuda)
+    x, a2 = mb.embed_ln(o["table"], ids, s, 1e-5, bf)
+    x2, _ = mb.embed_ln_plain(o["table"], ids, s, 1e-5, bf)
     assert float((x - x2).abs().max()) <= 1e-4
     assert torch.equal(a2, x.to(bf))
+
+
+@pytest.mark.parametrize("M,S", [(400, 16), (300 * 128, 128)])
+def test_long_gemm_launches_give_the_same_bits(cuda, M, S):
+    """Two launches of each epilogue on the same inputs give the same bits:
+    every output is written once, by one CTA, from sums in a fixed order
+    (the LayerNorm's partials in cluster-rank order), whichever CTA of the
+    persistent grid takes the tile."""
+    mb = _mb()
+    o = _long_gemm_operands(cuda, M)
+    cos, sin = mb.rope_tables(8192, 64, 160000.0, cuda)
+    wi = mb.interleave_gate(o["wi"])
+    calls = {
+        "rope": lambda: (mb.qkv_rope(o["a"], o["wq"], cos, sin, S, 12),),
+        "geglu": lambda: (mb.geglu(o["a"], wi),),
+        "ln bf16": lambda: mb.resid_ln(o["ctx"], o["wo2"], o["resid"], o["s"],
+                                       1e-5, torch.bfloat16),
+        "ln f32": lambda: mb.resid_ln(o["a"], o["wo"], o["resid"], o["s"],
+                                      1e-5, torch.float32)}
+    for name, call in calls.items():
+        first, again = call(), call()
+        assert all(torch.equal(u, v) for u, v in zip(first, again)), name
 
 
 def test_long_kernels_refuse_what_they_do_not_take(cuda):
