@@ -109,6 +109,25 @@ Phases, each printing one progress line; any failure exits non-zero:
             encoder counter 0, and four pages (one past 8,192 tokens) must
             lie within 1 − cos 2.5e-4 of reference/modernbert_plain.py in
             f32 on the same ids
+  qwen3     Qwen3's kernels (ops/qwen3.py, csrc/long/qwen3.cu and
+            gemm_long.cu's EPI_QKN, EPI_SWIGLU and EPI_RMS) at
+            Qwen/Qwen3-Embedding-8B's widths (H 4,096, 32 query heads over 8
+            key/value heads of 128, I 12,288) on one dispatch of the node's
+            plan, 65,536 padded tokens: (B, S) = (8, 8,192) and (64, 1,024).
+            The QKV + per-head RMSNorm + RoPE, SwiGLU and residual + RMS
+            parts epilogues (K 4,096 and 12,288), the embedding gather and
+            the last-token pool against their plain twins on all rows; the
+            causal GQA attention with ragged lengths against the twin on
+            two sequences; each timed at full lengths beside torch.mm,
+            scaled_dot_product_attention (is_causal, enable_gqa) or
+            F.embedding, with its bound. Then the main path: 36 seeded
+            layers through SentenceEncoder on 96 pages of the cell's
+            length law, every encoder counter set to 0 just before; the
+            kernel_qwen3_* counts must be the plan's dispatches times each
+            layer's launches, every other encoder counter 0, no other GEMM
+            or attention kernel in the profile, and three pages must lie
+            within the cell's emb_gap limit of reference/qwen3_plain.py in
+            f32 on the same ids
   recall    FlatIndex i8 at 1,048,576 seeded unit rows, 1024 queries,
             recall@10 raw and after the f32 re-rank of k+30 candidates
   recall_i4 FlatIndex i4 at 2,097,152 rows built through host-packed adds
@@ -254,10 +273,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
-          "pool", "modernbert", "recall", "recall_i4", "i4_scale", "profile",
+          "pool", "modernbert", "qwen3", "recall", "recall_i4", "i4_scale",
+          "profile",
           "ops", "sharded", "node", "swarm", "crew")
 KERNEL_PHASES = {"build", "k1", "k4", "k2", "k3", "k2bf16", "attn", "ffn",
-                 "pool", "modernbert"}
+                 "pool", "modernbert", "qwen3"}
 # layer widths (H, nh, I): all-MiniLM-L6-v2, BERT-base, BERT-large
 MINILM_W, BASE_W, LARGE_W = (384, 12, 1536), (768, 12, 3072), (1024, 16, 4096)
 # (width, B, S); the first is the entry's headline shape
@@ -372,6 +392,14 @@ LONG_GEMM_COS_MIN, LONG_ATTN_COS_MIN, LONG_EMB_GAP = 0.9999, 0.999, 2.5e-4
 LONG_TOKENS = 524_288  # the encoder's TOKEN_BUDGET: one dispatch's tokens
 LONG_SHAPES = ((512, 1024), (64, 8192))
 LONG_CONFIG = "modernbert-embed-base-i8-1m"  # benchmark/configs/
+# Qwen3's kernels at Qwen3-Embedding-8B's widths on one dispatch of the
+# node's plan (models/encoder.py::token_budget: 65,536 padded tokens);
+# the main path against reference/qwen3_plain.py within the cell's
+# emb_gap limit (benchmark/limits/qwen3-ingest-long.json)
+QWEN3_TOKENS = 65_536
+QWEN3_SHAPES = ((8, 8192), (64, 1024))
+QWEN3_CELL = "qwen3-ingest-long"
+QWEN3_PAGES = 96  # main-path pages, lengths by the cell's page law
 # bf16-query select variants vs their plain twin: f32 sums of the same
 # bf16 products in another order differ by a few ulps of the dot, which
 # can move a truncated key by one step (128 ulps: 1.5e-5 in [1, 2),
@@ -407,7 +435,10 @@ COUNTER = {"bert_layer": "kernel_bert_layer",
            "ffn_f32": "kernel_ffn_f32",
            **{f"long_{k}": f"kernel_long_{k}" for k in (
                "embed", "qkv_rope", "attention_global", "attention_local",
-               "gemm_ln", "geglu")}}
+               "gemm_ln", "geglu")},
+           **{f"qwen3_{k}": f"kernel_qwen3_{k}" for k in (
+               "embed", "qkv_norm_rope", "attention", "resid_rms", "swiglu",
+               "last_pool")}}
 # every encoder kernel's counter (ops/layer.py, ops/attention.py, ops/ffn.py)
 ENCODER_COUNTERS = (
     *(f"kernel_bert_layer{k}{r}{f}" for k in ("", "_i8") for r in ("", "_rel")
@@ -1766,21 +1797,26 @@ def phase_pool(results: list) -> None:
 # -- ModernBERT's long-context kernels and its main path -----------------------
 
 def _long_time(tag: str, shape: str, ok: bool, detail: str, kernel, plain,
-               library, ops: float, nbytes_: int) -> dict:
+               library, ops: float, nbytes_: int,
+               phase: str = "modernbert") -> dict:
     """Time one long kernel (CUDA events: its launches take milliseconds),
-    its plain twin and the library call; print the check and the bound."""
+    its plain twin (None: not timed) and the library call (None: none);
+    print the check and the bound."""
     ms = cuda_ms(kernel, reps=5, warmup=2)
-    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    plain_ms = None if plain is None else cuda_ms(plain, reps=3, warmup=1)
+    library_ms, note = None, ""
     try:
-        library_ms, note = cuda_ms(library, reps=5, warmup=2), ""
+        if library is not None:
+            library_ms = cuda_ms(library, reps=5, warmup=2)
     except RuntimeError as e:  # SDPA with the band as a (S, S) mask
-        library_ms, note = None, f" (library refused: {str(e)[:120]})"
+        note = f" (library refused: {str(e)[:120]})"
         torch.cuda.empty_cache()
     bd = bound(ops, "bf16", nbytes_)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    say(f"phase modernbert {tag} {shape}: {detail} kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms library {lib}{note} bound {bd['bound_ms']:.4f} "
-        f"ms ({bd['bound_by']})")
+    pl = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+    say(f"phase {phase} {tag} {shape}: {detail} kernel {ms:.4f} ms plain "
+        f"{pl} library {lib}{note} bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']})")
     if not ok:
         raise AssertionError(f"{tag} disagrees with its plain twin at {shape}:"
                              f" {detail}")
@@ -2014,6 +2050,294 @@ def phase_modernbert(results: list, counts: dict) -> None:
         results[-1]["main_path"] = _long_main_path(work, counts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# -- Qwen3's kernels and its main path -------------------------------------
+
+def _qwen3_gemms(entries: dict, B: int, S: int, W: dict, rnd) -> None:
+    """Each Qwen3 GEMM epilogue, the embedding and the pool on all B·S
+    rows against its twin; timed beside torch.mm or F.embedding of the
+    same operands, the twin timed on the first sequence's rows."""
+    from dawnsearch_tpu_torch.ops import qwen3 as q3
+    H, nh, nkv, hd, I, eps = 4096, 32, 8, 128, 12288, 1e-6
+    N, bf = (nh + 2 * nkv) * hd, torch.bfloat16
+    M, shape = B * S, f"B={B} S={S} H={H}"
+    one = slice(0, S)
+    cos, sin = W["rope"]
+    x = rnd(M, H) * 3.0
+    a = x.to(bf)
+    ssq = (x * x).view(M, q3.parts(H), -1).sum(-1)
+    args = (W["qn"], W["kn"], cos, sin, S, nh, nkv, eps)
+    got = q3.qkv_norm_rope(a, ssq, W["qkv"], *args)
+    c = float(_row_cos(got, q3.qkv_norm_rope_plain(a, ssq, W["qkv"], *args),
+                       N).min())
+    entries["qkv_norm_rope"].append(_long_time(
+        "QKV + RMS_q, RMS_k + RoPE", shape, c >= LONG_GEMM_COS_MIN,
+        f"min row cos={c:.7f}",
+        lambda: q3.qkv_norm_rope(a, ssq, W["qkv"], *args),
+        lambda: q3.qkv_norm_rope_plain(a[one], ssq[one], W["qkv"], *args),
+        lambda: torch.mm(a, W["qkv"]), 2 * M * H * N,
+        nbytes(a, ssq, W["qkv"], got), "qwen3"))
+    del got
+    got = q3.swiglu(a, ssq, W["gu_k"], eps)
+    c = float(_row_cos(got, q3.swiglu_plain(a, ssq, W["gu"], eps), I).min())
+    entries["swiglu"].append(_long_time(
+        "SwiGLU", shape, c >= LONG_GEMM_COS_MIN, f"min row cos={c:.7f}",
+        lambda: q3.swiglu(a, ssq, W["gu_k"], eps),
+        lambda: q3.swiglu_plain(a[one], ssq[one], W["gu"], eps),
+        lambda: torch.mm(a, W["gu_k"]), 2 * M * H * 2 * I,
+        nbytes(a, ssq, W["gu"], got), "qwen3"))
+    for K, w, what in ((nh * hd, W["o"], "attention out"),
+                       (I, W["down"], "FFN down")):
+        inp = got if K == I else rnd(M, K).to(bf)
+        h, y, sq = q3.resid_rms(inp, w, x, W["s"])
+        h2, y2, sq2 = q3.resid_rms_plain(inp, w, x, W["s"])
+        err = float((h - h2).abs().max())
+        c = float(_row_cos(y, y2, H).min())
+        serr = float(((sq - sq2).abs() / sq2.abs().clamp_min(1e-6)).max())
+        entries["resid_rms"].append(_long_time(
+            f"residual + RMS parts ({what})", f"{shape} K={K}",
+            err <= 1e-3 and c >= LONG_GEMM_COS_MIN and serr <= 1e-4,
+            f"h max|d|={err:.3e} y min row cos={c:.7f} sq max rel "
+            f"d={serr:.2e}", lambda: q3.resid_rms(inp, w, x, W["s"]),
+            lambda: q3.resid_rms_plain(inp[one], w, x[one], W["s"]),
+            lambda: torch.mm(inp, w), 2 * M * K * H,
+            nbytes(inp, w, x, h, y, sq), "qwen3"))
+        del h, y, sq, h2, y2, sq2, inp
+    del got
+    ids = torch.randint(0, W["table"].shape[0], (M,), device=x.device)
+    xe, ae, se = q3.embed(W["table"], ids, W["s"], bf)
+    xe2, ae2, se2 = q3.embed_plain(W["table"], ids, W["s"], bf)
+    ok = torch.equal(xe, xe2) and torch.equal(ae, ae2)
+    serr = float(((se - se2).abs() / se2.clamp_min(1e-6)).max())
+    entries["embed"].append(_long_time(
+        "embedding + RMS_in", shape, ok and serr <= 1e-4,
+        f"x, a bit-equal {ok}, Σx² max rel d={serr:.2e}",
+        lambda: q3.embed(W["table"], ids, W["s"], bf),
+        lambda: q3.embed_plain(W["table"], ids[one], W["s"], bf),
+        lambda: torch.nn.functional.embedding(ids, W["table"]), 0.0,
+        nbytes(ids, xe, ae, se) + M * H * 2, "qwen3"))
+    del xe, ae, se, xe2, ae2, se2
+    lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    lens[1:] = torch.randint(1, S + 1, (B - 1,), device=x.device,
+                             dtype=torch.int32)
+    pool = q3.last_pool(x, lens, S, W["s"], eps)
+    err = float((pool - q3.last_pool_plain(x, lens, S, W["s"], eps)).abs()
+                .max())
+    entries["last_pool"].append(_long_time(
+        "last-token pool", f"B={B} S={S} H={H}", err <= 1e-5,
+        f"max|d|={err:.2e} (ragged lengths)",
+        lambda: q3.last_pool(x, lens, S, W["s"], eps),
+        lambda: q3.last_pool_plain(x, lens, S, W["s"], eps), None, 0.0,
+        B * H * 4 * 2 + B * H * 4, "qwen3"))
+
+
+def _qwen3_attention(entries: dict, B: int, S: int, rng: np.random.Generator,
+                     rnd) -> None:
+    """Causal GQA attention with ragged lengths (row 0 full, the others in
+    [S/8, S]) against the twin on the first and last sequences, every
+    padded query row zero; timed at full lengths beside
+    scaled_dot_product_attention (is_causal, enable_gqa) on the same q, k,
+    v."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dawnsearch_tpu_torch.ops import qwen3 as q3
+    nh, nkv, hd = 32, 8, 128
+    N = (nh + 2 * nkv) * hd
+    qkv = (rnd(B * S, N) * 1.5).to(torch.bfloat16)
+    lens_np = rng.integers(S // 8, S + 1, B)
+    lens_np[0] = S
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to(qkv.device)
+    full = torch.full((B,), S, dtype=torch.int32, device=qkv.device)
+    out = q3.attention(qkv, lens, B, S, nh, nkv)
+    i = torch.arange(S, device=qkv.device)
+    live = (i[None, :] < lens[:, None].long()).reshape(-1)
+    zeros = not bool(out[~live].any())
+    finite = bool(torch.isfinite(out).all())
+    c = 1.0
+    for r in (0, B - 1):
+        rows = slice(r * S, (r + 1) * S)
+        want = q3.attention_plain(qkv[rows], lens[r:r + 1], 1, S, nh, nkv)
+        n = int(lens_np[r])
+        c = min(c, float(_row_cos(out[rows][:n], want[:n], nh * hd).min()))
+        del want
+        torch.cuda.empty_cache()
+    del out
+    heads = qkv.view(B, S, nh + 2 * nkv, hd).transpose(1, 2)
+    q, k, v = heads[:, :nh], heads[:, nh:nh + nkv], heads[:, nh + nkv:]
+    entries["attention"].append(_long_time(
+        "causal GQA attention", f"B={B} S={S} nh={nh} nkv={nkv} hd={hd}",
+        c >= LONG_ATTN_COS_MIN and zeros and finite,
+        f"min row cos={c:.7f} (2 sequences, lengths {S} and "
+        f"{int(lens_np[-1])}), padded rows zero {zeros}",
+        lambda: q3.attention(qkv, full, B, S, nh, nkv),
+        lambda: q3.attention_plain(qkv[:S], full[:1], 1, S, nh, nkv),
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+        4 * nh * hd * B * S * (S + 1) // 2, nbytes(qkv) + B * S * nh * hd * 2,
+        "qwen3"))
+    torch.cuda.empty_cache()
+
+
+def _qwen3_main_path(counts: dict) -> dict:
+    """36 seeded layers at the published widths through SentenceEncoder
+    on QWEN3_PAGES pages of the cell's length law, every encoder counter
+    set to 0 just before: the launches of each dispatch of the plan, no
+    other GEMM or attention kernel in the profile, and three pages against
+    reference/qwen3_plain.py in f32 within the cell's emb_gap limit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import spec
+    from dawnsearch_tpu_torch.models import qwen3 as M
+    from dawnsearch_tpu_torch.models.encoder import SentenceEncoder
+    from dawnsearch_tpu_torch.ops import modernbert as mb
+    from dawnsearch_tpu_torch.ops import qwen3 as q3
+    from reference import qwen3_plain as ref
+    dev = torch.device("cuda")
+    cell = spec.config(spec.cell(spec.benchmark(), QWEN3_CELL)["config"])
+    limit = spec.limits(QWEN3_CELL)["emb_gap"]
+    cfg = dataclasses.replace(M.QWEN3_EMBEDDING_8B, dtype=torch.bfloat16,
+                              max_position_embeddings=cell["seq_buckets"][-1])
+    g = torch.Generator(device=dev).manual_seed(29)
+    W = {}
+    for name, shape in M.hf_shapes(cfg).items():
+        t = torch.randn(shape, generator=g, device=dev)
+        W[name] = (1 + 0.1 * t if len(shape) == 1 else 0.02 * t).to(
+            torch.bfloat16)
+
+    class Tok:
+        """A text is its token count: that many seeded ids, cut, then
+        <|endoftext|> (the template's closing special)."""
+        pad_id = cls_id = sep_id = M.EOS_ID
+        lead = False
+        rng = np.random.default_rng(31)
+
+        def encode_counted(self, text, max_len=None):
+            n = int(text)
+            ids = self.rng.integers(0, 150000, min(n, max_len - 1)).tolist()
+            return ids + [M.EOS_ID], n + 1
+
+    enc = SentenceEncoder(W, Tok(), cfg=cfg,
+                          seq_buckets=tuple(cell["seq_buckets"]), device=dev)
+    tr = spec.traffic(spec.cell(spec.benchmark(), QWEN3_CELL)["traffic"])
+    sigma = tr["text_sigma"]
+    lengths = np.minimum(np.random.default_rng(37).lognormal(
+        np.log(tr["text_mean_tokens"]) - sigma ** 2 / 2, sigma,
+        QWEN3_PAGES).astype(int) + 2, 20000)
+    texts = [str(n) for n in lengths]
+    enc.encode_documents(texts[:4])  # kernels loaded
+    ids = enc.tokenize_texts(texts)
+    order = sorted(range(len(ids)), key=lambda r: len(ids[r]))
+    plan = enc.plan_dispatches(order, [len(ids[r]) for r in order],
+                               enc.batch_buckets[-1])
+    _zero_counters()
+    for launches in (mb.launches, q3.launches):
+        launches.update(dict.fromkeys(launches, 0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        emb = enc.encode_tokenized(ids)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = {**_counters(), **mb.launches, **q3.launches}
+    d, L = len(plan), cfg.num_layers
+    want = {"kernel_qwen3_embed": d, "kernel_qwen3_qkv_norm_rope": d * L,
+            "kernel_qwen3_attention": d * L,
+            "kernel_qwen3_resid_rms": 2 * d * L,
+            "kernel_qwen3_swiglu": d * L, "kernel_qwen3_last_pool": d}
+    want.update({k: 0 for k in got if k not in want})
+    bad = {k: (got.get(k), n) for k, n in want.items() if got.get(k) != n}
+    names = {e.key for e in prof.key_averages()}
+    foreign = sorted(n for n in names if any(
+        k in n.lower() for k in ("gemm", "flash", "fmha", "cutlass", "xmma",
+                                 "sm90_", "attention"))
+        and not any(k in n for k in ("long_gemm_kernel",
+                                     "long_causal_gqa_kernel")))
+    if bad or foreign:
+        raise AssertionError(f"Qwen3's main path over {d} dispatches "
+                             f"launched (got, want) {bad}; other GEMM or "
+                             f"attention kernels {foreign}")
+    counts.update({k: n for k, n in got.items() if k in q3.launches})
+    lens = [len(x) for x in ids]
+    pick = [int(np.argmin(lens)), int(np.argsort(lens)[len(ids) // 2]),
+            int(np.argmax(lens))]
+
+    class Lazy(dict):
+        def __missing__(self, name):
+            return W[name].float()
+    config = {"num_attention_heads": cfg.num_heads,
+              "num_key_value_heads": cfg.num_kv_heads,
+              "head_dim": cfg.head_dim, "hidden_size": cfg.hidden_size,
+              "rms_norm_eps": cfg.layer_norm_eps,
+              "rope_theta": cfg.rope_theta, "num_hidden_layers": L}
+    gaps = []
+    for r in pick:
+        want_r = ref.embed(Lazy(), config, [ids[r]], dev, rows=1024)
+        gaps.append(1.0 - float(torch.nn.functional.cosine_similarity(
+            torch.from_numpy(emb[r][None]).to(dev), want_r).item()))
+        del want_r
+        torch.cuda.empty_cache()
+    tokens = sum(lens)
+    flops = sum(n * enc.model.token_flops(cfg)
+                + L * 4 * cfg.num_heads * cfg.head_dim * n * (n + 1) / 2
+                for n in lens)
+    cut = sum(1 for n in lens if n == enc.seq_buckets[-1])
+    say(f"phase qwen3 main path: {len(ids)} pages ({tokens} tokens, {cut} "
+        f"cut at {enc.seq_buckets[-1]}) in {d} dispatches "
+        f"({[len(p) for p in plan]}), {seconds:.3f} s "
+        f"({len(ids) / seconds:.2f} pages/s, "
+        f"{100 * flops / seconds / PEAK_OPS['bf16']:.1f}% of the bf16 peak, "
+        f"encoder alone, host time); launches "
+        f"{ {k: v for k, v in got.items() if v} }; 1 - cos against "
+        f"reference/qwen3_plain.py at lengths {[lens[r] for r in pick]}: "
+        f"{[f'{x:.2e}' for x in gaps]} (limit {limit})")
+    if not max(gaps) <= limit:
+        raise AssertionError(f"Qwen3's main path is {max(gaps):.2e} from "
+                             f"the reference (limit {limit})")
+    return {"pages": len(ids), "dispatches": d, "seconds": seconds,
+            "emb_gap": max(gaps)}
+
+
+def phase_qwen3(results: list, counts: dict) -> None:
+    """Qwen3's kernels at its widths and one dispatch of the node's plan,
+    against their twins and the library, then its main path (module
+    docstring, phase qwen3)."""
+    _f32_twins()
+    from dawnsearch_tpu_torch.ops import _cuda
+    from dawnsearch_tpu_torch.ops import modernbert as mb
+    from dawnsearch_tpu_torch.ops import qwen3 as q3
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+    H, nh, nkv, hd, I, bf = 4096, 32, 8, 128, 12288, torch.bfloat16
+    _cuda.long_lib()
+    gu = rnd(H, 2 * I, std=0.02).to(bf)
+    W = {"qkv": rnd(H, (nh + 2 * nkv) * hd, std=0.02).to(bf), "gu": gu,
+         "gu_k": mb.interleave_gate(gu), "o": rnd(nh * hd, H, std=0.02).to(bf),
+         "down": rnd(I, H, std=0.02).to(bf), "qn": 1 + rnd(hd, std=0.1),
+         "kn": 1 + rnd(hd, std=0.1), "s": 1 + rnd(H, std=0.1),
+         "table": rnd(151665, H, std=0.02).to(bf),
+         "rope": mb.rope_tables(8192, hd, 1e6, dev)}
+    entries = {k[len("kernel_qwen3_"):]: [] for k in q3.launches}
+    for B, S in QWEN3_SHAPES:
+        assert B * S == QWEN3_TOKENS
+        _qwen3_gemms(entries, B, S, W, rnd)
+        torch.cuda.empty_cache()
+        _qwen3_attention(entries, B, S, rng, rnd)
+    del W, gu
+    torch.cuda.empty_cache()
+    src = {"embed": "qwen3.cu", "qkv_norm_rope": "gemm_long.cu",
+           "attention": "qwen3.cu", "resid_rms": "gemm_long.cu",
+           "swiglu": "gemm_long.cu", "last_pool": "qwen3.cu"}
+    for k, shapes in entries.items():
+        results.append({"name": "qwen3_" + k, "route": "cuda",
+                        "source": "dawnsearch_tpu_torch/csrc/long/" + src[k],
+                        "replaces": "none (no TPU kernel: the JAX package "
+                                    "has no Qwen3)",
+                        **shapes[0], "other_shapes": shapes[1:]})
+    results[-1]["main_path"] = _qwen3_main_path(counts)
 
 
 def _unit_rows(n: int, g: torch.Generator, dev, dim: int = 384) -> torch.Tensor:
@@ -3419,7 +3743,7 @@ def main(argv=None) -> int:
         phase_build()
     scale: list = []
     ops_counts: dict = {}
-    long_counts: dict = {}  # ModernBERT's main path (phase modernbert)
+    long_counts: dict = {}  # the main paths of phases modernbert, qwen3
     notes: dict = {}  # the sharded and crew phases' times
     for name, run in (("k1", lambda: phase_k1(results)),
                       ("k4", lambda: phase_k4(results)),
@@ -3431,6 +3755,7 @@ def main(argv=None) -> int:
                       ("pool", lambda: phase_pool(results)),
                       ("modernbert",
                        lambda: phase_modernbert(results, long_counts)),
+                      ("qwen3", lambda: phase_qwen3(results, long_counts)),
                       ("recall", phase_recall),
                       ("recall_i4", phase_recall_i4),
                       ("i4_scale", lambda: phase_i4_scale(scale)),

@@ -59,6 +59,23 @@
 // The embedding: one warp a row gathers E[id] (f32), forms LN·s in f32
 // (two passes, warp sums) and writes it as f32 x and bf16 a (ModernBERT's
 // first attn_norm is the identity).
+//
+// Qwen3's layers (ops/qwen3.py) add three epilogues on the same ring. Its
+// RMSNorms are w ⊙ v · r with one scale r = 1 / sqrt(mean(v²) + eps) a
+// row, so a norm is split between two launches and needs no cluster: the
+// launch that forms v writes bf16(v ⊙ w) and Σv² over each of its column
+// tiles (`ssq`, (M, parts) f32), and the launch that reads it multiplies
+// its accumulator by r, summed from the parts in order (A·W is linear in
+// A's rows).
+//   EPI_RMS     h = acc + resid, written f32; y = bf16(h ⊙ s) (staged);
+//               the tile's Σh² a row into ssq_out[row, tile]
+//   EPI_QKN     qkv = bf16(RoPE(RMS_head(r·acc) ⊙ w_head)) on each
+//               128-column q or k head (its Σ over the quad's 4 threads,
+//               weights qn or kn by the head's column), dims d and d + 64
+//               the thread's j and j + 8 with the (S, 64) tables; v heads
+//               as r·acc
+//   EPI_SWIGLU  out = bf16(silu(r·acc_g) · r·acc_u), GeGLU's interleaved
+//               layout and tile
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,6 +92,9 @@ constexpr int EPI_ROPE = 0;
 constexpr int EPI_GEGLU = 1;
 constexpr int EPI_LN_BF16 = 2;
 constexpr int EPI_LN_F32 = 3;
+constexpr int EPI_QKN = 4;
+constexpr int EPI_SWIGLU = 5;
+constexpr int EPI_RMS = 6;
 
 struct LongArgs {
   void* out;           // ROPE, GEGLU: bf16; LN: f32 h
@@ -86,6 +106,11 @@ struct LongArgs {
   int M, N, K, S, rope_cols;
   float eps;
   int cn;              // LN: CTAs of the cluster, one a column tile
+  const float* ssq_in;   // QKN, SWIGLU: (M, rparts) Σv² parts of A's rows
+  float* ssq_out;        // RMS: (M, N / BN) Σh² of each column tile
+  const float* qn;       // QKN: q's and k's per-head norm weights, (hd,)
+  const float* kn;
+  int rparts, q_cols;    // QKN: q heads below q_cols, k below rope_cols
 };
 
 // d (64 x 256, f32) += A (64 x 16, K-major) · B (16 x 256, MN-major: W's
@@ -222,13 +247,15 @@ __device__ __forceinline__ void bulk_wait() {
 template <int BM, int BN, int EPI>
 struct Ring {
   static constexpr bool LN = EPI == EPI_LN_BF16 || EPI == EPI_LN_F32;
+  static constexpr bool GLU = EPI == EPI_GEGLU || EPI == EPI_SWIGLU;
+  static constexpr bool RESID = LN || EPI == EPI_RMS;   // reads resid
   static constexpr int NC = BM / 64;                       // consumer warpgroups
   static constexpr bool WIDE = BN == 256;
   static constexpr int THREADS = NC * 128 + (WIDE ? 128 : 32);
   // GeGLU's epilogue (an erf polynomial an output) is as long as a third
   // of its mainloop: two CTAs an SM, so one's products run under the
   // other's epilogue
-  static constexpr int CTAS = EPI == EPI_GEGLU ? 2 : 1;
+  static constexpr int CTAS = GLU ? 2 : 1;
   static constexpr int ACC = BN / 2;                       // f32 a thread
   static constexpr int JN = BN / 8;                        // column pairs a row
   static constexpr int BK = 64;
@@ -238,9 +265,13 @@ struct Ring {
   // staged output boxes of 64 bf16 columns: RoPE's two, GeGLU's tile, the
   // bf16 LayerNorm's tile (the f32 one is stored from registers)
   static constexpr int O_BOXES =
-      EPI == EPI_LN_F32 ? 0 : (EPI == EPI_ROPE ? 2 : BN / (LN ? 64 : 128));
+      EPI == EPI_LN_F32 ? 0
+                        : (EPI == EPI_ROPE || EPI == EPI_QKN
+                               ? 2
+                               : BN / (RESID ? 64 : 128));
   static constexpr int STAGES =
-      CTAS == 2 ? 3 : (WIDE ? 4 : 6) - (EPI == EPI_LN_BF16 ? 1 : 0);
+      CTAS == 2 ? 3
+                : (WIDE ? 4 : 6) - (EPI == EPI_LN_BF16 || EPI == EPI_RMS ? 1 : 0);
   static constexpr int MAX_CX = MAX_CLUSTER * 128 / BN;    // LN ranks
   static constexpr int O_BOX = BM * ROW_BYTES;
   static constexpr size_t out = (size_t)STAGES * STAGE;
@@ -566,6 +597,164 @@ __device__ __forceinline__ void epi_ln(float (&acc)[BN / 2],
   }
 }
 
+// -- Qwen3's epilogues -------------------------------------------------------------
+
+// the row scale r = 1 / sqrt(Σ parts / n + eps) of rows r0 and r0 + 8: the
+// quad's 4 threads load parts t4, t4 + 4, ... (before the mainloop, into
+// `part`), sum them in order and across the quad
+__device__ __forceinline__ void scale_parts(float (&part)[2][4],
+                                            const LongArgs& g, int r0,
+                                            int t4) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = min(r0 + 8 * h, g.M - 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = t4 + 4 * k;
+      part[h][k] = p < g.rparts ? g.ssq_in[(size_t)r * g.rparts + p] : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ void row_scale(float (&rs)[2],
+                                          const float (&part)[2][4], int n,
+                                          float eps) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t += part[h][k];
+    rs[h] = rsqrtf(quad_sum(t) / n + eps);
+  }
+}
+
+// qkv = r·acc; each 128-column q or k head then RMS-normed over its 128
+// dims (the quad's 4 threads hold a row's 128: 32 each) with its weight,
+// and rotated: dims d and d + 64 are the thread's j and j + 8 of the head,
+// with cos and sin of the row's position (row % S) at dim 8j + t2 + e
+template <class R>
+__device__ __forceinline__ void epi_qkn(float (&acc)[R::ACC],
+                                        const float (&rs)[2],
+                                        const LongArgs& g,
+                                        unsigned char* stage,
+                                        const CUtensorMap* map_o, int m0,
+                                        int n0, int rl, int lane) {
+  constexpr int HEADS = R::ACC / 64;  // 128-column heads a tile
+  const int t2 = (lane % 4) * 2, r0 = m0 + rl;
+#pragma unroll
+  for (int i = 0; i < R::ACC; ++i) acc[i] *= rs[(i / 2) % 2];
+#pragma unroll
+  for (int head = 0; head < HEADS; ++head) {
+    const int col = n0 + 128 * head;
+    if (col >= g.rope_cols) continue;  // a v head
+    const float* nw = col < g.q_cols ? g.qn : g.kn;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float ss = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = acc[4 * (16 * head + j) + 2 * h + e];
+          ss += v * v;
+        }
+      const float rq = rsqrtf(quad_sum(ss) / 128.0f + g.eps);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 w = load2(nw + 8 * j + t2);
+        float& v0 = acc[4 * (16 * head + j) + 2 * h];
+        float& v1 = acc[4 * (16 * head + j) + 2 * h + 1];
+        v0 = v0 * rq * w.x;
+        v1 = v1 * rq * w.y;
+      }
+      const int pos = min(r0 + 8 * h, g.M - 1) % g.S;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 cs = load2(g.cos + (size_t)pos * 64 + 8 * j + t2);
+        const float2 sn = load2(g.sin + (size_t)pos * 64 + 8 * j + t2);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int lo = 4 * (16 * head + j) + 2 * h + e;
+          const int hi = lo + 32;  // j + 8: dim d + 64
+          const float c = e ? cs.y : cs.x;
+          const float sv = e ? sn.y : sn.x;
+          const float x = acc[lo], y = acc[hi];
+          acc[lo] = x * c - y * sv;
+          acc[hi] = y * c + x * sv;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < R::ACC / 64; ++b)
+    store_block<R, 2>(stage, map_o, n0 + 128 * b, m0, rl, lane,
+                      [&](int h, int j) {
+                        const int i = 64 * b + 4 * j + 2 * h;
+                        return make_float2(acc[i], acc[i + 1]);
+                      });
+}
+
+__device__ __forceinline__ float silu(float x) {
+  return __fdiv_rn(x, 1.0f + expf(-x));
+}
+
+// out = bf16(silu(r·acc_g) · r·acc_u): GeGLU's interleaved block b, its
+// gate columns the thread's j < 8 and the up columns j + 8
+template <class R>
+__device__ __forceinline__ void epi_swiglu(const float (&acc)[R::ACC],
+                                           const float (&rs)[2],
+                                           unsigned char* stage,
+                                           const CUtensorMap* map_o, int m0,
+                                           int n0, int rl, int lane) {
+  store_block<R, R::ACC / 64>(
+      stage, map_o, n0 / 2, m0, rl, lane, [&](int h, int j) {
+        const int i = 64 * (j / 8) + 4 * (j % 8) + 2 * h;
+        const float r = rs[h];
+        return make_float2(__fmul_rn(silu(acc[i] * r), acc[i + 32] * r),
+                           __fmul_rn(silu(acc[i + 1] * r), acc[i + 33] * r));
+      });
+}
+
+// h = acc + resid (f32) written as out; y = bf16(h ⊙ s) staged; each row's
+// Σh² over the tile's columns (in order, then across the quad) into
+// ssq_out[row, n0 / BN]. Row r0's residual came in `pre`.
+template <int BM, int BN>
+__device__ __forceinline__ void epi_rms(float (&acc)[BN / 2],
+                                        float2 (&pre)[BN / 8],
+                                        const LongArgs& g,
+                                        unsigned char* stage,
+                                        const CUtensorMap* map_o, int m0,
+                                        int r0, int n0, int t2, int lane) {
+  using R = Ring<BM, BN, EPI_RMS>;
+  constexpr int JN = BN / 8;
+  float* hout = static_cast<float*>(g.out);
+  const int M = g.M, N = g.N, c0 = n0 + t2, rl = r0 % BM;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (h == 1) resid_row<JN>(pre, g, r, c0);
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      float& v0 = acc[4 * j + 2 * h];
+      float& v1 = acc[4 * j + 2 * h + 1];
+      v0 = v0 + pre[j].x;
+      v1 = v1 + pre[j].y;
+      if (r < M) store2(hout + (size_t)r * N + c0 + j * 8, v0, v1);
+      sum += v0 * v0;
+      sum += v1 * v1;
+    }
+    sum = quad_sum(sum);
+    if (lane % 4 == 0 && r < M) g.ssq_out[(size_t)r * (N / BN) + n0 / BN] = sum;
+  }
+  store_block<R, R::O_BOXES>(stage, map_o, n0, m0, rl, lane,
+                             [&](int h, int j) {
+                               const int i = 4 * j + 2 * h, c = c0 + j * 8;
+                               return make_float2(acc[i] * g.ln_s[c],
+                                                  acc[i + 1] * g.ln_s[c + 1]);
+                             });
+}
+
 // The consumers: per tile, the epilogue's first loads, a fresh
 // accumulator, the mainloop, the epilogue. Only they hold an accumulator.
 template <int BM, int BN, int EPI>
@@ -583,22 +772,36 @@ __device__ __forceinline__ void long_consume(const LongArgs& g,
   uint32_t parity = 0;
   for (int tile = blockIdx.x; tile < nt * mt; tile += gridDim.x, parity ^= 1) {
     const int m0 = (tile / nt) * BM, n0 = (tile % nt) * BN;
-    float2 pre[R::LN ? R::JN : 16];
+    float2 pre[R::RESID ? R::JN : (EPI == EPI_ROPE ? 16 : 1)];
+    float part[2][4];  // QKN, SWIGLU: the rows' Σv² parts
     if constexpr (EPI == EPI_ROPE)
       rope_rows(pre, g, m0 + rl, n0, t2);
-    else if constexpr (R::LN)
+    else if constexpr (R::RESID)
       resid_row<R::JN>(pre, g, m0 + rl, n0 + t2);
+    else if constexpr (EPI == EPI_QKN || EPI == EPI_SWIGLU)
+      scale_parts(part, g, m0 + rl, lane % 4);
     float acc[R::ACC];
 #pragma unroll
     for (int i = 0; i < R::ACC; ++i) acc[i] = 0.0f;
     long_mainloop<R>(acc, smem, full, empty, kt, it, wg, lane);
-    if constexpr (EPI == EPI_ROPE)
+    if constexpr (EPI == EPI_ROPE) {
       epi_rope<R>(acc, pre, g, smem + R::out, map_o, m0, n0, rl, lane);
-    else if constexpr (EPI == EPI_GEGLU)
+    } else if constexpr (EPI == EPI_GEGLU) {
       epi_geglu<R>(acc, smem + R::out, map_o, m0, n0, rl, lane);
-    else
+    } else if constexpr (EPI == EPI_QKN || EPI == EPI_SWIGLU) {
+      float rs[2];
+      row_scale(rs, part, g.K, g.eps);
+      if constexpr (EPI == EPI_QKN)
+        epi_qkn<R>(acc, rs, g, smem + R::out, map_o, m0, n0, rl, lane);
+      else
+        epi_swiglu<R>(acc, rs, smem + R::out, map_o, m0, n0, rl, lane);
+    } else if constexpr (EPI == EPI_RMS) {
+      epi_rms<BM, BN>(acc, pre, g, smem + R::out, map_o, m0, m0 + rl, n0, t2,
+                      lane);
+    } else {
       epi_ln<BM, BN, EPI>(acc, pre, g, red, lnbar, parity, smem + R::out,
                           map_o, m0, m0 + rl, n0, t2, lane);
+    }
   }
   if constexpr (R::O_BOXES > 0)
     if (threadIdx.x % 128 == 0) bulk_wait();  // the last stores have landed
@@ -690,8 +893,8 @@ cudaError_t launch_long(const void* a, const void* w, LongArgs g,
   if (err == cudaSuccess)
     err = EPI == EPI_LN_F32
               ? sm90::tensor_map_2d(&map_o, a, 2, g.M, g.K, BM, R::BK)
-              : sm90::tensor_map_2d(&map_o, R::LN ? g.out2 : g.out, 2, g.M,
-                                    EPI == EPI_GEGLU ? g.N / 2 : g.N, 64, 64);
+              : sm90::tensor_map_2d(&map_o, R::RESID ? g.out2 : g.out, 2,
+                                    g.M, R::GLU ? g.N / 2 : g.N, 64, 64);
   if (err != cudaSuccess) return err;
   auto kernel = long_gemm_kernel<BM, BN, EPI>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -732,11 +935,11 @@ cudaError_t launch_long(const void* a, const void* w, LongArgs g,
 
 // The tile by shape: BM = 128 where 128-row tiles give the card a full
 // wave, else 64; BN = 256 where N is a multiple of it, else 128, and 128
-// for GeGLU, which runs two CTAs an SM
+// for GeGLU and SwiGLU, which run two CTAs an SM
 template <int EPI>
 cudaError_t launch_bm(const void* a, const void* w, const LongArgs& g,
                       cudaStream_t s) {
-  constexpr int BN_WIDE = EPI == EPI_GEGLU ? 128 : 256;
+  constexpr int BN_WIDE = Ring<128, 128, EPI>::GLU ? 128 : 256;
   const bool wide = g.N % BN_WIDE == 0;
   if ((long long)((g.M + 127) / 128) * (g.N / BN) >= 132)
     return wide ? launch_long<128, BN_WIDE, EPI>(a, w, g, s)
@@ -834,6 +1037,62 @@ int dawn_long_gemm(const void* a, const void* w, int epi, void* out,
         return (int)cudaErrorInvalidValue;
       return (int)(epi == EPI_LN_BF16 ? launch_bm<EPI_LN_BF16>(a, w, g, s)
                                       : launch_bm<EPI_LN_F32>(a, w, g, s));
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One projection of a Qwen3 layer (no bias), bf16 a (M, K) · w (K, N):
+// epi 4 (QKV + norms + RoPE): out bf16 (M, N) = the q, k and v heads of 128
+// (q below q_cols, k below rope_cols), A's rows scaled by r from ssq_in
+// (M, rparts), q and k normed with qn / kn and rotated with cos / sin
+// ((>= S, 64) f32) at position row % S. epi 5 (SwiGLU): out bf16 (M, N /
+// 2), w interleaved, A's rows scaled as for 4. epi 6 (residual + RMS
+// parts): out f32 (M, N) h = a·w + resid, out2 bf16 (M, N) = h ⊙ s,
+// ssq_out (M, N / BN) the Σh² of each column tile (BN = 256 where N % 256
+// == 0, else 128). Needs K % 64 == 0, N % 128 == 0, rparts <= 16,
+// 16-byte aligned a and w. Returns a cudaError_t.
+int dawn_qwen3_gemm(const void* a, const void* w, int epi, void* out,
+                    void* out2, const void* resid, const void* s,
+                    const void* cos, const void* sin, const void* ssq_in,
+                    void* ssq_out, const void* qn, const void* kn, int rparts,
+                    int M, int N, int K, int S, int q_cols, int rope_cols,
+                    float eps, void* stream) {
+  if (M <= 0 || N <= 0 || N % BN != 0 || K <= 0 || K % 64 != 0)
+    return (int)cudaErrorInvalidValue;
+  LongArgs g = {};
+  g.out = out;
+  g.out2 = out2;
+  g.resid = static_cast<const float*>(resid);
+  g.ln_s = static_cast<const float*>(s);
+  g.cos = static_cast<const float*>(cos);
+  g.sin = static_cast<const float*>(sin);
+  g.ssq_in = static_cast<const float*>(ssq_in);
+  g.ssq_out = static_cast<float*>(ssq_out);
+  g.qn = static_cast<const float*>(qn);
+  g.kn = static_cast<const float*>(kn);
+  g.rparts = rparts;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.S = S;
+  g.q_cols = q_cols;
+  g.rope_cols = rope_cols;
+  g.eps = eps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool parts = ssq_in && rparts >= 1 && rparts <= 16;
+  switch (epi) {
+    case EPI_QKN:
+      if (!parts || !cos || !sin || !qn || !kn || S <= 0 || M % S != 0 ||
+          q_cols % 128 != 0 || rope_cols % 128 != 0 || q_cols > rope_cols ||
+          rope_cols > N)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_bm<EPI_QKN>(a, w, g, st);
+    case EPI_SWIGLU:
+      if (!parts) return (int)cudaErrorInvalidValue;
+      return (int)launch_bm<EPI_SWIGLU>(a, w, g, st);
+    case EPI_RMS:
+      if (!resid || !s || !out2 || !ssq_out) return (int)cudaErrorInvalidValue;
+      return (int)launch_bm<EPI_RMS>(a, w, g, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -240,7 +240,8 @@ class ExtractionService:
                  rate_limit: float = 0.0,
                  coalesce_max: int | None = None,
                  query_idle_s: float | None = None,
-                 max_text: int = MAX_TEXT):
+                 max_text: int = MAX_TEXT,
+                 insert_tokens: int | None = None):
         self.service = service
         self.max_text = max_text  # characters of a page's text kept
         self.source = source if source is not None else CommonCrawlSource()
@@ -276,6 +277,11 @@ class ExtractionService:
             coalesce_max = 2 * (getattr(service, "max_ingest_batch", None)
                                 or 0)
         self.coalesce_max = max(int(coalesce_max), 0)
+        # ... and by work: the real tokens an insert batch may hold (the
+        # encoder's insert_tokens, a few dispatches of a large model; None
+        # where only pages count). A pre-tokenized batch past it is cut
+        # into inserts that each keep under it (or hold one page).
+        self.insert_tokens = insert_tokens
         # recency window for the coalescing gate (config
         # ingest_query_idle_s)
         self.query_idle_s = (QUERY_IDLE_S if query_idle_s is None
@@ -404,6 +410,8 @@ class ExtractionService:
             kind, name, triples, token_ids, bids = item
             owed = 1  # task_done() calls this turn (1 per merged item)
             names = {name}
+            tokens = (sum(map(len, token_ids)) if token_ids is not None
+                      else 0)
             if kind == "batch" and self.coalesce_max > len(triples):
                 # merge already-waiting batches into one dispatch while
                 # the chip is query-idle (rationale at coalesce_max)
@@ -414,14 +422,20 @@ class ExtractionService:
                             nxt = self._ready.get_nowait()
                         except queue.Empty:
                             break
+                        more = (sum(map(len, nxt[3]))
+                                if nxt is not None and nxt[0] == "batch"
+                                and nxt[3] is not None else 0)
                         if (nxt is None or nxt[0] != "batch"
                                 or (nxt[3] is None) != (token_ids is None)
                                 or len(triples) + len(nxt[2])
-                                > self.coalesce_max):
+                                > self.coalesce_max
+                                or (self.insert_tokens is not None
+                                    and tokens + more > self.insert_tokens)):
                             pending = nxt  # sentinel/mark/oversize: next
                             break
                         owed += 1
                         triples = triples + nxt[2]
+                        tokens += more
                         if token_ids is not None:
                             token_ids = token_ids + nxt[3]
                         bids = bids + nxt[4]
@@ -432,13 +446,32 @@ class ExtractionService:
                         with span("ingest.mark"):
                             self._mark(name, failed)
                     else:
-                        self._insert(triples, token_ids)
+                        for lo, hi in self._cuts(token_ids, len(triples)):
+                            self._insert(triples[lo:hi], None
+                                         if token_ids is None
+                                         else token_ids[lo:hi])
             except Exception:
                 log.exception("insert batch failed")
                 failed.update(names)
             finally:
                 for _ in range(owed):
                     self._ready.task_done()
+
+    def _cuts(self, token_ids: list[list[int]] | None, n: int
+              ) -> list[tuple[int, int]]:
+        """[lo, hi) ranges of a batch's n pages, in order, each an insert
+        of at most insert_tokens real tokens (or one page); the whole
+        batch where no token limit applies."""
+        if token_ids is None or self.insert_tokens is None:
+            return [(0, n)]
+        out, lo, acc = [], 0, 0
+        for i, ids in enumerate(token_ids):
+            if i > lo and acc + len(ids) > self.insert_tokens:
+                out.append((lo, i))
+                lo, acc = i, 0
+            acc += len(ids)
+        out.append((lo, n))
+        return out
 
     def _mark(self, name: str, failed: set[str]) -> None:
         if name in failed:

@@ -278,6 +278,19 @@ class EncoderStack(nn.Module):
     `params` is the reference's stacked tree (models/weights.py), each leaf
     a tensor or array."""
 
+    # what SentenceEncoder reads of a family: forward returns the last
+    # hidden state (encode_batch pools it), not the sentence embedding;
+    # its spans need no real lengths from the host
+    pools = False
+    host_lengths = False
+
+    @staticmethod
+    def token_flops(cfg: BertConfig) -> int:
+        """Model FLOPs of one token's projections through every layer: 2
+        a multiply-add over the QKV, output and two FFN matrices."""
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        return 2 * cfg.num_layers * (4 * H * H + 2 * H * I)
+
     def __init__(self, cfg: BertConfig, params: Params, *, device):
         super().__init__()
         self.cfg = cfg

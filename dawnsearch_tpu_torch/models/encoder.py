@@ -5,10 +5,13 @@ for the reference's EmbeddingProvider, embedding_service.rs:49-140).
 Sequence lengths and batch sizes are bucketed to the same small grids,
 and padding rows are a bare [CLS][SEP] (`<s></s>` in an MPNet vocab;
 encoder.py:129-133), so both packages see identical (input_ids, mask)
-arrays for the same texts. The model is the config's family: MPNetModel
-for model_type "mpnet", BertModel otherwise (bert, roberta). The tokenizer
-is any of the four with the same encode contract: WordPiece or byte-level
-BPE, in Python or native (models/tokenizer*.py).
+arrays for the same texts; a tokenizer with no leading special (Qwen3's
+`$A <|endoftext|>`) pads with its closing one alone. The model is the
+config's family (FAMILIES): MPNetModel for model_type "mpnet",
+ModernBertModel, Qwen3Model (which pools its own last token), BertModel
+otherwise (bert, roberta). The tokenizer is any of the four with the
+same encode contract: WordPiece or byte-level BPE, in Python or native
+(models/tokenizer*.py).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dawnsearch_tpu_torch.models.bert import (
     MINILM_L6, BertConfig, BertModel, Params, encode_batch)
 from dawnsearch_tpu_torch.models.modernbert import ModernBertModel
 from dawnsearch_tpu_torch.models.mpnet import MPNetModel
+from dawnsearch_tpu_torch.models.qwen3 import Qwen3Model
 from dawnsearch_tpu_torch.models.tokenizer import WordPieceTokenizer
 from dawnsearch_tpu_torch.models.tokenizer_bpe import ByteLevelBPETokenizer
 from dawnsearch_tpu_torch.models.tokenizer_bpe_native import \
@@ -42,6 +46,44 @@ SHORT_GRID = 512
 # padded tokens (B × S, bucketed) a long grid's dispatch may hold: the
 # largest dispatch of a 512-token grid, B 1024 × S 512
 TOKEN_BUDGET = 1024 * 512
+# ... and the model FLOPs of its projections (2·params a token) one
+# dispatch may carry: about 2.5 s of a card at 40% of its bf16 peak. It
+# binds only past about 1.9 G a token (Qwen3-Embedding-8B's 13.9 G:
+# 65,536 tokens); ModernBERT-base's 0.22 G keeps TOKEN_BUDGET
+DISPATCH_FLOPS = 10 ** 15
+# an insert batch (the ingest pipeline's merge of waiting page batches)
+# holds at most this many dispatches' FLOPs of real tokens
+INSERT_DISPATCHES = 4
+
+
+# the model class of each config.json model_type (BertModel otherwise:
+# bert, roberta)
+FAMILIES = {"mpnet": MPNetModel, "modernbert": ModernBertModel,
+            "qwen3": Qwen3Model}
+
+
+def family(cfg: BertConfig) -> type:
+    return FAMILIES.get(cfg.model_type, BertModel)
+
+
+def projection_flops(cfg: BertConfig) -> int:
+    """Model FLOPs of one token's projections through every layer (the
+    family's token_flops)."""
+    return family(cfg).token_flops(cfg)
+
+
+def token_budget(cfg: BertConfig, top: int) -> int:
+    """Padded tokens a long grid's dispatch may hold: TOKEN_BUDGET, or
+    fewer where DISPATCH_FLOPS binds, in whole rows of the top seq bucket
+    (at least one)."""
+    return min(TOKEN_BUDGET, max(
+        top, DISPATCH_FLOPS // projection_flops(cfg) // top * top))
+
+
+def insert_tokens(cfg: BertConfig) -> int:
+    """Real tokens an insert batch of a long grid may hold:
+    INSERT_DISPATCHES × DISPATCH_FLOPS of projections."""
+    return INSERT_DISPATCHES * DISPATCH_FLOPS // projection_flops(cfg)
 
 
 class SentenceEncoder:
@@ -59,16 +101,16 @@ class SentenceEncoder:
         document_prompt: str = "",
         query_prompt: str = "",
     ):
-        family = {"mpnet": MPNetModel, "modernbert": ModernBertModel}.get(
-            cfg.model_type, BertModel)
-        self.model = family(cfg, params, device=device)
-        # ModernBERT's spans take the rows' real lengths from the host
-        # while a capture runs (forward)
-        self._host_lengths = family is ModernBertModel
+        self.model = family(cfg)(cfg, params, device=device)
         self.tokenizer = tokenizer
         self.cfg = cfg
         self.seq_buckets = sorted(seq_buckets)
         self.batch_buckets = sorted(batch_buckets)
+        self.token_budget = token_budget(cfg, self.seq_buckets[-1])
+        # real tokens an insert batch may hold (the ingest pipeline's
+        # merge and cut; None: pages alone count)
+        self.insert_tokens = (insert_tokens(cfg) if self.long_grid
+                              else None)
         self.mask_padding = mask_padding
         self.include_padding_in_pool = include_padding_in_pool
         # put before each page (document) and each query before it is
@@ -114,9 +156,9 @@ class SentenceEncoder:
         """`rows` cut into the dispatches that encode them. A grid that
         stops at SHORT_GRID: chunks of max_batch in the given order. A
         long grid: rows sorted by token length (lengths[i] of rows[i]),
-        then cut where a chunk would pass max_batch rows or TOKEN_BUDGET
+        then cut where a chunk would pass max_batch rows or token_budget
         padded tokens (its batch bucket × the seq bucket of its longest
-        row)."""
+        row; TOKEN_BUDGET, or less where DISPATCH_FLOPS binds)."""
         if not self.long_grid:
             return [list(rows[s:s + max_batch])
                     for s in range(0, len(rows), max_batch)]
@@ -127,7 +169,7 @@ class SentenceEncoder:
             seq = self._bucket(self.seq_buckets, lengths[i])
             n = len(cur) + 1
             if cur and (n > max_batch or self._bucket(
-                    self.batch_buckets, n) * seq > TOKEN_BUDGET):
+                    self.batch_buckets, n) * seq > self.token_budget):
                 out.append(cur)
                 cur = []
             cur.append(rows[i])
@@ -161,7 +203,7 @@ class SentenceEncoder:
     def pad_counted(self, ids_list: list[list[int]]
                     ) -> tuple[np.ndarray, np.ndarray, int]:
         """pad_batch, and the number of real tokens it placed (the
-        padding rows' [CLS][SEP] not among them)."""
+        padding rows' [CLS][SEP], or closing special, not among them)."""
         n = len(ids_list)
         if n > self.batch_buckets[-1]:
             raise ValueError(
@@ -178,12 +220,20 @@ class SentenceEncoder:
             input_ids[r, : len(ids)] = ids
             mask[r, : len(ids)] = 1
             real += len(ids)
-        # Padding rows get a bare [CLS][SEP] so normalization never sees zeros.
-        for r in range(n, bsz):
-            input_ids[r, 0] = self.tokenizer.cls_id
-            input_ids[r, 1] = self.tokenizer.sep_id
-            mask[r, :2] = 1
+        # Padding rows get a bare [CLS][SEP] (or the closing special alone)
+        # so normalization never sees zeros.
+        row = self.padding_row()
+        input_ids[n:, :len(row)] = row
+        mask[n:, :len(row)] = 1
         return input_ids, mask, real
+
+    def padding_row(self) -> list[int]:
+        """The ids of a bare row: [CLS][SEP], or a tokenizer's closing
+        special alone where its template has no leading one."""
+        tok = self.tokenizer
+        if getattr(tok, "lead", True):
+            return [tok.cls_id, tok.sep_id]
+        return [tok.sep_id]
 
     def tokenize_texts(self, texts: Sequence[str], prompt: str = ""
                        ) -> list[list[int]]:
@@ -218,10 +268,14 @@ class SentenceEncoder:
                 ) -> torch.Tensor:
         """Enqueue one forward of a padded (B, S) batch; -> (B, H) unit
         vectors on the device, without waiting. While a capture runs, a
-        model whose spans count real tokens (ModernBERT) also gets the
+        model whose spans count real tokens (host_lengths) also gets the
         rows' lengths from the host."""
         extra = ({"lengths": mask.sum(axis=1)}
-                 if SPANS.on and self._host_lengths else {})
+                 if SPANS.on and self.model.host_lengths else {})
+        if self.model.pools:
+            with torch.inference_mode():
+                return self.model(*self.to_device(input_ids, mask),
+                                  mask_padding=self.mask_padding, **extra)
         return encode_batch(self.model, *self.to_device(input_ids, mask),
                             mask_padding=self.mask_padding,
                             include_padding=self.include_padding_in_pool,
@@ -229,21 +283,21 @@ class SentenceEncoder:
 
     def warmup(self, max_batch: int = 256) -> int:
         """Run one forward on every (seq bucket, batch bucket <= max_batch)
-        of bare [CLS][SEP] rows (dawnsearch_tpu/models/encoder.py:146-163),
-        then synchronize once. On a card this builds and loads the kernels
-        and grows the caching allocator before the first request. Buckets
-        past max_batch (bulk-ingest sizes), and on a long grid those past
-        TOKEN_BUDGET (no dispatch takes them), are left cold. Returns the
-        number of shapes run."""
+        of bare rows (padding_row; dawnsearch_tpu/models/encoder.py:
+        146-163), then synchronize once. On a card this builds and loads
+        the kernels and grows the caching allocator before the first
+        request. Buckets past max_batch (bulk-ingest sizes), and on a long
+        grid those past token_budget (no dispatch takes them), are left
+        cold. Returns the number of shapes run."""
         shapes = [(bsz, seq) for seq in self.seq_buckets
                   for bsz in self.batch_buckets if bsz <= max_batch
-                  and (not self.long_grid or bsz * seq <= TOKEN_BUDGET)]
+                  and (not self.long_grid or bsz * seq <= self.token_budget)]
+        row = self.padding_row()
         for bsz, seq in shapes:
             ids = np.full((bsz, seq), self.tokenizer.pad_id, np.int32)
-            ids[:, 0] = self.tokenizer.cls_id
-            ids[:, 1] = self.tokenizer.sep_id
+            ids[:, :len(row)] = row
             mask = np.zeros((bsz, seq), np.int32)
-            mask[:, :2] = 1
+            mask[:, :len(row)] = 1
             self.forward(ids, mask)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -183,6 +183,16 @@ class ModernBertModel(nn.Module):
     `lengths` the real tokens `real` and the keys they attend to `keys`)
     and its FFN `encoder.ffn` (B, S), while a capture runs."""
 
+    pools = False  # encode_batch mean-pools (K8) the last hidden state
+    host_lengths = True  # the spans' real tokens and keys (forward)
+
+    @staticmethod
+    def token_flops(cfg: BertConfig) -> int:
+        """Model FLOPs of one token's projections through every layer:
+        QKV, output and the gated FFN (GeGLU's Wi is 2·I wide)."""
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        return 2 * cfg.num_layers * (4 * H * H + 3 * H * I)
+
     def __init__(self, cfg: BertConfig, params: Params, *, device):
         super().__init__()
         self.cfg = cfg

@@ -47,11 +47,22 @@ _PRETOKEN_PATTERN = (
 )
 
 
-@functools.lru_cache(maxsize=1)
-def _pattern():
+# Qwen2's Split pattern (Qwen3's tokenizer.json): case-insensitive
+# contractions, a letter run with one leading non-letter, single digits,
+# punctuation runs with their newlines, newline runs
+QWEN2_PATTERN = (
+    r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
+    r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
+)
+# the pre-tokenizers this reader takes, by name
+PATTERNS = {"gpt2": _PRETOKEN_PATTERN, "qwen2": QWEN2_PATTERN}
+
+
+@functools.lru_cache(maxsize=2)
+def _pattern(kind: str = "gpt2"):
     import regex
 
-    return regex.compile(_PRETOKEN_PATTERN)
+    return regex.compile(PATTERNS[kind])
 
 
 @functools.lru_cache(maxsize=1)
@@ -105,15 +116,18 @@ _NORMALIZERS = ("NFC", "NFD", "NFKC", "NFKD")
 def read_tokenizer_json(path: str) -> tuple[dict[str, int],
                                             list[tuple[str, str]], dict]:
     """A `tokenizers` tokenizer.json of a byte-level BPE (ModernBERT's,
-    GPT-2's) -> (vocab, merges, options). The vocab is the model's plus
-    the added tokens (so the specials resolve by name); merges are read
-    as "a b" strings or ["a", "b"] pairs. options: cls_id and sep_id from
-    the post-processor (TemplateProcessing: the special before and after
-    $A; RobertaProcessing: cls and sep), add_prefix_space from the
-    ByteLevel pre-tokenizer, and the normalizer (NFC, NFD, NFKC, NFKD or
-    None; any other is refused). Special tokens written in a text are not
-    split out of it before the BPE, as `tokenizers` would: a deployment's
-    page text does not hold them."""
+    GPT-2's, Qwen3's) -> (vocab, merges, options). The vocab is the
+    model's plus the added tokens (so the specials resolve by name);
+    merges are read as "a b" strings or ["a", "b"] pairs. options: cls_id
+    and sep_id from the post-processor (TemplateProcessing: the special
+    before and after $A, and `lead` False where none comes before, as in
+    Qwen3's `$A <|endoftext|>`; RobertaProcessing: cls and sep),
+    add_prefix_space from the ByteLevel pre-tokenizer, `pretokenizer`
+    "qwen2" for a Split on Qwen2's pattern before a ByteLevel without its
+    regex (any other Split is refused), and the normalizer (NFC, NFD,
+    NFKC, NFKD or None; any other is refused). Special tokens written in a
+    text are not split out of it before the BPE, as `tokenizers` would: a
+    deployment's page text does not hold them."""
     with open(path, encoding="utf-8") as f:
         data = json.load(f)
     model = data.get("model") or {}
@@ -144,13 +158,25 @@ def read_tokenizer_json(path: str) -> tuple[dict[str, int],
     for node in parts(data.get("pre_tokenizer"), "pre"):
         if node.get("type") == "ByteLevel":
             opts["add_prefix_space"] = bool(node.get("add_prefix_space"))
+        elif node.get("type") == "Split":
+            pat = (node.get("pattern") or {}).get("Regex")
+            if pat != QWEN2_PATTERN or node.get("behavior") != "Isolated" \
+                    or node.get("invert"):
+                raise ValueError(f"{path}: a Split pre-tokenizer on "
+                                 f"{pat!r} is not supported (only Qwen2's "
+                                 "pattern, isolated)")
+            opts["pretokenizer"] = "qwen2"
     for node in parts(data.get("post_processor"), "post"):
         if node.get("type") == "TemplateProcessing":
             specials = node.get("special_tokens", {})
-            seq = [s["SpecialToken"]["id"] for s in node.get("single", [])
+            single = node.get("single", [])
+            seq = [s["SpecialToken"]["id"] for s in single
                    if "SpecialToken" in s]
             if seq:
-                opts["cls_id"] = specials[seq[0]]["ids"][0]
+                if "SpecialToken" in single[0]:
+                    opts["cls_id"] = specials[seq[0]]["ids"][0]
+                else:
+                    opts["lead"] = False
                 opts["sep_id"] = specials[seq[-1]]["ids"][0]
         elif node.get("type") == "RobertaProcessing":
             opts["cls_id"], opts["sep_id"] = node["cls"][1], node["sep"][1]
@@ -165,23 +191,40 @@ class ByteLevelBPETokenizer:
     `normalizer` (NFC, ...) and `add_prefix_space` (a space before a text
     that does not start with one) apply to each text before the
     pre-tokenizer, as a tokenizer.json's normalizer and ByteLevel
-    pre-tokenizer do."""
+    pre-tokenizer do; `pretokenizer` names its pattern (PATTERNS). With
+    lead=False a text's ids are its pieces and sep_id (Qwen3's `$A
+    <|endoftext|>`), and a vocab without a pad or unk token pads with
+    sep_id (a byte-level BPE never needs unk)."""
 
     def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
                  cls_id: int | None = None, sep_id: int | None = None,
                  add_prefix_space: bool = False,
-                 normalizer: str | None = None):
+                 normalizer: str | None = None, lead: bool = True,
+                 pretokenizer: str = "gpt2"):
         self.vocab = vocab
         self.inv_vocab = {i: t for t, i in vocab.items()}
         self.ranks = {pair: i for i, pair in enumerate(merges)}
-        self.pad_id = special_id(vocab, PAD)
-        self.unk_id = special_id(vocab, UNK)
-        self.cls_id = special_id(vocab, CLS) if cls_id is None else cls_id
+        self.lead = lead
+        self.pretokenizer = pretokenizer
         self.sep_id = special_id(vocab, SEP) if sep_id is None else sep_id
+        if lead:
+            self.cls_id = special_id(vocab, CLS) if cls_id is None else cls_id
+            self.pad_id = special_id(vocab, PAD)
+            self.unk_id = special_id(vocab, UNK)
+        else:
+            self.cls_id = self.sep_id if cls_id is None else cls_id
+            self.pad_id = self._named(PAD)
+            self.unk_id = self._named(UNK)
         self.add_prefix_space = add_prefix_space
         self.normalizer = normalizer
         self._b2u = byte_to_unicode()
         self._cache: dict[str, list[str]] = {}
+
+    def _named(self, tok: str) -> int:
+        try:
+            return special_id(self.vocab, tok)
+        except ValueError:
+            return self.sep_id
 
     @classmethod
     def from_json(cls, path: str) -> "ByteLevelBPETokenizer":
@@ -275,17 +318,22 @@ class ByteLevelBPETokenizer:
         bucket will drop."""
         pieces: list[str] = []
         b2u = self._b2u
-        for m in _pattern().finditer(self.prepare(text)):
+        for m in _pattern(self.pretokenizer).finditer(self.prepare(text)):
             mapped = "".join(b2u[b] for b in m.group().encode("utf-8"))
             pieces.extend(self._bpe(mapped))
             if max_pieces is not None and len(pieces) >= max_pieces:
                 break
         return pieces
 
+    @property
+    def n_specials(self) -> int:
+        return 2 if self.lead else 1
+
     def encode(self, text: str, max_len: int | None = None) -> list[int]:
-        """<s> pieces </s>, truncated to max_len total (HF
-        truncation=True keeps the first max_len-2 pieces likewise)."""
-        cap = None if max_len is None else max(max_len - 2, 0)
+        """<s> pieces </s> (pieces </s> without a leading special),
+        truncated to max_len total (HF truncation=True keeps the first
+        max_len less the specials pieces likewise, and the specials)."""
+        cap = None if max_len is None else max(max_len - self.n_specials, 0)
         return self._specials(self.tokenize(text, max_pieces=cap), cap)
 
     def encode_counted(self, text: str, max_len: int | None = None
@@ -293,12 +341,12 @@ class ByteLevelBPETokenizer:
         """encode(text, max_len), and the length of the ids uncut: the
         pieces past the cut are merged too, once, only to count them."""
         pieces = self.tokenize(text)
-        cap = None if max_len is None else max(max_len - 2, 0)
-        return self._specials(pieces, cap), len(pieces) + 2
+        cap = None if max_len is None else max(max_len - self.n_specials, 0)
+        return self._specials(pieces, cap), len(pieces) + self.n_specials
 
     def _specials(self, pieces: list[str], cap: int | None) -> list[int]:
         ids = [self.vocab.get(t, self.unk_id) for t in pieces[:cap]]
-        return [self.cls_id] + ids + [self.sep_id]
+        return ([self.cls_id] if self.lead else []) + ids + [self.sep_id]
 
     def decode(self, ids: list[int], skip_special: bool = True) -> str:
         special = {self.pad_id, self.cls_id, self.sep_id}

@@ -64,6 +64,7 @@ class NativeByteLevelBPETokenizer:
         py = ByteLevelBPETokenizer(vocab, [], **options)
         self.pad_id, self.unk_id = py.pad_id, py.unk_id
         self.cls_id, self.sep_id = py.cls_id, py.sep_id
+        self.lead = py.lead
         self._prepare = py.prepare if (py.normalizer or
                                        py.add_prefix_space) else None
 
@@ -90,6 +91,9 @@ class NativeByteLevelBPETokenizer:
             self.unk_id, self.cls_id, self.sep_id)
         if not self._handle:
             raise RuntimeError("dawn_bpe_new rejected the vocab/merges blob")
+        lib.dawn_bpe_configure(self._handle,
+                               1 if py.pretokenizer == "qwen2" else 0,
+                               1 if py.lead else 0)
 
     @classmethod
     def from_json(cls, path: str) -> "NativeByteLevelBPETokenizer":

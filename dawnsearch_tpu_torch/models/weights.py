@@ -104,12 +104,28 @@ def params_from_numpy(tree: Mapping[str, Any]) -> Params:
 
 # -- safetensors ----------------------------------------------------------
 
-def read_safetensors(path: str, bf16: bool = False
+class Bf16:
+    """A BF16 safetensors tensor left as its bits: a read-only uint16
+    memory map, which `torch()` copies once into a bf16 tensor (the host
+    never holds it widened to f32)."""
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = bits
+        self.shape = bits.shape
+
+    def torch(self) -> torch.Tensor:
+        return torch.from_numpy(self.bits.view(np.int16).copy()).view(
+            torch.bfloat16)
+
+
+def read_safetensors(path: str, bf16: bool | str = False
                      ) -> dict[str, np.ndarray]:
     """Every tensor of a safetensors file, as read-only numpy arrays over a
     memory map (nothing is copied until a caller converts). bf16=True
     also reads BF16 tensors, widened to f32 (a copy): ModernBERT
-    checkpoints are published in BF16."""
+    checkpoints are published in BF16. bf16="bits" reads them as Bf16
+    (no copy), for a model that moves them to its card one at a time
+    (Qwen3's 15 GB)."""
     size = os.path.getsize(path)
     with open(path, "rb") as f:
         head = f.read(8)
@@ -132,7 +148,11 @@ def read_safetensors(path: str, bf16: bool = False
                     end - begin != 2 * int(np.prod(shape)):
                 raise ValueError(f"{path}: tensor {name!r} ({tag} {shape}) "
                                  f"has bad data_offsets {info['data_offsets']}")
-            bits = data[begin:end].view("<u2").astype(np.uint32) << 16
+            u16 = data[begin:end].view("<u2").reshape(shape)
+            if bf16 == "bits":
+                out[name] = Bf16(u16)
+                continue
+            bits = u16.reshape(-1).astype(np.uint32) << 16
             out[name] = bits.view(np.float32).reshape(shape)
             continue
         if tag not in ST_DTYPES:
@@ -325,10 +345,13 @@ def config_from_hf(model_dir: str) -> BertConfig | None:
     if model_type == "modernbert":
         from dawnsearch_tpu_torch.models import modernbert
         return modernbert.config_from_hf(hf, path)
+    if model_type == "qwen3":
+        from dawnsearch_tpu_torch.models import qwen3
+        return qwen3.config_from_hf(hf, path)
     if model_type not in ("bert", "mpnet", "roberta"):
         raise ValueError(f"{path}: model_type={model_type!r} is not a "
                          "supported encoder family (bert, mpnet, roberta, "
-                         "modernbert)")
+                         "modernbert, qwen3)")
     act = hf.get("hidden_act", "gelu")
     if act != "gelu":
         raise ValueError(
@@ -367,8 +390,11 @@ def load_params(model_dir: str | None, cfg: BertConfig | None = None,
     if cfg is None:
         cfg = MINILM_L6
     modern = cfg.model_type == "modernbert"
+    qwen = cfg.model_type == "qwen3"
     if modern:
         from dawnsearch_tpu_torch.models import modernbert
+    if qwen:
+        from dawnsearch_tpu_torch.models import qwen3
     if model_dir:
         for cand in ("model.safetensors", "pytorch_model.safetensors"):
             p = os.path.join(model_dir, cand)
@@ -376,8 +402,13 @@ def load_params(model_dir: str | None, cfg: BertConfig | None = None,
                 if modern:
                     return modernbert.from_hf_tensors(
                         read_safetensors(p, bf16=True), cfg), True, cfg
+                if qwen:
+                    return qwen3.from_hf_tensors(
+                        read_safetensors(p, bf16="bits"), cfg), True, cfg
                 return load_safetensors(p, cfg), True, cfg
     gen = torch.Generator().manual_seed(seed)
     if modern:
         return modernbert.init_params(gen, cfg), False, cfg
+    if qwen:
+        return qwen3.init_params(gen, cfg), False, cfg
     return init_params(gen, cfg), False, cfg

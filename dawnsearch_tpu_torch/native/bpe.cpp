@@ -18,8 +18,16 @@
 //    merges spellings to raw bytes ONCE at construction; this file
 //    never touches the mapping and works on byte strings throughout.
 //
+// A second scanner compiles Qwen2's Split pattern (Qwen3's tokenizer.json,
+// `tokenizers` Split then ByteLevel without its regex):
+//      (?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}
+//      | ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+
+// and a template may lack the leading special ($A <|endoftext|>):
+// dawn_bpe_configure picks both.
+//
 // C ABI (ctypes):
 //   dawn_bpe_new(vocab_blob, vlen, merges_blob, mlen, unk, cls, sep)
+//   dawn_bpe_configure(h, pattern (0 GPT-2, 1 Qwen2), lead (0 or 1))
 //     vocab blob:  u32 n, then n x [i32 id][u32 len][bytes]
 //     merges blob: u32 m, then m x [u32 la][bytes a][u32 lb][bytes b]
 //                  (rank = position)
@@ -158,6 +166,101 @@ void pretokenize(const uint8_t *s, size_t len, std::vector<ByteRange> &out) {
   }
 }
 
+// Hand-compiled Qwen2 pre-tokenizer (the pattern in the header), each
+// alternative tried in order at each position as the regex engine does.
+bool is_crlf(uint32_t cp) { return cp == '\r' || cp == '\n'; }
+
+// the end of the run of codepoints from i that `ok` accepts
+template <class F>
+size_t run_end(const uint8_t *s, size_t len, size_t i, F ok) {
+  while (i < len) {
+    size_t k = i;
+    if (!ok(decode(s, len, k))) break;
+    i = k;
+  }
+  return i;
+}
+
+void pretokenize_qwen2(const uint8_t *s, size_t len,
+                       std::vector<ByteRange> &out) {
+  auto letter = [](uint32_t c) { return (bpe_class(c) & kBpeL) != 0; };
+  auto other = [](uint32_t c) {
+    return (bpe_class(c) & (kBpeL | kBpeN | kBpeS)) == 0;
+  };
+  auto space = [](uint32_t c) { return (bpe_class(c) & kBpeS) != 0; };
+  size_t i = 0;
+  while (i < len) {
+    // alt 1: a contraction, ASCII case-insensitive
+    if (s[i] == '\'' && i + 1 < len) {
+      static const char *kSuf[] = {"s", "t", "re", "ve", "m", "ll", "d"};
+      size_t n = 0;
+      for (const char *suf : kSuf) {
+        size_t m = strlen(suf);
+        if (i + 1 + m > len) continue;
+        bool eq = true;
+        for (size_t k = 0; k < m && eq; ++k)
+          eq = (s[i + 1 + k] | 0x20) == (uint8_t)suf[k];
+        if (eq) { n = 1 + m; break; }
+      }
+      if (n) { out.push_back({i, i + n}); i += n; continue; }
+    }
+    size_t j = i;
+    const uint32_t c0 = decode(s, len, j);  // j past the first codepoint
+    // alt 2: [^\r\n\p{L}\p{N}]?\p{L}+
+    if (letter(c0)) {
+      size_t e = run_end(s, len, j, letter);
+      out.push_back({i, e});
+      i = e;
+      continue;
+    }
+    if (!is_crlf(c0) && !(bpe_class(c0) & kBpeN) && j < len) {
+      size_t k = j;
+      if (letter(decode(s, len, k))) {
+        size_t e = run_end(s, len, k, letter);
+        out.push_back({i, e});
+        i = e;
+        continue;
+      }
+    }
+    // alt 3: one \p{N}
+    if (bpe_class(c0) & kBpeN) { out.push_back({i, j}); i = j; continue; }
+    // alt 4: ' ?[^\s\p{L}\p{N}]+[\r\n]*'
+    size_t o = i;
+    if (c0 == ' ' && j < len) {
+      size_t k = j;
+      if (other(decode(s, len, k))) o = j;
+    }
+    {
+      size_t k = o;
+      if (k < len && other(decode(s, len, k))) {
+        size_t e = run_end(s, len, o, other);
+        e = run_end(s, len, e, is_crlf);
+        out.push_back({i, e});
+        i = e;
+        continue;
+      }
+    }
+    // c0 is whitespace. alt 5: \s*[\r\n]+ ends after the run's last
+    // \r or \n
+    const size_t e = run_end(s, len, i, space);
+    size_t nl = 0;  // one past the last \r / \n in [i, e)
+    for (size_t k = i; k < e;) {
+      const uint32_t c = decode(s, len, k);
+      if (is_crlf(c)) nl = k;
+    }
+    if (nl) { out.push_back({i, nl}); i = nl; continue; }
+    // alt 6: \s+(?!\S) gives the run's last codepoint back before a
+    // non-space; alt 7: \s+ takes a single one
+    if (e < len) {
+      size_t last = i, scan = i;
+      while (scan < e) { last = scan; decode(s, len, scan); }
+      if (last > i) { out.push_back({i, last}); i = last; continue; }
+    }
+    out.push_back({i, e});
+    i = e;
+  }
+}
+
 struct StringPairHash {
   size_t operator()(const std::pair<std::string, std::string> &p) const {
     std::hash<std::string> h;
@@ -171,6 +274,8 @@ struct BpeTokenizer {
   std::unordered_map<std::pair<std::string, std::string>, int, StringPairHash>
       ranks;
   int unk_id = 0, cls_id = 0, sep_id = 0;
+  int pattern = 0;    // 0: GPT-2's pre-tokenizer, 1: Qwen2's
+  bool lead = true;   // the template opens with cls_id
 
   mutable std::mutex cache_mu;
   mutable std::unordered_map<std::string, std::vector<int>> cache;
@@ -282,24 +387,35 @@ void *dawn_bpe_new(const uint8_t *vocab_blob, long vlen,
   return t;
 }
 
-// -> ids written to out_ids: <s> pieces </s>, pieces capped at
-// max_len-2 (tokenizer_bpe.py encode: cap = max(max_len-2, 0)). With
-// n_full, the pre-tokens past the cap are merged too, only to count
-// them: *n_full is the length of the uncut <s> pieces </s>.
+void dawn_bpe_configure(void *handle, int32_t pattern, int32_t lead) {
+  auto *t = (BpeTokenizer *)handle;
+  t->pattern = pattern;
+  t->lead = lead != 0;
+}
+
+// -> ids written to out_ids: <s> pieces </s> (pieces </s> without a
+// leading special), pieces capped at max_len less the specials
+// (tokenizer_bpe.py encode: cap = max(max_len-2, 0)). With n_full, the
+// pre-tokens past the cap are merged too, only to count them: *n_full is
+// the length of the uncut ids.
 long dawn_bpe_encode(void *handle, const char *text, long len, long max_len,
                      int32_t *out_ids, long *n_full) {
   auto *t = (const BpeTokenizer *)handle;
-  long cap = max_len - 2 > 0 ? max_len - 2 : 0;
+  const long lead = t->lead ? 1 : 0;
+  long cap = max_len - 1 - lead > 0 ? max_len - 1 - lead : 0;
   std::vector<ByteRange> pre;
-  pretokenize((const uint8_t *)text, (size_t)len, pre);
+  if (t->pattern == 1)
+    pretokenize_qwen2((const uint8_t *)text, (size_t)len, pre);
+  else
+    pretokenize((const uint8_t *)text, (size_t)len, pre);
   std::vector<int> ids;
   ids.reserve((size_t)cap + 2);
-  ids.push_back(t->cls_id);
+  if (lead) ids.push_back(t->cls_id);
   size_t k = 0;
-  for (; k < pre.size() && (long)ids.size() - 1 < cap; ++k)
+  for (; k < pre.size() && (long)ids.size() - lead < cap; ++k)
     t->bpe(std::string(text + pre[k].begin, pre[k].end - pre[k].begin), ids);
   if (n_full) {
-    long pieces = (long)ids.size() - 1;
+    long pieces = (long)ids.size() - lead;
     std::vector<int> rest;
     for (; k < pre.size(); ++k) {
       rest.clear();
@@ -307,9 +423,9 @@ long dawn_bpe_encode(void *handle, const char *text, long len, long max_len,
              rest);
       pieces += (long)rest.size();
     }
-    *n_full = pieces + 2;
+    *n_full = pieces + 1 + lead;
   }
-  if ((long)ids.size() > cap + 1) ids.resize(cap + 1);
+  if ((long)ids.size() > cap + lead) ids.resize(cap + lead);
   ids.push_back(t->sep_id);
   for (size_t k = 0; k < ids.size(); ++k) out_ids[k] = ids[k];
   return (long)ids.size();

@@ -135,10 +135,12 @@ def make_encoder(cfg: Config):
                         "merges.txt: tokenization will not match the "
                         "checkpoint")
     if pretrained and (all(bpe_files) or tok_json or vocab_path) and \
+            bert_cfg.model_type != "qwen3" and \
             tok.pad_id != bert_cfg.pad_token_id:
         # the encoder pads with the tokenizer's pad id, and RoBERTa's and
         # MPNet's position ids are offset from config.json's: a checkpoint
-        # whose files disagree is refused
+        # whose files disagree is refused (Qwen3's config.json names no
+        # pad: it pads with <|endoftext|>, masked, and has no position ids)
         raise ValueError(
             f"tokenizer pad id {tok.pad_id} != config.json pad_token_id "
             f"{bert_cfg.pad_token_id}: mismatched checkpoint files in "
@@ -363,7 +365,9 @@ class DawnNode:
             workers=self.cfg.ingest_workers,
             max_text=self.cfg.ingest_max_text_chars,
             rate_limit=self.cfg.ingest_rate_limit,
-            query_idle_s=self.cfg.ingest_query_idle_s)
+            query_idle_s=self.cfg.ingest_query_idle_s,
+            # a SentenceEncoder's; an encoder without one counts pages
+            insert_tokens=getattr(self.encoder, "insert_tokens", None))
         self.extractor.start()
 
     def _schedule_save(self) -> None:

@@ -3,9 +3,9 @@
 Shared libraries with a plain C interface, compiled by nvcc for sm_90a at
 first use and loaded with ctypes: `lib()` holds csrc/*.cu, the kernels of
 the BERT, MPNet and RoBERTa families and the index; `long_lib()` holds
-csrc/long/*.cu, ModernBERT's long-context kernels (ops/modernbert.py),
-built only when a ModernBERT model is built, so a node of another family
-never compiles them. A build is keyed on a hash of its sources, the
+csrc/long/*.cu, the long-context kernels of ModernBERT (ops/modernbert.py)
+and Qwen3 (ops/qwen3.py), built only when such a model is built, so a node
+of another family never compiles them. A build is keyed on a hash of its sources, the
 headers they include (csrc/*.cuh, and csrc/long/*.cuh for the long set)
 and the flags, so a fresh checkout builds once and every later process (a
 node, a test, chip_smoke.py) loads the cached library. The libraries land
@@ -181,8 +181,9 @@ def lib() -> ctypes.CDLL:
 
 
 def long_lib() -> ctypes.CDLL:
-    """The loaded library of ModernBERT's kernels, csrc/long/*.cu (built
-    on first call; ops/modernbert.py documents its entries)."""
+    """The loaded library of the long-context kernels, csrc/long/*.cu
+    (built on first call; ops/modernbert.py and ops/qwen3.py document its
+    entries)."""
     global _long_lib
     with _lock:
         if _long_lib is None:
@@ -192,8 +193,16 @@ def long_lib() -> ctypes.CDLL:
             cdll.dawn_long_gemm.argtypes = [p, p, i, p, p, p, p, p, p, i, i,
                                             i, i, i, f, p]
             cdll.dawn_long_attention.argtypes = [p, p, p, i, i, i, i, i, f, p]
+            cdll.dawn_qwen3_gemm.argtypes = [p, p, i, p, p, p, p, p, p, p,
+                                             p, p, p, i, i, i, i, i, i, i,
+                                             f, p]
+            cdll.dawn_qwen3_attention.argtypes = [p, p, p, i, i, i, i, f, p]
+            cdll.dawn_qwen3_embed.argtypes = [p, p, p, p, p, p, i, i, i, p]
+            cdll.dawn_qwen3_last_pool.argtypes = [p, p, p, p, i, i, i, f, p]
             for fn in (cdll.dawn_long_embed_ln, cdll.dawn_long_gemm,
-                       cdll.dawn_long_attention):
+                       cdll.dawn_long_attention, cdll.dawn_qwen3_gemm,
+                       cdll.dawn_qwen3_attention, cdll.dawn_qwen3_embed,
+                       cdll.dawn_qwen3_last_pool):
                 fn.restype = i
             _long_lib = cdll
         return _long_lib

@@ -130,6 +130,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dawn_bpe_encode.argtypes = [p, c, n, n, out, ctypes.POINTER(n)]
     lib.dawn_bpe_free.restype = None
     lib.dawn_bpe_free.argtypes = [p]
+    lib.dawn_bpe_configure.restype = None
+    lib.dawn_bpe_configure.argtypes = [p, i32, i32]
     # HTML extraction (extract.cpp)
     lib.dawn_extract.restype = p
     lib.dawn_extract.argtypes = [c, n, ctypes.POINTER(n)]

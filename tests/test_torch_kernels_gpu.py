@@ -1614,3 +1614,237 @@ def test_modernbert_on_the_card_matches_its_cpu_route(cuda):
     want = bert.encode_batch(M.ModernBertModel(cpu_cfg, params,
                                                device="cpu"), ids, mask)
     assert float(_rowcos(card, want).min()) >= 0.999
+
+
+# -- Qwen3's kernels (csrc/long/qwen3.cu and gemm_long.cu's EPI_QKN,
+# EPI_SWIGLU, EPI_RMS; ops/qwen3.py) ---------------------------------------
+# Each against its plain twin on the same bf16 operands, at the published
+# widths (H 4,096, 32 q heads and 8 kv heads of 128, I 12,288) and at
+# small ones whose column tiles mix a k and a v head (H 256: 2 q heads
+# over 1 kv head) or pair 2 q heads a kv head (H 512): the GEMM epilogues
+# at per-row cosine >= 0.9999 on every tile path of the persistent
+# schedule; the causal attention at per-row cosine >= 0.999 at S 16 to
+# 8,192 with ragged lengths at the edges of the 32-position query blocks
+# and 128-key tiles, every group size it takes (1, 2, 4, 8), bit-equal
+# whatever the rows past each length hold and from launch to launch; the
+# embedding and the last-token pool within 1e-5.
+
+def _q3():
+    from dawnsearch_tpu_torch.ops import qwen3
+    return qwen3
+
+
+def _q3_operands(cuda, M, H, nh, nkv, I):
+    g = torch.Generator(device=cuda).manual_seed(M + H)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * std
+    bf = torch.bfloat16
+    x = rnd(M, H) * 3.0
+    q3 = _q3()
+    return {"x": x, "a": x.to(bf), "ssq": (x * x).view(M, q3.parts(H), -1)
+            .sum(-1), "wqkv": rnd(H, (nh + 2 * nkv) * 128, std=0.02).to(bf),
+            "wgu": rnd(H, 2 * I, std=0.02).to(bf),
+            "wo": rnd(nh * 128, H, std=0.02).to(bf),
+            "wd": rnd(I, H, std=0.02).to(bf), "ctx": rnd(M, nh * 128).to(bf),
+            "g": rnd(M, I).to(bf), "qn": 1.0 + rnd(128, std=0.1),
+            "kn": 1.0 + rnd(128, std=0.1), "s": 1.0 + rnd(H, std=0.1),
+            "table": rnd(1000, H).to(bf)}
+
+
+QWEN3_WIDTHS = [(4096, 32, 8, 12288), (256, 2, 1, 384), (512, 4, 2, 768)]
+
+
+@pytest.mark.parametrize("H,nh,nkv,I", QWEN3_WIDTHS)
+@pytest.mark.parametrize("M,S", [(3 * 128, 128), (400, 16),
+                                 (131 * 128 + 16, 16), (64 * 128, 8192)])
+def test_qwen3_gemm_epilogues_match_plain(cuda, M, S, H, nh, nkv, I):
+    q3 = _q3()
+    mb = _mb()
+    o = _q3_operands(cuda, M, H, nh, nkv, I)
+    cos, sin = mb.rope_tables(8192, 128, 1e6, cuda)
+    got = q3.qkv_norm_rope(o["a"], o["ssq"], o["wqkv"], o["qn"], o["kn"],
+                           cos, sin, S, nh, nkv, 1e-6)
+    want = q3.qkv_norm_rope_plain(o["a"], o["ssq"], o["wqkv"], o["qn"],
+                                  o["kn"], cos, sin, S, nh, nkv, 1e-6)
+    assert float(_rowcos(got, want).min()) >= 0.9999
+    got = q3.swiglu(o["a"], o["ssq"], mb.interleave_gate(o["wgu"]), 1e-6)
+    want = q3.swiglu_plain(o["a"], o["ssq"], o["wgu"], 1e-6)
+    assert float(_rowcos(got, want).min()) >= 0.9999
+    for a, w in ((o["ctx"], o["wo"]), (o["g"], o["wd"])):  # K 4,096, 12,288
+        h, y, sq = q3.resid_rms(a, w, o["x"], o["s"])
+        h2, y2, sq2 = q3.resid_rms_plain(a, w, o["x"], o["s"])
+        assert float((h - h2).abs().max()) <= 1e-3
+        assert float(_rowcos(y, y2).min()) >= 0.9999
+        assert torch.allclose(sq, sq2, rtol=1e-4)
+    ids = torch.randint(0, 1000, (M,), device=cuda)
+    x, a, sq = q3.embed(o["table"], ids, o["s"], torch.bfloat16)
+    x2, a2, sq2 = q3.embed_plain(o["table"], ids, o["s"], torch.bfloat16)
+    assert torch.equal(x, x2) and torch.equal(a, a2)
+    assert torch.allclose(sq, sq2, rtol=1e-5)
+
+
+@pytest.mark.parametrize("M,S", [(400, 16), (300 * 128, 128)])
+def test_qwen3_gemm_launches_give_the_same_bits(cuda, M, S):
+    q3 = _q3()
+    o = _q3_operands(cuda, M, 4096, 32, 8, 12288)
+    cos, sin = _mb().rope_tables(8192, 128, 1e6, cuda)
+    wgu = _mb().interleave_gate(o["wgu"])
+    calls = {
+        "qkn": lambda: (q3.qkv_norm_rope(o["a"], o["ssq"], o["wqkv"],
+                                         o["qn"], o["kn"], cos, sin, S, 32,
+                                         8, 1e-6),),
+        "swiglu": lambda: (q3.swiglu(o["a"], o["ssq"], wgu, 1e-6),),
+        "rms": lambda: q3.resid_rms(o["g"], o["wd"], o["x"], o["s"])}
+    for name, call in calls.items():
+        first, again = call(), call()
+        assert all(torch.equal(u, v) for u, v in zip(first, again)), name
+
+
+@pytest.mark.parametrize("B,S,nh,nkv,lens", [
+    (3, 128, 32, 8, (128, 77, 2)), (2, 1024, 32, 8, (1024, 613)),
+    (2, 8192, 32, 8, (8192, 3001)), (3, 16, 32, 8, (16, 1, 0)),
+    (3, 48, 4, 2, (48, 47, 17)), (4, 96, 2, 1, (96, 65, 64, 95)),
+    (9, 1536, 8, 1, (1536, 1, 31, 32, 33, 127, 128, 129, 1535)),
+    (3, 6144, 4, 4, (6144, 0, 6143)), (2, 8192, 16, 8, (8191, 129))])
+def test_qwen3_attention_matches_plain(cuda, B, S, nh, nkv, lens):
+    q3 = _q3()
+    g = torch.Generator(device=cuda).manual_seed(S + nh)
+    qkv = (torch.randn((B * S, (nh + 2 * nkv) * 128), generator=g,
+                       device=cuda) * 1.5).to(torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = q3.attention(qkv, lengths, B, S, nh, nkv)
+    live = (torch.arange(S, device=cuda)[None] < lengths[:, None].long()
+            ).reshape(-1)
+    assert torch.isfinite(got).all()
+    assert not got[~live].any()
+    # the twin a sequence at a time (its (B, nh, S, S) scores)
+    for b, n in enumerate(lens):
+        if n == 0:
+            continue
+        rows = slice(b * S, b * S + n)
+        want = q3.attention_plain(qkv[rows], lengths[b:b + 1], 1, n, nh,
+                                  nkv)
+        assert float(_rowcos(got[rows], want).min()) >= 0.999, (b, n)
+
+
+def test_qwen3_attention_ignores_rows_past_each_length(cuda):
+    q3 = _q3()
+    for B, S, nh, nkv, lens in ((4, 96, 32, 8, (96, 0, 1, 65)),
+                                (4, 1536, 32, 8, (1535, 129, 128, 700)),
+                                (2, 8192, 32, 8, (8191, 4000))):
+        g = torch.Generator(device=cuda).manual_seed(S)
+        qkv = (torch.randn((B * S, (nh + 2 * nkv) * 128), generator=g,
+                           device=cuda) * 1.5).to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        past = (torch.arange(S, device=cuda)[None] >= lengths[:, None].long()
+                ).reshape(-1)
+        zero = qkv.clone()
+        zero[past] = 0.0
+        nan = qkv.clone()
+        nan[past] = float("nan")
+        want = q3.attention(zero, lengths, B, S, nh, nkv)
+        got = q3.attention(nan, lengths, B, S, nh, nkv)
+        again = q3.attention(nan, lengths, B, S, nh, nkv)
+        assert torch.isfinite(want).all()
+        assert torch.equal(got, want), S
+        assert torch.equal(again, got), S
+        assert not got[past].any()
+
+
+@pytest.mark.parametrize("B,S,H", [(3, 16, 4096), (5, 8192, 4096),
+                                   (2, 48, 256)])
+def test_qwen3_last_pool_matches_plain(cuda, B, S, H):
+    q3 = _q3()
+    g = torch.Generator(device=cuda).manual_seed(S)
+    x = torch.randn((B * S, H), generator=g, device=cuda) * 5.0
+    w = 1.0 + 0.1 * torch.randn(H, generator=g, device=cuda)
+    lens = torch.tensor([S, 1, 7, S - 1, 3][:B], dtype=torch.int32,
+                        device=cuda)
+    got = q3.last_pool(x, lens, S, w, 1e-6)
+    want = q3.last_pool_plain(x, lens, S, w, 1e-6)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_qwen3_kernels_refuse_what_they_do_not_take(cuda):
+    q3 = _q3()
+    bf = torch.bfloat16
+    lens = torch.full((2,), 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="nh / nkv"):
+        q3.attention(torch.zeros((64, 5 * 128), device=cuda, dtype=bf),
+                     lens, 2, 32, 3, 1)
+    with pytest.raises(ValueError, match="nh / nkv"):
+        q3.attention(torch.zeros((64, 11 * 128), device=cuda, dtype=bf),
+                     lens, 2, 32, 9, 1)
+    with pytest.raises(ValueError, match="S % 16"):
+        q3.attention(torch.zeros((2 * 40, 6 * 128), device=cuda, dtype=bf),
+                     lens, 2, 40, 4, 1)
+    a = torch.zeros((64, 8192), device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="16"):
+        q3.swiglu(a, torch.zeros((64, 32), device=cuda),
+                  torch.zeros((8192, 256), device=cuda, dtype=bf), 1e-6)
+    with pytest.raises(ValueError, match="H % 256"):
+        q3.embed(torch.zeros((10, 384), device=cuda, dtype=bf),
+                 torch.zeros((4,), device=cuda, dtype=torch.int64),
+                 torch.ones(384, device=cuda), bf)
+
+
+def test_qwen3_on_the_card_matches_its_cpu_route(cuda):
+    """Two layers at Qwen3-Embedding-8B's widths (a vocab of 1,000): the
+    kernel route in bf16 against the CPU route (the plain twins) in f32 on
+    the same weights, per-row cosine of the embeddings >= 0.999; each
+    forward launches 1 embed, 5 a layer and 1 pool, no other kernel of
+    the encoder."""
+    import dataclasses
+
+    from dawnsearch_tpu_torch.models import qwen3 as M
+    q3 = _q3()
+    cfg = dataclasses.replace(M.QWEN3_EMBEDDING_8B, num_layers=2,
+                              vocab_size=1000, max_position_embeddings=512,
+                              dtype=torch.bfloat16)
+    params = M.init_params(torch.Generator().manual_seed(3), cfg)
+    B, S = 3, 256
+    ids = torch.randint(0, cfg.vocab_size, (B, S))
+    mask = (torch.arange(S)[None] < torch.tensor([256, 200, 9])[:, None]
+            ).to(torch.int32)
+    before = dict(q3.launches)
+    card = M.Qwen3Model(cfg, params, device=cuda)(ids.to(cuda),
+                                                  mask.to(cuda)).cpu()
+    got = {k: q3.launches[k] - before[k] for k in q3.launches}
+    assert got == {"kernel_qwen3_embed": 1, "kernel_qwen3_qkv_norm_rope": 2,
+                   "kernel_qwen3_attention": 2, "kernel_qwen3_resid_rms": 4,
+                   "kernel_qwen3_swiglu": 2, "kernel_qwen3_last_pool": 1}
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    want = M.Qwen3Model(cpu_cfg, params, device="cpu")(ids, mask)
+    assert float(_rowcos(card, want).min()) >= 0.999
+
+
+def test_qwen3_w8a8_route_on_the_card_stays_near_its_cpu_route(cuda):
+    """layer_impl "layer_i8" (the benchmark's control) at Qwen3-Embedding-
+    8B's widths, two layers: the four projections on K4's s8 pieces, the
+    attention, embedding and pool on Qwen3's kernels and none of its bf16
+    GEMM epilogues; the embeddings within 8-bit rounding of the CPU route
+    in f32 (per-row cosine >= 0.99) and finite."""
+    import dataclasses
+
+    from dawnsearch_tpu_torch.models import qwen3 as M
+    q3 = _q3()
+    cfg = dataclasses.replace(M.QWEN3_EMBEDDING_8B, num_layers=2,
+                              vocab_size=1000, max_position_embeddings=512,
+                              dtype=torch.bfloat16, layer_impl="layer_i8")
+    params = M.init_params(torch.Generator().manual_seed(5), cfg)
+    B, S = 3, 256
+    ids = torch.randint(0, cfg.vocab_size, (B, S))
+    mask = (torch.arange(S)[None] < torch.tensor([256, 200, 9])[:, None]
+            ).to(torch.int32)
+    before = dict(q3.launches)
+    card = M.Qwen3Model(cfg, params, device=cuda)(ids.to(cuda),
+                                                  mask.to(cuda)).cpu()
+    got = {k: q3.launches[k] - before[k] for k in q3.launches}
+    assert got == {"kernel_qwen3_embed": 1, "kernel_qwen3_qkv_norm_rope": 0,
+                   "kernel_qwen3_attention": 2, "kernel_qwen3_resid_rms": 0,
+                   "kernel_qwen3_swiglu": 0, "kernel_qwen3_last_pool": 1}
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    want = M.Qwen3Model(cpu_cfg, params, device="cpu")(ids, mask)
+    assert bool(torch.isfinite(card).all())
+    assert float(_rowcos(card, want).min()) >= 0.99
